@@ -1,0 +1,136 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: every test skips without a CUDA device. On a machine with
+one (no jax needed there):
+
+    python -m pytest --noconftest -q tests/test_torch_port_cuda.py
+
+Shapes are small but cover what the kernels special-case: -1 candidates,
+0-token docs (also last), a max_len that is not a multiple of 32, queries
+of fewer than 8, 24 and more than 32 tokens (query tiles of 8-32 rows),
+queries whose f32 tile needs more than 48 KB of shared memory, per-doc
+scales, and every float storage dtype.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from visual_rag_tpu_torch import RetrievalEngine, synthetic_index
+from visual_rag_tpu_torch.ops.kernels.maxsim_rerank import (
+    rerank_candidates,
+    rerank_candidates_ref,
+)
+from visual_rag_tpu_torch.ops.kernels.maxsim_scan import (
+    exhaustive_scores_packed,
+    exhaustive_scores_packed_ref,
+)
+from visual_rag_tpu_torch.retrieval import plans, wire
+from visual_rag_tpu_torch.retrieval.oracle import strict_rank_equal
+
+pytestmark = pytest.mark.cuda
+
+DIM = 128
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# f32 stores: both sides f32, only the summation order differs; 2-byte
+# stores: same exact products, f32 sums of up to ~130 tokens of |x| <= 1
+ATOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3, torch.float16: 1e-3}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _store(dtype, dev, seed=0, n_docs=37):
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, 90, n_docs).astype(np.int32)
+    lengths[[3, 11, n_docs - 1]] = 0  # empty docs, the last one included
+    lengths[5] = 77  # max_len not a multiple of 32
+    aligned = (lengths + 31) // 32 * 32
+    offsets = np.concatenate([[0], np.cumsum(aligned[:-1])]).astype(np.int32)
+    max_len = int(lengths.max())
+    rows = int(aligned.sum()) + (max_len + 31) // 32 * 32
+    flat = rng.standard_normal((rows, DIM)).astype(np.float32)
+    flat /= np.linalg.norm(flat, axis=1, keepdims=True)
+    return (torch.from_numpy(flat).to(dtype).to(dev), torch.from_numpy(offsets).to(dev),
+            torch.from_numpy(lengths).to(dev), max_len)
+
+
+def _queries(rng, n, lo, hi):
+    return [rng.standard_normal((int(rng.integers(lo, hi + 1)), DIM)).astype(np.float32)
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nq_range", [(3, 6), (8, 24), (30, 45), (100, 130)])
+def test_rerank_matches_plain(dev, dtype, nq_range):
+    flat, offs, lens, max_len = _store(dtype, dev)
+    rng = np.random.default_rng(1)
+    raw, qmask = wire.to_device(wire.pad_queries_raw(_queries(rng, 6, *nq_range), DIM), dev)
+    tokens, _ = plans._prep_queries(raw, qmask)
+    cand = torch.from_numpy(rng.integers(-1, 37, (6, 19)).astype(np.int32))
+    cand[:, 0] = 3  # an empty doc in every row
+    cand = cand.to(dev)
+    scales = torch.from_numpy(rng.uniform(0.5, 2.0, 37).astype(np.float32)).to(dev)
+    for sc in (None, scales):
+        args = (flat, offs, lens, tokens, qmask, cand, max_len, sc)
+        got = rerank_candidates(*args)
+        want = rerank_candidates_ref(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL[dtype])
+        assert (got[cand < 0] == -1e30).all() and (got[:, 0] == -1e30).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [8, 64])
+def test_scan_matches_plain_and_is_deterministic(dev, dtype, b):
+    flat, offs, lens, max_len = _store(dtype, dev, seed=2)
+    rng = np.random.default_rng(3)
+    (p, pos, qid), nq, _ = wire.pack_queries_grouped(_queries(rng, b, 5, 40), DIM)
+    packed = plans._prep_queries_packed(*wire.to_device((p, pos, qid), dev), b, nq)[3]
+    scales = torch.from_numpy(rng.uniform(0.5, 2.0, 37).astype(np.float32)).to(dev)
+    for sc in (None, scales):
+        args = (flat, offs, lens, packed["q"], packed["qid"], max_len, b, sc)
+        got = exhaustive_scores_packed(*args)
+        again = exhaustive_scores_packed(*args)
+        want = exhaustive_scores_packed_ref(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL[dtype])
+        assert torch.equal(got, again)
+        assert (got[:, lens == 0] == -1e30).all()
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    flat, offs, lens, max_len = _store(torch.float32, dev)
+    tokens = torch.zeros((2, 8, DIM), device=dev)
+    qmask = torch.ones((2, 8), device=dev)
+    cand = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        rerank_candidates(flat, offs.long(), lens, tokens, qmask, cand, max_len)
+    with pytest.raises(ValueError, match="contiguous"):
+        rerank_candidates(flat[:, ::2], offs, lens, tokens[..., ::2], qmask, cand, max_len)
+    with pytest.raises(ValueError, match="store dtype"):
+        exhaustive_scores_packed(flat.to(torch.float64), offs, lens, tokens[0], qmask.int(),
+                                 max_len, 1)
+    shifted = torch.zeros(2 * 8 * DIM + 1, device=dev)[1:].view(2, 8, DIM)
+    with pytest.raises(ValueError, match="aligned"):
+        rerank_candidates(flat, offs, lens, shifted, qmask, cand, max_len)
+
+
+@pytest.mark.parametrize("query_wire", ["padded", "packed"])
+def test_engine_on_card_matches_cpu(dev, query_wire):
+    # float32 (see chip_smoke.py): with a 2-byte store the two devices' query
+    # normalisations may round to different store values
+    idx = synthetic_index(150, min_tokens=20, max_tokens=300, pooled_rows=6,
+                          storage_dtype="float32", seed=5, device="cpu")
+    qs = _queries(np.random.default_rng(6), 40, 8, 24)
+    card, cpu = (RetrievalEngine(i, query_wire=query_wire) for i in (idx.to(dev), idx))
+    for mode, key in (("two_stage", "score_final"), ("single_full", "score")):
+        kw = dict(mode=mode, top_k=10, prefetch_k=150, with_payload=False)
+        for a, c in zip(card.search_embedded_batch(qs, **kw),
+                        cpu.search_embedded_batch(qs, **kw)):
+            assert strict_rank_equal([dict(h, score=h[key]) for h in c], a, score_tol=1e-4)

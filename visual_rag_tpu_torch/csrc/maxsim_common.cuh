@@ -1,0 +1,135 @@
+// Shared device code of the MaxSim kernels (maxsim_rerank.cu, maxsim_scan.cu).
+//
+// Both kernels reduce to one step: for a tile of TQ query rows held in
+// shared memory (f32) and ONE doc's token rows [0, len) in device memory,
+// compute rowmax[t] = max_r dot(q[t], doc[r]). tile_rowmax() does that step.
+//
+// Numerics: store values (f32, bf16 or f16) and queries (already cast to the
+// store dtype by the wrapper) are widened to f32, so every product is exact
+// and products accumulate in f32 -- the TPU kernels' bf16 x bf16 -> f32 MXU
+// semantics. Each dot product is summed by one thread in a fixed order and
+// max is exact, so a kernel's result does not depend on scheduling.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace vrt {
+
+constexpr float NEG_INF = -1e30f;  // score of padding and empty docs
+constexpr int THREADS = 128;       // doc rows in flight per block
+constexpr int NWARPS = THREADS / 32;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+
+// 8 consecutive elements -> f32. The source is 16-byte aligned (the wrapper
+// requires dim % 8 == 0 and 16-byte-aligned base pointers).
+__device__ __forceinline__ void load8(const float* p, float v[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const __half* p, float v[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// rowmax_s[t] = max over r < len of dot(q_s[t, :], doc[r, :]) for t < TQ.
+//
+// Thread i takes doc rows i, i + THREADS, ...: it reads each of its rows
+// straight from device memory once, 16 bytes at a time, and dots it with
+// all TQ query rows, whose values every lane of a warp reads at the same
+// shared-memory address (a broadcast, no bank conflicts). It keeps a running
+// max per query row in registers; warp shuffles and one pass over shared
+// memory then reduce the maxima across threads. Every thread of the block
+// must call this; it ends with __syncthreads(), after which rowmax_s is
+// valid. With len == 0 the result is -inf.
+template <typename T, int TQ>
+__device__ __forceinline__ void tile_rowmax(const float* __restrict__ q_s, int dim,
+                                            const T* __restrict__ doc, int len,
+                                            float* red_s, float* rowmax_s) {
+  float m[TQ];
+#pragma unroll
+  for (int t = 0; t < TQ; ++t) m[t] = -CUDART_INF_F;
+  for (int r = threadIdx.x; r < len; r += THREADS) {
+    const T* row = doc + static_cast<size_t>(r) * dim;
+    float acc[TQ];
+#pragma unroll
+    for (int t = 0; t < TQ; ++t) acc[t] = 0.f;
+    for (int c = 0; c < dim; c += 8) {
+      float v[8];
+      load8(row + c, v);
+#pragma unroll
+      for (int t = 0; t < TQ; ++t) {
+        const float4 qa = *reinterpret_cast<const float4*>(q_s + t * dim + c);
+        const float4 qb = *reinterpret_cast<const float4*>(q_s + t * dim + c + 4);
+        float a = acc[t];
+        a = fmaf(qa.x, v[0], a); a = fmaf(qa.y, v[1], a);
+        a = fmaf(qa.z, v[2], a); a = fmaf(qa.w, v[3], a);
+        a = fmaf(qb.x, v[4], a); a = fmaf(qb.y, v[5], a);
+        a = fmaf(qb.z, v[6], a); a = fmaf(qb.w, v[7], a);
+        acc[t] = a;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < TQ; ++t) m[t] = fmaxf(m[t], acc[t]);
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int t = 0; t < TQ; ++t) {
+    float x = m[t];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+    if (lane == 0) red_s[warp * TQ + t] = x;
+  }
+  __syncthreads();
+  if (threadIdx.x < TQ) {
+    float x = red_s[threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < NWARPS; ++w) x = fmaxf(x, red_s[w * TQ + threadIdx.x]);
+    rowmax_s[threadIdx.x] = x;
+  }
+  __syncthreads();
+}
+
+// Dynamic shared memory above the default 48 KB must be opted into.
+template <typename K>
+__host__ cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// Query rows per tile: the group (or query) height rounded up to 8, at most 32.
+__host__ inline int tile_rows(int rows) {
+  if (rows <= 8) return 8;
+  if (rows <= 16) return 16;
+  if (rows <= 24) return 24;
+  return 32;
+}
+
+}  // namespace vrt

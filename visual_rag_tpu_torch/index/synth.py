@@ -1,0 +1,97 @@
+"""Synthetic corpus generated on the device: a SealedIndex without host transfer.
+
+Port of ``visual_rag_tpu/index/synth.py:41-171`` (``synthetic_index``) for
+float storage dtypes. Doc lengths, offsets and the tail pad come from the
+same ``np.random.default_rng(seed)`` stream as the JAX version (``:62-70``),
+so the layout matches it exactly; the vector values come from a
+``torch.Generator`` on the target device and differ from ``jax.random``'s.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from visual_rag_tpu_torch.device import resolve_device, storage_dtype as _torch_dtype
+from visual_rag_tpu_torch.index.manifest import Manifest
+from visual_rag_tpu_torch.index.store import (
+    PaddedMultiVectors,
+    RaggedMultiVectors,
+    SealedIndex,
+    SingleVectors,
+)
+
+ALIGN = 32  # doc block alignment of the ragged store (index/store.py)
+
+
+def _fill_normalized(buf: torch.Tensor, gen: torch.Generator, chunk_rows: int):
+    """Fill ``buf`` [rows, dim] in place with row-normalised gaussians.
+
+    Generated in chunks: the f32 intermediate exists only at chunk size, so
+    a 100k-doc bf16 store (~5 GB) never needs an f32 copy of itself.
+    """
+    rows, dim = buf.shape
+    for s in range(0, rows, chunk_rows):
+        n = min(chunk_rows, rows - s)
+        x = torch.randn((n, dim), generator=gen, device=buf.device,
+                        dtype=torch.float32)
+        x *= torch.rsqrt((x * x).sum(dim=-1, keepdim=True) + 1e-12)
+        buf[s:s + n] = x.to(buf.dtype)
+
+
+def synthetic_index(
+    num_docs: int,
+    dim: int = 128,
+    min_tokens: int = 128,
+    max_tokens: int = 256,
+    pooled_rows: int = 12,
+    storage_dtype: str = "bfloat16",
+    seed: int = 0,
+    device="cuda",
+    chunk_rows: int = 1 << 20,
+) -> SealedIndex:
+    """SealedIndex of ``num_docs`` synthetic pages generated on ``device``.
+
+    Stores, as in the JAX version: ``initial`` (ragged, ``min_tokens`` to
+    ``max_tokens`` rows per doc), ``mean_pooling`` and
+    ``experimental_pooling`` (padded, ``pooled_rows`` rows each), and
+    ``global_pooling`` (single vectors, float32).
+    """
+    sdt = _torch_dtype(storage_dtype)
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(min_tokens, max_tokens + 1, num_docs).astype(np.int32)
+    aligned = ((lengths + ALIGN - 1) // ALIGN) * ALIGN
+    offsets = np.zeros(num_docs, np.int64)
+    np.cumsum(aligned[:-1], out=offsets[1:])
+    max_len = int(lengths.max())
+    total = int(aligned.sum()) + ((max_len + 31) // 32) * 32
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    flat = torch.empty((total, dim), dtype=sdt, device=dev)
+    _fill_normalized(flat, gen, chunk_rows)
+
+    def padded():
+        vals = torch.empty((num_docs, pooled_rows, dim), dtype=sdt, device=dev)
+        _fill_normalized(vals.view(num_docs * pooled_rows, dim), gen, chunk_rows)
+        return PaddedMultiVectors(
+            values=vals,
+            mask=torch.ones((num_docs, pooled_rows), dtype=torch.bool, device=dev))
+
+    glob = torch.empty((num_docs, dim), dtype=torch.float32, device=dev)
+    stores = {
+        "initial": RaggedMultiVectors(
+            flat=flat,
+            offsets=torch.from_numpy(offsets.astype(np.int32)).to(dev),
+            lengths=torch.from_numpy(lengths).to(dev),
+            max_len=max_len),
+        "mean_pooling": padded(),
+        "experimental_pooling": padded(),
+    }
+    _fill_normalized(glob, gen, chunk_rows)
+    stores["global_pooling"] = SingleVectors(values=glob)
+    manifest = Manifest([f"d{i}" for i in range(num_docs)],
+                        [{} for _ in range(num_docs)])
+    return SealedIndex(stores=stores, manifest=manifest,
+                       storage_dtype=storage_dtype)

@@ -1,0 +1,101 @@
+"""Build and load the port's CUDA kernels: ``nvcc`` + ``ctypes``.
+
+New in the port. All ``csrc/*.cu`` files compile with one ``nvcc`` call
+into a shared library with a plain C interface, which :mod:`ctypes` loads.
+This takes seconds; a build through ``torch.utils.cpp_extension`` (which
+includes PyTorch's headers) takes minutes.
+
+The library lands in ``build/kernels/`` beside the package, named after a
+hash of the sources and flags, so an edit forces a rebuild. Only the
+repository's sources are built; a failed build raises with nvcc's stderr.
+Nothing is built at import: the first kernel launch builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo"]
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None  # wall time of the build this process made, if any
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.access("/usr/local/cuda/bin/nvcc", os.X_OK):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found on PATH or under /usr/local/cuda/bin: the CUDA "
+            "kernels cannot be built")
+    return nvcc
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libvrt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _declare(lib):
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.vrt_rerank_candidates.argtypes = [
+        i32, vp, i32, vp, vp, vp, i32, i32, i32, vp, vp, i32, i64, vp, vp, vp]
+    lib.vrt_rerank_candidates.restype = i32
+    lib.vrt_exhaustive_scores_packed.argtypes = [
+        i32, vp, i32, vp, vp, i32, vp, vp, i32, i32, i32, i32, vp, vp, vp]
+    lib.vrt_exhaustive_scores_packed.restype = i32
+    lib.vrt_error_string.argtypes = [i32]
+    lib.vrt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load_library():
+    """The kernel library, built on first use (thread-safe)."""
+    global _lib, build_seconds
+    with _lock:
+        if _lib is not None:
+            return _lib
+        out = library_path()
+        if not out.exists():
+            import time
+
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                    f"{proc.stderr}{proc.stdout}")
+            build_seconds = time.perf_counter() - t0
+            out.with_suffix(".log").write_text(proc.stderr + proc.stdout)
+            os.replace(tmp, out)
+        _lib = _declare(ctypes.CDLL(str(out)))
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        msg = load_library().vrt_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

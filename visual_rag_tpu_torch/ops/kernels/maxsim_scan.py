@@ -1,0 +1,117 @@
+"""Exhaustive MaxSim scan: every doc scored against the whole query batch.
+
+Port of ``visual_rag_tpu/ops/kernels/maxsim_scan.py:169-257``
+(``exhaustive_scores_packed``) for float stores; the ``qdot_int8`` variant
+waits for int8 stores (ROADMAP A6). On a CUDA tensor the wrapper launches
+the hand-written kernel in ``csrc/maxsim_scan.cu``; on a CPU tensor it runs
+the plain PyTorch version :func:`exhaustive_scores_packed_ref`, ported from
+``visual_rag_tpu/retrieval/batch.py:355-432`` (``xla_exhaustive_packed``,
+chunked over docs). Empty docs score ``NEG_INF`` (TPU kernel ``:256-257``).
+
+The kernel sums each query's rows in a fixed order, so two calls on the
+same inputs give bit-equal scores: the strict oracle relies on it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from visual_rag_tpu_torch.ops.kernels import _build
+from visual_rag_tpu_torch.ops.kernels._checks import (
+    DTYPE_CODES,
+    check_scales,
+    check_store,
+    on_cpu,
+    ptr,
+    stream_ptr,
+)
+
+NEG_INF = -1e30
+_SIMS_BUDGET_BYTES = 256 * 1024 * 1024  # f32 similarity tile per doc chunk
+
+
+def exhaustive_scores_packed(
+    flat: torch.Tensor,  # [N + pad, dim] ragged store (f32/bf16/f16)
+    offsets: torch.Tensor,  # [D] int32
+    lengths: torch.Tensor,  # [D] int32
+    qpacked: torch.Tensor,  # [G * Rg, dim] l2-normalised packed query tokens
+    qid: torch.Tensor,  # [G, Rg] int32 in-group owner (-1 = pad row)
+    max_len: int,
+    b: int,  # batch size (G * gq)
+    doc_scales: Optional[torch.Tensor] = None,  # [D] f32 per-doc scales
+) -> torch.Tensor:
+    """Exact MaxSim scores [B, D] f32 of every query against every doc."""
+    if on_cpu(flat):
+        return exhaustive_scores_packed_ref(flat, offsets, lengths, qpacked, qid,
+                                            max_len, b, doc_scales)
+    check_store(flat, offsets, lengths)
+    if qid.dim() != 2:
+        raise ValueError(f"qid must be [G, Rg], got {tuple(qid.shape)}")
+    g, rg = qid.shape
+    dim = flat.shape[1]
+    if tuple(qpacked.shape) != (g * rg, dim):
+        raise ValueError(f"qpacked must be [{g * rg}, {dim}], got {tuple(qpacked.shape)}")
+    if g == 0 or b % g:
+        raise ValueError(f"batch {b} is not a multiple of the {g} query groups")
+    if g > 65535:
+        raise ValueError(f"{g} query groups exceed the kernel's grid limit of 65535")
+    for name, t in (("qpacked", qpacked), ("qid", qid)):
+        if t.device != flat.device:
+            raise ValueError(f"{name} is on {t.device}, the store on {flat.device}")
+    check_scales(doc_scales, flat, offsets)
+    d = offsets.shape[0]
+    q = qpacked.to(flat.dtype).contiguous()  # cast to the store dtype, as on the TPU
+    if q.data_ptr() % 16:
+        raise ValueError("qpacked must start 16-byte aligned")
+    qi = qid.to(torch.int32).contiguous()
+    out = torch.empty((b, d), dtype=torch.float32, device=flat.device)
+    if d == 0:
+        return out
+    lib = _build.load_library()
+    err = lib.vrt_exhaustive_scores_packed(
+        flat.device.index, ptr(flat), DTYPE_CODES[flat.dtype], ptr(offsets), ptr(lengths), d,
+        ptr(doc_scales), ptr(q), g, rg, b // g, dim, ptr(qi), ptr(out),
+        stream_ptr(flat.device))
+    _build.check(err, "exhaustive_scores_packed launch")
+    exhaustive_scores_packed.launches += 1
+    return out
+
+
+exhaustive_scores_packed.launches = 0
+
+
+def exhaustive_scores_packed_ref(flat, offsets, lengths, qpacked, qid,
+                                 max_len: int, b: int, doc_scales=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`exhaustive_scores_packed`, doc-major:
+    each chunk of docs is gathered once as ``max_len``-row windows and
+    scored against every packed row in one matmul; rows ``>= len`` are
+    masked, the max is taken per packed row, and a [gq, Rg] ownership
+    matmul per group sums each query's rows. Queries are cast to the store
+    dtype, then all math is f32."""
+    g, rg = qid.shape
+    gq = b // g
+    dev = flat.device
+    d = offsets.shape[0]
+    q = qpacked.to(flat.dtype).float()  # [M, dim]
+    seg = (qid.long()[:, None, :] == torch.arange(gq, device=dev)[None, :, None]).float()
+    ar = torch.arange(max(1, int(max_len)), device=dev)
+    per_doc = max(1, q.shape[0] * ar.numel() * 4)
+    chunk = max(1, min(max(d, 1), _SIMS_BUDGET_BYTES // per_doc))
+    out = torch.empty((b, d), dtype=torch.float32, device=dev)
+    for s in range(0, d, chunk):
+        offs = offsets[s:s + chunk].long()
+        lens = lengths[s:s + chunk].long()
+        c = offs.shape[0]
+        idx = (offs[:, None] + ar).clamp(max=flat.shape[0] - 1)  # [c, T]
+        docs = flat[idx].float().reshape(c * ar.numel(), -1)
+        sims = (q @ docs.T).reshape(-1, c, ar.numel())  # [M, c, T]
+        sims = sims.masked_fill(~(ar < lens[:, None])[None], NEG_INF)
+        has = lens > 0
+        per_tok = torch.where(has[None, :], sims.amax(dim=-1), 0.0)  # [M, c]
+        res = torch.bmm(seg, per_tok.reshape(g, rg, c)).reshape(b, c)
+        if doc_scales is not None:
+            res = res * doc_scales[s:s + chunk].float()[None, :]
+        out[:, s:s + chunk] = torch.where(has[None, :], res, NEG_INF)
+    return out

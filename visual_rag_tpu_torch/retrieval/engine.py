@@ -1,0 +1,313 @@
+"""RetrievalEngine: the batched query planner over a SealedIndex.
+
+Port of ``visual_rag_tpu/retrieval/engine.py`` for the main path: modes
+``two_stage`` (stage-1 ``pooled_query_vs_standard_pooling``) and
+``single_full``, through ``search_embedded_batch[es]`` and the
+``_dispatch_batch`` / ``_finish_batch`` split that the serving layer uses
+(``serving/server.py:195-236`` of the JAX package). Other modes, other
+stage-1 modes and filters raise ``NotImplementedError`` naming the ROADMAP
+item that ports them; nothing routes elsewhere without saying so.
+
+Policies, as the JAX engine's except where noted:
+
+- wire: ``query_wire="auto"`` is the packed wire at B >= 32 on CUDA and the
+  padded wire on the CPU (``engine.py:637-639``). The wire is always f32;
+  the JAX engine's automatic f16 wire is not inherited (ROADMAP C6).
+- rerank: ``scan`` when the wire is packed and B*K >= 4*D
+  (``engine.py:178``), else the ``plain`` rerank kernel. ``dedup`` and
+  ``sweep`` are not ported; asking for them raises. ``scan`` on the padded
+  wire raises (the JAX engine falls back there with a warning).
+- stage-1 cut: always exact (the JAX engine's ``approx_max_k`` at >= 65536
+  docs is a declared difference, ROADMAP).
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from visual_rag_tpu_torch.index.store import (
+    PaddedMultiVectors,
+    RaggedMultiVectors,
+    SealedIndex,
+)
+from visual_rag_tpu_torch.retrieval import plans, wire
+from visual_rag_tpu_torch.retrieval.local import NEG_INF
+
+STAGE1_MODES = (
+    "pooled_query_vs_standard_pooling",
+    "tokens_vs_standard_pooling",
+    "pooled_query_vs_experimental_pooling",
+    "tokens_vs_experimental_pooling",
+    "pooled_query_vs_global",
+)
+
+# Deprecated stage-1 aliases (reference two_stage.py:131-139)
+_STAGE1_ALIASES = {
+    "pooled_query_vs_tiles": "pooled_query_vs_standard_pooling",
+    "tokens_vs_tiles": "tokens_vs_standard_pooling",
+    "pooled_query_vs_experimental": "pooled_query_vs_experimental_pooling",
+    "tokens_vs_experimental": "tokens_vs_experimental_pooling",
+}
+
+SEARCH_MODES = (
+    "single_full",
+    "single_tiles",
+    "single_pooled",
+    "single_global",
+    "single_experimental_tokens",
+    "single_experimental_pooled",
+    "two_stage",
+    "three_stage",
+)
+PORTED_MODES = ("two_stage", "single_full")
+
+
+class BatchResultArrays:
+    """Dense batched results: ``ids`` object [B, K] of manifest ids (None
+    where a row has fewer than K hits), ``scores`` [B, K] f32, ``valid``
+    [B, K] bool, ``indices`` [B, K] int32 doc indices (-1 invalid).
+    ``to_dicts()`` gives the classic list-of-hit-dicts form."""
+
+    __slots__ = ("ids", "scores", "valid", "indices")
+
+    def __init__(self, ids, scores, valid, indices):
+        self.ids = ids
+        self.scores = scores
+        self.valid = valid
+        self.indices = indices
+
+    def __len__(self):
+        return len(self.ids)
+
+    def to_dicts(self) -> List[List[Dict[str, Any]]]:
+        return [
+            [{"id": i, "rank": r, "score": s, "score_final": s}
+             for r, (i, s, v) in enumerate(zip(row_i, row_s, row_v)) if v]
+            for row_i, row_s, row_v in zip(self.ids.tolist(), self.scores.tolist(),
+                                           self.valid.tolist())
+        ]
+
+
+class RetrievalEngine:
+    """Batched query planner over one sealed collection, on its device."""
+
+    SCAN_MIN_CAND_RATIO = 4.0  # scan when B*K >= this * D
+    PACKED_MIN_BATCH = 32  # auto wire: packed from this batch bucket (CUDA)
+    BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+
+    def __init__(
+        self,
+        index: SealedIndex,
+        full_vector_name: str = "initial",
+        pooled_vector_name: str = "mean_pooling",
+        rerank_impl: str = "auto",
+        query_wire: str = "auto",
+    ):
+        if rerank_impl in ("dedup", "sweep"):
+            raise NotImplementedError(
+                f"rerank_impl={rerank_impl!r} is not ported yet (ROADMAP B: K3 "
+                "dedup and K4 sweep); use 'auto', 'plain' or 'scan'")
+        if rerank_impl not in ("auto", "plain", "scan"):
+            raise ValueError(f"rerank_impl must be auto|plain|scan, got {rerank_impl!r}")
+        if query_wire not in ("auto", "padded", "packed"):
+            raise ValueError(f"query_wire must be auto|padded|packed, got {query_wire!r}")
+        self.index = index
+        self.full_vector_name = full_vector_name
+        self.pooled_vector_name = pooled_vector_name
+        self.rerank_impl = rerank_impl
+        self.query_wire = query_wire
+        self.device = index.device if index.stores else None
+        self._arrays: Dict[str, Dict] = {}
+        self._ids: Optional[np.ndarray] = None
+
+    # -- policies --------------------------------------------------------------
+
+    @classmethod
+    def _bucket_batch(cls, queries):
+        """Pad ``queries`` up to the enclosing batch bucket (above the
+        ladder, the next multiple of 256), so the packed wire's groups of 32
+        divide every batch from 32 up. Padding rows repeat query 0; callers
+        slice results back to ``n_real``. Returns (queries, n_real, b)."""
+        n_real = len(queries)
+        b = next((c for c in cls.BATCH_BUCKETS if n_real <= c),
+                 ((n_real + 255) // 256) * 256)
+        if b != n_real:
+            queries = list(queries) + [queries[0]] * (b - n_real)
+        return queries, n_real, b
+
+    def _use_packed(self, b: int) -> bool:
+        if self.query_wire == "auto":
+            return self.device.type == "cuda" and b >= self.PACKED_MIN_BATCH
+        return self.query_wire == "packed"
+
+    def _rerank_impl(self, b: int, k: int, packed: bool) -> str:
+        if self.rerank_impl == "scan" and not packed:
+            raise ValueError(
+                "rerank_impl='scan' needs the packed query wire (query_wire='packed', "
+                f"or 'auto' on CUDA at B >= {self.PACKED_MIN_BATCH}); this batch "
+                "goes on the padded wire")
+        if self.rerank_impl != "auto":
+            return self.rerank_impl
+        if packed and b * k >= self.SCAN_MIN_CAND_RATIO * self.index.num_docs:
+            return "scan"
+        return "plain"
+
+    def _fused_stage1(self, stage1_mode: str):
+        m = _STAGE1_ALIASES.get(stage1_mode, stage1_mode)
+        if m not in STAGE1_MODES:
+            raise ValueError(f"Unknown stage1_mode: {stage1_mode}")
+        if m != "pooled_query_vs_standard_pooling":
+            raise NotImplementedError(
+                f"stage1_mode {m!r} is not ported yet (ROADMAP A6)")
+        return "pooled_padded", self.pooled_vector_name
+
+    def _fused_arrays(self, name: str) -> Dict:
+        """Store tensors in the layout the plans take, cached per store."""
+        arr = self._arrays.get(name)
+        if arr is None:
+            store = self.index.store(name)
+            if isinstance(store, RaggedMultiVectors):
+                arr = {"flat": store.flat, "offsets": store.offsets,
+                       "lengths": store.lengths, "max_len": store.max_len}
+            elif isinstance(store, PaddedMultiVectors):
+                arr = {"vals_t": store.values.permute(1, 0, 2).contiguous(),
+                       "mask_t": store.mask.T.contiguous()}
+            else:
+                raise NotImplementedError(
+                    f"store {name!r} ({store.kind}) has no ported plan (ROADMAP A6)")
+            self._arrays[name] = arr
+        return arr
+
+    # -- public search API -------------------------------------------------------
+
+    def search_embedded_batch(self, query_embeddings, mode: str = "two_stage",
+                              top_k: int = 10, prefetch_k: Optional[int] = None,
+                              stage1_mode: str = "pooled_query_vs_standard_pooling",
+                              stage1_k: Optional[int] = None,
+                              stage2_k: Optional[int] = None, filter_obj=None,
+                              with_payload: bool = True, return_arrays: bool = False):
+        """Batched search: list of [nq_i, dim] queries -> list of hit lists
+        (or :class:`BatchResultArrays` with ``return_arrays=True``, which
+        requires ``with_payload=False``)."""
+        return self._finish_batch(self._dispatch_batch(
+            query_embeddings, mode=mode, top_k=top_k, prefetch_k=prefetch_k,
+            stage1_mode=stage1_mode, stage1_k=stage1_k, stage2_k=stage2_k,
+            filter_obj=filter_obj, with_payload=with_payload,
+            return_arrays=return_arrays))
+
+    def search_embedded_batches(self, query_batches, depth: int = 2, **search_kwargs):
+        """Pipelined batches: dispatch up to ``depth`` batches ahead before
+        fetching batch i's results. Yields one result per batch, in order."""
+        depth = max(1, int(depth))
+        pend = deque()
+        for qb in query_batches:
+            pend.append(self._dispatch_batch(qb, **search_kwargs))
+            if len(pend) > depth:
+                yield self._finish_batch(pend.popleft())
+        while pend:
+            yield self._finish_batch(pend.popleft())
+
+    def _dispatch_batch(self, query_embeddings, mode: str = "two_stage",
+                        top_k: int = 10, prefetch_k: Optional[int] = None,
+                        stage1_mode: str = "pooled_query_vs_standard_pooling",
+                        stage1_k: Optional[int] = None, stage2_k: Optional[int] = None,
+                        filter_obj=None, with_payload: bool = True,
+                        return_arrays: bool = False):
+        """Queue one batch's device work; returns a pending record for
+        :meth:`_finish_batch` (device results not yet fetched)."""
+        if mode not in SEARCH_MODES:
+            raise ValueError(f"Unknown mode: {mode}. Choose one of {SEARCH_MODES}")
+        if mode not in PORTED_MODES:
+            raise NotImplementedError(
+                f"mode {mode!r} is not ported yet (ROADMAP A6); ported: {PORTED_MODES}")
+        if filter_obj is not None:
+            raise NotImplementedError("payload filters are not ported yet (ROADMAP A6)")
+        if return_arrays and with_payload:
+            raise ValueError("return_arrays=True requires with_payload=False")
+        d = self.index.num_docs
+        if d == 0 or not len(query_embeddings):
+            return ("empty", len(query_embeddings), with_payload, return_arrays, {})
+        queries, n_real, b = self._bucket_batch(query_embeddings)
+        ragged = self._fused_arrays(self.full_vector_name)
+        dim = ragged["flat"].shape[1]
+        packed = self._use_packed(b)
+        if packed:
+            arrays, nq, _ = wire.pack_queries_grouped(queries, dim)
+            q1, q2, q3 = wire.to_device(arrays, self.device)
+        else:
+            arrays = wire.pad_queries_raw(queries, dim)
+            q1, q2 = wire.to_device(arrays, self.device)
+            q3, nq = None, arrays[0].shape[1]
+        common = dict(wire="packed" if packed else "padded", b=b, nq=nq)
+        if mode == "single_full":
+            vals, idx = plans.single_plan(ragged, q1, q2, q3, k=max(1, min(int(top_k), d)),
+                                          **common)
+            return ("done", n_real, with_payload, return_arrays, {"idx": idx, "score": vals})
+        if prefetch_k is None:
+            prefetch_k = max(100, top_k * 10)  # reference default (two_stage.py:128-129)
+        kind, name = self._fused_stage1(stage1_mode)
+        pk = max(1, min(int(prefetch_k), d))
+        vals, idx = plans.two_stage_plan(
+            self._fused_arrays(name), ragged, q1, q2, q3, kind=kind, pk=pk,
+            k=max(1, min(int(top_k), pk)), impl=self._rerank_impl(b, pk, packed), **common)
+        return ("done", n_real, with_payload, return_arrays,
+                {"idx": idx, "score_stage2": vals, "score_final": vals})
+
+    def _finish_batch(self, pending):
+        tag, n_real, with_payload, return_arrays, arrays = pending
+        if tag == "empty":
+            if return_arrays:
+                z = np.zeros((n_real, 0))
+                return BatchResultArrays(ids=z.astype(object), scores=z.astype(np.float32),
+                                         valid=z.astype(bool), indices=z.astype(np.int32))
+            return [[] for _ in range(n_real)]
+        arrays = {k: v.cpu().numpy() for k, v in arrays.items()}
+        if return_arrays:
+            return self._finish_arrays(n_real, arrays)
+        idx = arrays.pop("idx")
+        return self._batch_results(idx, with_payload, **arrays)[:n_real]
+
+    # -- result assembly -----------------------------------------------------------
+
+    def _ids_object_array(self) -> np.ndarray:
+        if self._ids is None:
+            self._ids = np.empty(len(self.index.manifest.ids), dtype=object)
+            self._ids[:] = self.index.manifest.ids
+        return self._ids
+
+    def _finish_arrays(self, n_real: int, arrays) -> BatchResultArrays:
+        idx = arrays["idx"][:n_real]
+        primary = arrays.get("score_final")
+        scores = (arrays["score"] if primary is None else primary)[:n_real]
+        valid = (idx >= 0) & (idx < self.index.num_docs) & (scores > NEG_INF / 2)
+        ids = self._ids_object_array()[np.where(valid, idx, 0)]
+        ids[~valid] = None
+        return BatchResultArrays(ids=ids, scores=scores, valid=valid,
+                                 indices=np.where(valid, idx, -1))
+
+    def _results(self, idx_l: List[int], with_payload: bool,
+                 **cols: List[float]) -> List[Dict[str, Any]]:
+        manifest = self.index.manifest
+        first = next(iter(cols.values()))
+        neg = NEG_INF / 2
+        out: List[Dict[str, Any]] = []
+        for rank, i in enumerate(idx_l):
+            if i < 0 or first[rank] <= neg:
+                continue
+            rec: Dict[str, Any] = {"id": manifest.ids[i], "rank": rank}
+            for col, arr in cols.items():
+                rec[col] = arr[rank]
+            rec.setdefault("score_final", rec.get("score", rec.get("score_stage2")))
+            if with_payload:
+                rec["payload"] = manifest.payload(i)
+            out.append(rec)
+        return out
+
+    def _batch_results(self, idx: np.ndarray, with_payload: bool, **score_cols):
+        idx_l = idx.tolist()  # one .tolist() per column, not per hit
+        cols = {k: v.tolist() for k, v in score_cols.items()}
+        return [self._results(idx_l[b], with_payload, **{k: v[b] for k, v in cols.items()})
+                for b in range(len(idx_l))]

@@ -1,0 +1,92 @@
+"""Query plans of the batched engine: device-side query prep, stage-1, top-k
+cut, rerank and final top-k.
+
+Port of ``visual_rag_tpu/retrieval/plans.py:33-136``. The JAX plans are
+single ``jit`` dispatches; these are plain eager functions whose device
+work PyTorch queues asynchronously. Capturing them as CUDA graphs is later
+work (ROADMAP A4). The intermediate cut is always exact (``torch.topk``):
+the JAX engine's ``lax.approx_max_k`` at >= 65536 docs has no counterpart
+here (ROADMAP, declared differences).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from visual_rag_tpu_torch.retrieval.local import (
+    NEG_INF,
+    local_rerank,
+    local_stage1,
+    refine_topk,
+)
+
+
+def _prep_wire(q1, q2, q3, wire: str, b: int, nq: int):
+    """Device-side query prep for either wire format.
+
+    padded: q1 = [B, NQ, dim] raw tokens, q2 = [B, NQ] qmask, q3 = None.
+    packed: q1 = [G*Rg, dim] raw packed tokens, q2 = [G*Rg] pos, q3 = [G, Rg]
+    qid (wire.pack_queries_grouped). Returns (tokens [B, NQ, dim]
+    l2-normalised, qmask [B, NQ] f32, pooled [B, dim], packed dict or None).
+    """
+    if wire == "packed":
+        return _prep_queries_packed(q1, q2, q3, b, nq)
+    tokens, pooled = _prep_queries(q1, q2)
+    return tokens, q2.float(), pooled, None
+
+
+def _prep_queries_packed(packed, pos, qid, b: int, nq: int):
+    """Packed wire -> the padded [B, NQ, dim] view (one row scatter; pad
+    rows carry pos = B*NQ and land in a dropped extra row), plus the packed
+    rows l2-normalised for the scan kernel."""
+    t = packed.float()
+    dim = t.shape[1]
+    p = pos.long()
+    flat_t = torch.zeros((b * nq + 1, dim), dtype=torch.float32, device=t.device)
+    flat_t[p] = t
+    flat_m = torch.zeros((b * nq + 1,), dtype=torch.float32, device=t.device)
+    flat_m[p] = 1.0
+    qmask = flat_m[:b * nq].reshape(b, nq)
+    tokens, pooled = _prep_queries(flat_t[:b * nq].reshape(b, nq, dim), qmask)
+    tn = t * (qid.reshape(-1) >= 0).float()[:, None]
+    tn = tn / (torch.linalg.vector_norm(tn, dim=-1, keepdim=True) + 1e-8)
+    return tokens, qmask, pooled, {"q": tn, "qid": qid.to(torch.int32)}
+
+
+def _prep_queries(raw, qmask):
+    """Raw padded tokens -> (l2-normalised f32 tokens, l2-normalised mean
+    of the raw tokens as the pooled query)."""
+    qm = qmask.float()
+    t = raw.float() * qm[..., None]
+    tokens = t / (torch.linalg.vector_norm(t, dim=-1, keepdim=True) + 1e-8)
+    mean = t.sum(dim=1) / qm.sum(dim=1, keepdim=True).clamp(min=1.0)
+    pooled = mean / (torch.linalg.vector_norm(mean, dim=-1, keepdim=True) + 1e-8)
+    return tokens, pooled
+
+
+def _topk_masked(scores: torch.Tensor, k: int):
+    """Exact top-k per row; ids of ``NEG_INF`` entries become -1."""
+    vals, idx = torch.topk(scores, k, dim=-1)
+    return vals, torch.where(vals > NEG_INF / 2, idx, -1).to(torch.int32)
+
+
+def single_plan(ragged: Dict, q1, q2, q3=None, *, k: int, wire: str = "padded",
+                b: int = 0, nq: int = 0):
+    """``single_full``: the exhaustive scan over the ragged store, top-k."""
+    tokens, qmask, pooled, packed = _prep_wire(q1, q2, q3, wire, b, nq)
+    scores = local_stage1("tokens_ragged", {}, ragged, tokens, qmask, pooled, packed, b)
+    return _topk_masked(scores, k)
+
+
+def two_stage_plan(s1: Dict, ragged: Dict, q1, q2, q3=None, *, kind: str, pk: int,
+                   k: int, impl: str = "plain", wire: str = "padded", b: int = 0,
+                   nq: int = 0):
+    """``two_stage``: stage-1 scores, exact top-``pk`` cut, exact MaxSim
+    rerank of the candidates, final top-``k``."""
+    tokens, qmask, pooled, packed = _prep_wire(q1, q2, q3, wire, b, nq)
+    scores = local_stage1(kind, s1, ragged, tokens, qmask, pooled, packed, b)
+    _, cand = _topk_masked(scores, pk)
+    rr = local_rerank(ragged, tokens, qmask, cand, impl, packed, b)
+    return refine_topk(cand, rr, k)
