@@ -8,9 +8,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    versions, then the kernels built from ``visual_rag_tpu_torch/csrc``.
 2. Each kernel against its plain PyTorch version on the card, at the main
    path's shapes on the 3k-doc bf16 corpus (rerank: 32 queries x 200
-   candidates with some -1; scan: 64 packed queries x every doc), within
-   atol 1e-3; then the engine on a small corpus, on the card against the
-   same index on the CPU.
+   candidates with some -1; scan: 64 packed queries x every doc; tokens
+   stage-1: 64 packed queries (K5) and 16 padded queries (K6, K7) x the
+   P = 10 pooled store, and again x a P = 76 store with mask holes and two
+   docs with no valid row), within atol 1e-3, two calls bit-equal; then the
+   engine on a small f32 corpus with all four stores and payloads, on the
+   card against the same index on the CPU, in every search mode, every
+   stage-1 mode and with a filter.
 3. The main path: ``two_stage`` (prefetch_k=200, top_k=10) through
    ``search_embedded_batches`` at bs 32, 256 and 1024 on the 3k corpus.
 4. The strict oracle at 3k on 256 queries at score tolerance 0.
@@ -18,7 +22,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    strict oracle on 64 queries.
 6. Serving: the port's SearchServer answers 8 concurrent POST /search with
    the ids a direct ``search_embedded_batch`` gives.
-7. Launch counts of both kernels over phases 3-6; each must be > 0.
+7. Launch counts of the rerank and scan kernels over phases 3-6; each
+   must be > 0.
+8. The tokens stage-1 path (``stage1_mode="tokens_vs_standard_pooling"``),
+   with the counts set to 0 first: K5 once against its plain version at
+   the 100k bs 1024 shape (before the reset), then ``two_stage`` at 3k bs 16
+   (padded wire: K6) and bs 256 (packed: K5) and at 100k bs 1024,
+   ``three_stage`` at 100k bs 1024, ``single_tiles`` at 3k bs 256, a
+   filtered ``two_stage`` at 3k (every hit satisfies the filter), 16
+   per-query ``search_embedded`` calls (K7) that agree with the batch, and
+   the strict oracle of the new stage-1 (``prefetch_k`` = corpus against
+   ``single_full``, tolerance 0). K5, K6 and K7 must each have launched.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary. Without a CUDA device the script raises at once.
@@ -38,6 +52,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 BENCH_KW = dict(mode="two_stage", top_k=10, prefetch_k=200, with_payload=False)
+TOKENS = "tokens_vs_standard_pooling"  # the pipeline's own stage-1 (demo/commands.py:47)
 ATOL = 1e-3  # bf16 inputs, f32 accumulation in both: only the summation order differs
 
 
@@ -110,7 +125,16 @@ def main() -> None:
         exhaustive_scores_packed,
         exhaustive_scores_packed_ref,
     )
+    from visual_rag_tpu_torch.ops.kernels.prefetch_topk import (
+        _as_packed,
+        pooled_maxsim_scores,
+        pooled_maxsim_scores_packed,
+        pooled_maxsim_scores_packed_ref,
+        pooled_maxsim_scores_qbatch,
+    )
     from visual_rag_tpu_torch.retrieval import plans, wire
+    from visual_rag_tpu_torch.retrieval.engine import SEARCH_MODES, STAGE1_MODES
+    from visual_rag_tpu_torch.retrieval.filters import build_filter
     from visual_rag_tpu_torch.retrieval.local import local_pooled_padded
     from visual_rag_tpu_torch.retrieval.oracle import run_strict_oracle, strict_rank_equal
     from visual_rag_tpu_torch.serving.server import SearchServer
@@ -188,23 +212,76 @@ def main() -> None:
                     "replaces": "visual_rag_tpu/ops/kernels/maxsim_scan.py:240",
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
 
+    # K5, K6, K7: one kernel behind three entry points, on the 3k pooled store
+    # (P = 10) and on a P = 76 store with mask holes and two docs with no row
+    def padded_ref(vals, mask, tokens, qmask):
+        return pooled_maxsim_scores_packed_ref(vals, mask, *_as_packed(vals, tokens, qmask))
+
+    def hold(name, fn, ref, args):
+        got, again, want = fn(*args), fn(*args), ref(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=0, atol=ATOL):
+            raise AssertionError(f"{name} disagrees with its plain version: {err}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} is not deterministic")
+        if not (got[:, ~args[1].any(dim=0)] == 0).all():
+            raise AssertionError(f"{name}: a doc with no valid pooled row does not score 0")
+        return err
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    v76 = torch.nn.functional.normalize(
+        torch.randn((76, 3000, 128), generator=gen, device=dev), dim=-1).to(torch.bfloat16)
+    m76 = torch.rand((76, 3000), generator=gen, device=dev) > 0.3
+    m76[:, [17, 2999]] = False
+    pooled3k = eng3k._fused_arrays("mean_pooling")
+    raw16, qmask16 = wire.to_device(wire.pad_queries_raw(queries(15, 16), 128), dev)
+    tokens16, _ = plans._prep_queries(raw16, qmask16)
+    stage1 = (
+        ("pooled_maxsim_scores_packed", "64 packed queries", pooled_maxsim_scores_packed,
+         pooled_maxsim_scores_packed_ref, (packed["q"], packed["qid"], 64, packed["w"]), 212),
+        ("pooled_maxsim_scores_qbatch", "16 padded queries", pooled_maxsim_scores_qbatch,
+         padded_ref, (tokens16, qmask16), 314),
+        ("pooled_maxsim_scores", "16 padded queries", pooled_maxsim_scores, padded_ref,
+         (tokens16, qmask16), 358))
+    for name, what, fn, ref, qargs, line in stage1:
+        args = (pooled3k["vals_t"], pooled3k["mask_t"]) + qargs
+        err = max(hold(name, fn, ref, args), hold(name, fn, ref, (v76, m76) + qargs))
+        ms = cuda_ms(lambda: fn(*args))
+        plain_ms = cuda_ms(lambda: ref(*args), iters=3)
+        log(f"{name} [{what} x 3000 docs, P 10; and P 76 with holes]: max_abs_err {err:.3g} "
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms (P 10)")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "visual_rag_tpu_torch/csrc/pooled_maxsim.cu",
+                        "replaces": f"visual_rag_tpu/ops/kernels/prefetch_topk.py:{line}",
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+
     # float32: queries normalised on the card and on the CPU differ in the last
     # f32 bit, which a cast to a 2-byte store dtype can turn into a whole ulp
     small = synthetic_index(200, min_tokens=64, max_tokens=300, pooled_rows=10,
                             storage_dtype="float32", seed=4, device="cpu")
+    for i, pl in enumerate(small.manifest.payloads):
+        pl["year"] = 2020 + i % 4
     qs_small = queries(13, 64)
+    cuts = dict(BENCH_KW, prefetch_k=60, stage1_k=100, stage2_k=40)
+    runs = [dict(cuts, mode=m) for m in SEARCH_MODES] + [
+        dict(cuts, stage1_mode=m) for m in STAGE1_MODES[1:]] + [
+        dict(cuts, filter_obj=build_filter(year=[2021, 2023]))]
     for wire_kind in ("padded", "packed"):
         on_card = RetrievalEngine(small.to(dev), query_wire=wire_kind)
         on_cpu = RetrievalEngine(small, query_wire=wire_kind)
-        for kw in (dict(BENCH_KW), dict(BENCH_KW, prefetch_k=200, mode="single_full")):
+        for kw in runs:
             a = on_card.search_embedded_batch(qs_small, **kw)
             b = on_cpu.search_embedded_batch(qs_small, **kw)
-            key = "score" if kw["mode"] == "single_full" else "score_final"
+            key = "score" if kw["mode"].startswith("single_") else "score_final"
             ok = all(strict_rank_equal([dict(h, score=h[key]) for h in x], y, score_tol=1e-4)
                      for x, y in zip(b, a))
-            log(f"small corpus {wire_kind} {kw['mode']}: card == cpu plain: {ok}")
+            what = " ".join(str(kw[k]) for k in ("mode", "stage1_mode", "filter_obj") if k in kw)
             if not ok:
-                raise AssertionError(f"card and CPU disagree on {wire_kind} {kw['mode']}")
+                raise AssertionError(f"card and CPU disagree on {wire_kind} {what}")
+        log(f"small corpus {wire_kind}: card == cpu plain in {len(runs)} runs "
+            f"(8 modes, 4 more stage-1 modes, 1 filter)")
 
     # -- 3. main path at the bench protocol ----------------------------------------
     rerank_candidates.launches = 0
@@ -239,7 +316,6 @@ def main() -> None:
     log(f"strict oracle 100k (64 queries, tol 0): {ok100k}")
     if not ok100k:
         raise AssertionError("strict oracle failed at 100k")
-    del eng100k, idx100k
 
     # -- 6. serving ----------------------------------------------------------------
     served = qs[:8]
@@ -272,13 +348,85 @@ def main() -> None:
     # -- 7. launch counts ----------------------------------------------------------
     counts = {"rerank_candidates": rerank_candidates.launches,
               "exhaustive_scores_packed": exhaustive_scores_packed.launches}
-    log(f"launches over the main path: {counts}")
+    log(f"launches over phases 3-6: {counts}")
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"{name} never launched on the main path")
+
+    # -- 8. the tokens stage-1 path --------------------------------------------------
+    # K5 against its plain version at the 100k bs 1024 serving shape (not counted)
+    (p, pos, qid), nq, _ = wire.pack_queries_grouped(qs[:1024], 128)
+    pk100 = plans._prep_queries_packed(*wire.to_device((p, pos, qid), dev), 1024, nq)[3]
+    s100 = eng100k._fused_arrays("mean_pooling")
+    args = (s100["vals_t"], s100["mask_t"], pk100["q"], pk100["qid"], 1024, pk100["w"])
+    got, want = pooled_maxsim_scores_packed(*args), pooled_maxsim_scores_packed_ref(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ms = cuda_ms(lambda: pooled_maxsim_scores_packed(*args), iters=3)
+    plain_ms = cuda_ms(lambda: pooled_maxsim_scores_packed_ref(*args), iters=1)
+    log(f"pooled_maxsim_scores_packed [1024 packed queries ({pk100['q'].shape[0]} rows) x "
+        f"100000 docs, P 12]: max_abs_err {err:.3g} kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+    if not torch.allclose(got, want, rtol=0, atol=ATOL):
+        raise AssertionError(f"pooled_maxsim_scores_packed disagrees at 100k: {err}")
+    k5 = next(k for k in kernels if k["name"] == "pooled_maxsim_scores_packed")
+    k5.update(max_abs_err=max(k5["max_abs_err"], err), ms_100k=ms, plain_ms_100k=plain_ms)
+    del got, want
+
+    entry_points = (rerank_candidates, exhaustive_scores_packed, pooled_maxsim_scores_packed,
+                    pooled_maxsim_scores_qbatch, pooled_maxsim_scores)
+    for fn in entry_points:
+        fn.launches = 0
+    tok = dict(stage1_mode=TOKENS)
+    for bs, n in ((16, 256), (256, 2048)):
+        r = qps(eng3k, qs[:n], bs, f"3k tokens bs={bs}", **tok)
+        log(f"3k two_stage {TOKENS} bs={bs} ({'packed' if eng3k._use_packed(bs) else 'padded'} "
+            f"wire): {r:.1f} QPS [{card}]")
+    r = qps(eng100k, qs, 1024, "100k tokens bs=1024", **tok)
+    log(f"100k two_stage {TOKENS} bs=1024: {r:.1f} QPS [{card}]")
+    r = qps(eng100k, qs, 1024, "100k three_stage", mode="three_stage", stage1_k=1000,
+            stage2_k=300)
+    log(f"100k three_stage bs=1024 (stage1_k 1000, stage2_k 300): {r:.1f} QPS [{card}]")
+    del eng100k, idx100k
+    r = qps(eng3k, qs, 256, "3k single_tiles", mode="single_tiles")
+    log(f"3k single_tiles bs=256: {r:.1f} QPS [{card}]")
+
+    for i, pl in enumerate(idx3k.manifest.payloads):
+        pl["year"] = 2020 + i % 4
+    filt = build_filter(year=[2021, 2023])
+    hits = eng3k.search_embedded_batch(qs[:512], **dict(BENCH_KW, with_payload=True), **tok,
+                                       filter_obj=filt)
+    if not all(len(h) == 10 and all(x["payload"]["year"] in (2021, 2023) for x in h)
+               for h in hits):
+        raise AssertionError("a filtered search returned a hit outside the filter")
+    r = qps(eng3k, qs[:2048], 256, "3k filtered", filter_obj=filt, **tok)
+    log(f"3k two_stage {TOKENS} filtered year in (2021, 2023) bs=256: every hit satisfies "
+        f"the filter; {r:.1f} QPS [{card}]")
+
+    batch = eng3k.search_embedded_batch(qs[:16], **BENCH_KW, **tok)
+    for q, want_hits in zip(qs[:16], batch):
+        one = eng3k.search_embedded(q, **BENCH_KW, **tok)
+        if [h["id"] for h in one] != [h["id"] for h in want_hits]:
+            raise AssertionError("per-query search_embedded differs from the batch")
+    log("per-query search_embedded (16 queries, padded wire, bs 1): same ids as the batch")
+
+    exact = eng3k.search_embedded_batch(qs[:256], mode="single_full", top_k=10,
+                                        with_payload=False)
+    wide = eng3k.search_embedded_batch(qs[:256], mode="two_stage", top_k=10,
+                                       prefetch_k=idx3k.num_docs, with_payload=False, **tok)
+    ok = all(strict_rank_equal(ex, wd, score_tol=0.0) for ex, wd in zip(exact, wide))
+    log(f"strict oracle 3k {TOKENS} (256 queries, prefetch_k = corpus, tol 0): {ok}")
+    if not ok:
+        raise AssertionError("strict oracle failed for the tokens stage-1")
+
+    counts8 = {fn.__name__: fn.launches for fn in entry_points}
+    log(f"launches over phase 8: {counts8}")
     for k in kernels:
-        k["launches"] = counts[k["name"]]
+        k["launches"] = counts.get(k["name"], counts8[k["name"]])
         if k["launches"] <= 0:
-            raise AssertionError(f"{k['name']} never launched on the main path")
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+            raise AssertionError(f"{k['name']} never launched on its path")
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "visual_rag_tpu"))
+    if leaked:
+        raise AssertionError(f"the JAX package or jax was imported: {leaked[:5]}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

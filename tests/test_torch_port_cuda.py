@@ -9,7 +9,10 @@ Shapes are small but cover what the kernels special-case: -1 candidates,
 0-token docs (also last), a max_len that is not a multiple of 32, queries
 of fewer than 8, 24 and more than 32 tokens (query tiles of 8-32 rows),
 queries whose f32 tile needs more than 48 KB of shared memory, per-doc
-scales, and every float storage dtype.
+scales, and every float storage dtype. The tokens stage-1 kernel (K5, K6,
+K7): P = 4, 13 and 76 pooled rows, mask holes, docs with no valid row
+(scored 0), a doc count that is not a multiple of the 64-doc block, pad
+rows, groups of 8 to 768 rows, per-row scales; two calls bit-equal.
 """
 
 import numpy as np
@@ -25,7 +28,10 @@ from visual_rag_tpu_torch.ops.kernels.maxsim_scan import (
     exhaustive_scores_packed,
     exhaustive_scores_packed_ref,
 )
+from visual_rag_tpu_torch.ops.kernels import prefetch_topk as pt
 from visual_rag_tpu_torch.retrieval import plans, wire
+from visual_rag_tpu_torch.retrieval.engine import SEARCH_MODES, STAGE1_MODES
+from visual_rag_tpu_torch.retrieval.filters import build_filter
 from visual_rag_tpu_torch.retrieval.oracle import strict_rank_equal
 
 pytestmark = pytest.mark.cuda
@@ -119,6 +125,89 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     shifted = torch.zeros(2 * 8 * DIM + 1, device=dev)[1:].view(2, 8, DIM)
     with pytest.raises(ValueError, match="aligned"):
         rerank_candidates(flat, offs, lens, shifted, qmask, cand, max_len)
+
+
+def _pooled_store(p, dtype, dev, seed=0, n_docs=203):
+    rng = np.random.default_rng(seed)
+    vals = rng.standard_normal((p, n_docs, DIM)).astype(np.float32)
+    vals /= np.linalg.norm(vals, axis=-1, keepdims=True)
+    mask = rng.random((p, n_docs)) > 0.3
+    mask[:, [5, n_docs - 1]] = False  # docs with no valid pooled row
+    scales = rng.uniform(0.5, 2.0, (p, n_docs)).astype(np.float32)
+    return (torch.from_numpy(vals).to(dtype).to(dev), torch.from_numpy(mask).to(dev),
+            torch.from_numpy(scales).to(dev))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("p", [4, 13, 76])
+@pytest.mark.parametrize("b,nq_range", [(8, (3, 8)), (64, (8, 24))])
+def test_pooled_packed_matches_plain_and_is_deterministic(dev, dtype, p, b, nq_range):
+    vals, mask, scales = _pooled_store(p, dtype, dev)
+    rng = np.random.default_rng(p)
+    (q, pos, qid), nq, _ = wire.pack_queries_grouped(_queries(rng, b, *nq_range), DIM)
+    packed = plans._prep_queries_packed(*wire.to_device((q, pos, qid), dev), b, nq)[3]
+    for sc in (None, scales):
+        args = (vals, mask, packed["q"], packed["qid"], b, packed["w"], sc)
+        got = pt.pooled_maxsim_scores_packed(*args)
+        again = pt.pooled_maxsim_scores_packed(*args)
+        want = pt.pooled_maxsim_scores_packed_ref(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL[dtype])
+        assert torch.equal(got, again)
+        assert (got[:, ~mask.any(dim=0)] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nq_range", [(3, 8), (20, 40), (100, 130)])
+def test_pooled_padded_entry_points_match_plain(dev, dtype, nq_range):
+    vals, mask, scales = _pooled_store(13, dtype, dev, seed=1)
+    rng = np.random.default_rng(2)
+    raw, qmask = wire.to_device(wire.pad_queries_raw(_queries(rng, 16, *nq_range), DIM), dev)
+    tokens, _ = plans._prep_queries(raw, qmask)
+    for sc in (None, scales):
+        want = pt.pooled_maxsim_scores_packed_ref(
+            vals, mask, *pt._as_packed(vals, tokens, qmask), scales_t=sc)
+        for fn in (pt.pooled_maxsim_scores_qbatch, pt.pooled_maxsim_scores):
+            got = fn(vals, mask, tokens, qmask, sc)
+            again = fn(vals, mask, tokens, qmask, sc)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=0, atol=ATOL[dtype])
+            assert torch.equal(got, again)
+
+
+def test_pooled_wrappers_count_launches(dev):
+    vals, mask, _ = _pooled_store(4, torch.float32, dev)
+    tokens = torch.nn.functional.normalize(torch.randn((2, 8, DIM), device=dev), dim=-1)
+    qmask = torch.ones((2, 8), device=dev)
+    before = (pt.pooled_maxsim_scores_qbatch.launches, pt.pooled_maxsim_scores.launches)
+    pt.pooled_maxsim_scores_qbatch(vals, mask, tokens, qmask)
+    pt.pooled_maxsim_scores(vals, mask, tokens, qmask)
+    pt.pooled_maxsim_scores_packed_ref(vals, mask, *pt._as_packed(vals, tokens, qmask))
+    assert (pt.pooled_maxsim_scores_qbatch.launches, pt.pooled_maxsim_scores.launches) == (
+        before[0] + 1, before[1] + 1)
+    with pytest.raises(ValueError, match="mask_t"):
+        pt.pooled_maxsim_scores(vals, mask[:2], tokens, qmask)
+    with pytest.raises(ValueError, match="store dtype"):
+        pt.pooled_maxsim_scores(vals.double(), mask, tokens, qmask)
+
+
+@pytest.mark.parametrize("query_wire", ["padded", "packed"])
+def test_every_mode_on_card_matches_cpu(dev, query_wire):
+    idx = synthetic_index(150, min_tokens=20, max_tokens=300, pooled_rows=6,
+                          storage_dtype="float32", seed=7, device="cpu")
+    for i, pl in enumerate(idx.manifest.payloads):
+        pl["year"] = 2020 + i % 4
+    qs = _queries(np.random.default_rng(8), 40, 8, 24)
+    card, cpu = (RetrievalEngine(i, query_wire=query_wire) for i in (idx.to(dev), idx))
+    cuts = dict(top_k=10, prefetch_k=40, stage1_k=60, stage2_k=30, with_payload=False)
+    runs = [dict(mode=m) for m in SEARCH_MODES] + [
+        dict(mode="two_stage", stage1_mode=s) for s in STAGE1_MODES] + [
+        dict(mode="two_stage", filter_obj=build_filter(year=[2021, 2023]))]
+    for kw in runs:
+        key = "score" if kw["mode"].startswith("single_") else "score_final"
+        for a, c in zip(card.search_embedded_batch(qs, **kw, **cuts),
+                        cpu.search_embedded_batch(qs, **kw, **cuts)):
+            assert strict_rank_equal([dict(h, score=h[key]) for h in c], a, score_tol=1e-4), kw
 
 
 @pytest.mark.parametrize("query_wire", ["padded", "packed"])

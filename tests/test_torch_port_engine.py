@@ -1,16 +1,22 @@
 """The port's query path end to end on the CPU vs the JAX package.
 
-Both engines search the same sealed f32 index (the JAX synthetic index,
-carried across with ``sealed_from_numpy``) with the same numpy queries:
-``two_stage`` (prefetch below and at the corpus size) and ``single_full``,
-on the padded wire and on the packed wire with the ``plain`` and ``scan``
-reranks. The JAX engine runs with ``stage1_cut="exact"``, its Pallas kernels
-replaced by their XLA fallbacks as on any CPU. Ids must agree under
-``strict_rank_equal`` and scores within 1e-5 (f32 on both sides, summation
-order differs). Serving: both the JAX package's ``SearchServer`` and the
-port's answer ``POST /search`` over the port's engine.
+Both engines search the same sealed f32 index, carried across with
+``sealed_from_numpy``, with the same numpy queries. Two indexes: the JAX
+synthetic index (``initial`` and ``mean_pooling``, all pooled rows valid)
+for ``two_stage`` and ``single_full`` on the padded wire and on the packed
+wire with the ``plain`` and ``scan`` reranks; and an index built with the
+JAX ``IndexBuilder`` as the verify recipe builds one (all four stores, the
+pooled stores padded with invalid rows, ``year``/``source`` payloads) for
+every search mode, every stage-1 mode and alias, payload filters and the
+per-query ``search_embedded``. The JAX engine runs with
+``stage1_cut="exact"``, its Pallas kernels replaced by their XLA fallbacks
+as on any CPU. Ids must agree under ``strict_rank_equal`` and scores within
+1e-5 (f32 on both sides, summation order differs). Serving: both the JAX
+package's ``SearchServer`` and the port's answer ``POST /search`` over the
+port's engine.
 """
 
+import copy
 import json
 import threading
 import urllib.request
@@ -19,20 +25,37 @@ import numpy as np
 import pytest
 import torch
 
+from visual_rag_tpu import IndexBuilder
+from visual_rag_tpu.index import CollectionSchema
 from visual_rag_tpu.index.synth import synthetic_index as jax_synthetic_index
+from visual_rag_tpu.ops import (
+    colsmol_experimental_pooling,
+    global_mean_pooling,
+    tile_level_mean_pooling,
+)
 from visual_rag_tpu.retrieval import RetrievalEngine as JaxEngine
+from visual_rag_tpu.retrieval import build_filter as jax_build_filter
 from visual_rag_tpu.serving.server import SearchServer as JaxSearchServer
 from visual_rag_tpu_torch.index.convert import sealed_from_numpy
 from visual_rag_tpu_torch.index.manifest import Manifest
 from visual_rag_tpu_torch.index.store import SealedIndex
-from visual_rag_tpu_torch.retrieval.engine import RetrievalEngine
+from visual_rag_tpu_torch.retrieval.engine import (
+    _STAGE1_ALIASES,
+    SEARCH_MODES,
+    STAGE1_MODES,
+    RetrievalEngine,
+)
+from visual_rag_tpu_torch.retrieval.filters import PayloadFilter, build_filter
 from visual_rag_tpu_torch.retrieval.oracle import run_strict_oracle, strict_rank_equal
 from visual_rag_tpu_torch.serving.server import SearchServer
 
 torch.set_num_threads(1)  # tier-1 runs several test workers at once
 
 N_DOCS = 100
+N_BUILT = 30
 TOL = 1e-5
+# small enough that every stage cuts: stage-1 12 of 30 docs, three_stage 20 -> 12
+CUTS = dict(top_k=5, prefetch_k=12, stage1_k=20, stage2_k=12)
 
 
 @pytest.fixture(scope="module")
@@ -47,6 +70,42 @@ def indexes():
                          "mask": np.asarray(j.store("mean_pooling").mask)},
     }
     p = sealed_from_numpy(stores, j.manifest.ids, j.manifest.payloads, "float32", "cpu")
+    return j, p
+
+
+def _numpy_stores(index):
+    """The arrays of a JAX SealedIndex's stores, as ``sealed_from_numpy`` takes them."""
+    out = {}
+    for name in index.vector_names:
+        st = index.store(name)
+        if hasattr(st, "flat"):
+            out[name] = {k: np.asarray(getattr(st, k)) for k in ("flat", "offsets", "lengths")}
+            out[name]["max_len"] = st.max_len
+        elif hasattr(st, "mask"):
+            out[name] = {"values": np.asarray(st.values), "mask": np.asarray(st.mask)}
+        else:
+            out[name] = {"values": np.asarray(st.values)}
+    return out
+
+
+@pytest.fixture(scope="module")
+def built():
+    """JAX IndexBuilder index of every store (f32), carried across."""
+    rng = np.random.default_rng(11)
+    b = IndexBuilder(CollectionSchema.standard(storage_dtype="float32"))
+    for i in range(N_BUILT):
+        tiles = int(rng.integers(2, 6))
+        t = rng.standard_normal((tiles * 64 + int(rng.integers(0, 20)), 128)).astype(np.float32)
+        mp = np.asarray(tile_level_mean_pooling(t, tiles))
+        b.add(f"p{i}", {"initial": t, "mean_pooling": mp,
+                        "experimental_pooling": np.asarray(colsmol_experimental_pooling(t, tiles)),
+                        "global_pooling": np.asarray(global_mean_pooling(mp))},
+              {"year": 2020 + i % 4, "source": "ab"[i % 2]})
+    j = b.seal()
+    assert not np.asarray(j.store("mean_pooling").mask).all()  # invalid pooled rows
+    assert not np.asarray(j.store("experimental_pooling").mask).all()
+    p = sealed_from_numpy(_numpy_stores(j), j.manifest.ids, j.manifest.payloads,
+                          "float32", "cpu")
     return j, p
 
 
@@ -120,18 +179,16 @@ def test_empty_index_and_empty_batch(indexes, queries):
 
 
 def test_refusals(indexes, queries):
+    """What the port still refuses: unknown modes, explicit dedup/sweep
+    reranks, scan on the padded wire, int8 stores. Each raises."""
     _, p = indexes
     pe = RetrievalEngine(p)
     with pytest.raises(ValueError, match="Unknown mode"):
         pe.search_embedded_batch(queries[:2], mode="nope")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pe.search_embedded_batch(queries[:2], mode="three_stage")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pe.search_embedded_batch(queries[:2], stage1_mode="tokens_vs_standard_pooling")
+    with pytest.raises(ValueError, match="Unknown mode"):
+        pe.search_embedded(queries[0], mode="nope")
     with pytest.raises(ValueError, match="stage1_mode"):
         pe.search_embedded_batch(queries[:2], stage1_mode="nope")
-    with pytest.raises(NotImplementedError, match="filters"):
-        pe.search_embedded_batch(queries[:2], filter_obj=object())
     with pytest.raises(ValueError, match="with_payload"):
         pe.search_embedded_batch(queries[:2], return_arrays=True)
     for impl in ("dedup", "sweep"):
@@ -142,6 +199,126 @@ def test_refusals(indexes, queries):
         RetrievalEngine(p, rerank_impl="scan").search_embedded_batch(queries[:2])
     with pytest.raises(ValueError, match="query_wire"):
         RetrievalEngine(p, query_wire="f16")
+    # int8 stores are refused where they would enter the port
+    int8 = {"initial": {"flat": np.zeros((32, 128), np.int8), "offsets": np.zeros(1, np.int32),
+                        "lengths": np.ones(1, np.int32), "max_len": 1,
+                        "scales": np.ones(1, np.float32)}}
+    with pytest.raises(NotImplementedError, match="int8"):
+        sealed_from_numpy(int8, ["a"], [{}], "float32", "cpu")
+    with pytest.raises(NotImplementedError, match="int8"):
+        sealed_from_numpy({}, [], [], "int8", "cpu")
+
+
+def _pair(built, query_wire):
+    j, p = built
+    return (JaxEngine(j, stage1_cut="exact", query_wire=query_wire),
+            RetrievalEngine(p, query_wire=query_wire))
+
+
+def _same_hits(jax_hits, port_hits, key, cols=()):
+    """Ids under strict_rank_equal on ``key``; every other score column of
+    a hit both return within TOL."""
+    _same(jax_hits, port_hits, key)
+    for jh, ph in zip(jax_hits, port_hits):
+        by_id = {h["id"]: h for h in ph}
+        for h in jh:
+            if h["id"] in by_id:
+                for col in cols:
+                    assert abs(h[col] - by_id[h["id"]][col]) <= TOL, (col, h, by_id[h["id"]])
+
+
+@pytest.mark.parametrize("query_wire", ["padded", "packed"])
+@pytest.mark.parametrize("mode", SEARCH_MODES)
+def test_every_mode_matches_jax(built, queries, mode, query_wire):
+    je, pe = _pair(built, query_wire)
+    kw = dict(mode=mode, with_payload=False, **CUTS)
+    key = "score" if mode.startswith("single_") else "score_final"
+    cols = ("score_stage1", "score_stage2") if mode == "three_stage" else ()
+    got = pe.search_embedded_batch(queries, **kw)
+    assert all(len(hits) == CUTS["top_k"] for hits in got)
+    _same_hits(je.search_embedded_batch(queries, **kw), got, key, cols)
+
+
+@pytest.mark.parametrize("query_wire", ["padded", "packed"])
+@pytest.mark.parametrize("stage1_mode", STAGE1_MODES + tuple(_STAGE1_ALIASES))
+def test_every_stage1_mode_matches_jax(built, queries, stage1_mode, query_wire):
+    je, pe = _pair(built, query_wire)
+    kw = dict(mode="two_stage", stage1_mode=stage1_mode, with_payload=False, **CUTS)
+    _same_hits(je.search_embedded_batch(queries, **kw),
+               pe.search_embedded_batch(queries, **kw), "score_final")
+
+
+FILTERS = {
+    "scalar": dict(year=2021),
+    "list": dict(year=[2020, 2023], source="a"),
+    "ids": dict(ids=["p3", "p8", "p13", "p21", "p22", "p29", "nope"]),
+    "nothing": dict(year=1999),
+}
+
+
+def _filters(case):
+    """(JAX filter, port filter) of one case."""
+    spec = dict(FILTERS[case])
+    if "ids" in spec:
+        from visual_rag_tpu.retrieval.filters import PayloadFilter as JaxPayloadFilter
+
+        return JaxPayloadFilter(ids=spec["ids"]), PayloadFilter(ids=spec["ids"])
+    return jax_build_filter(**spec), build_filter(**spec)
+
+
+def _admits(spec, hit_id, payload):
+    if "ids" in spec:
+        return hit_id in spec["ids"]
+    return all(payload[f] in (v if isinstance(v, list) else [v]) for f, v in spec.items())
+
+
+@pytest.mark.parametrize("case", sorted(FILTERS))
+def test_filters_match_jax(built, queries, case):
+    je, pe = _pair(built, "padded")
+    jf, pf = _filters(case)
+    for mode in ("two_stage", "single_full", "three_stage"):
+        kw = dict(mode=mode, **CUTS)
+        key = "score" if mode == "single_full" else "score_final"
+        want = je.search_embedded_batch(queries, filter_obj=jf, **kw)
+        for f in (pf, jf):  # the port takes the JAX package's filter object too
+            got = pe.search_embedded_batch(queries, filter_obj=f, **kw)
+            _same_hits(want, got, key)
+            for hits in got:
+                assert all(_admits(FILTERS[case], h["id"], h["payload"]) for h in hits)
+                if case == "nothing":
+                    assert hits == []
+    assert len(pe._mask_cache) == 1  # both filter objects have one signature: one mask
+
+
+def test_filter_masks_are_memoised_per_manifest_version(built, queries):
+    _, p = built
+    pe = RetrievalEngine(p)
+    f = build_filter(year=2022)
+    m1 = pe._doc_mask(f)
+    assert pe._doc_mask(build_filter(year=2022)) is m1  # same signature: same mask
+    assert pe._doc_mask(None) is None and pe._doc_mask(PayloadFilter()) is None
+    assert m1.tolist() == [pl["year"] == 2022 for pl in p.manifest.payloads]
+    for i in range(70):
+        pe._doc_mask(build_filter(extra={"n": i}))
+    assert len(pe._mask_cache) == 64  # bounded
+    # an append bumps the manifest version: the next search evaluates anew
+    grown = RetrievalEngine(SealedIndex(stores=p.stores, manifest=copy.deepcopy(p.manifest)))
+    before = grown._doc_mask(f)
+    grown.index.manifest.add("late", {"year": 2022})
+    after = grown._doc_mask(f)
+    assert after is not before and after.tolist() == before.tolist() + [True]
+
+
+@pytest.mark.parametrize("mode", SEARCH_MODES)
+def test_search_embedded_matches_jax(built, queries, mode):
+    je, pe = _pair(built, "auto")
+    key = "score" if mode.startswith("single_") else "score_final"
+    for q in queries[:2]:
+        want = je.search_embedded(q, mode=mode, **CUTS)
+        got = pe.search_embedded(q, mode=mode, **CUTS)
+        _same_hits([want], [got], key)
+        assert [h["payload"] for h in got] == [h["payload"] for h in want]
+        assert set(got[0]) == set(want[0])
 
 
 def test_policies(indexes):

@@ -17,9 +17,11 @@ import pytest
 import torch
 
 from visual_rag_tpu.index import CollectionSchema, IndexBuilder
+from visual_rag_tpu.index.manifest import Manifest as JaxManifest
 from visual_rag_tpu.index.synth import synthetic_index as jax_synthetic_index
 from visual_rag_tpu.retrieval import batch as B
 from visual_rag_tpu_torch.index.convert import sealed_from_numpy
+from visual_rag_tpu_torch.index.manifest import Manifest
 from visual_rag_tpu_torch.index.store import (
     PaddedMultiVectors,
     RaggedMultiVectors,
@@ -195,3 +197,29 @@ def test_device_is_never_picked_silently():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             synthetic_index(4, device="cuda")
+
+
+def test_manifest_payload_plane_matches_jax():
+    """Interned payload columns, id lookups, id masks and the version counter
+    of the port's manifest equal the JAX manifest's on the same points."""
+    ids = [f"p{i}" for i in range(12)]
+    payloads = [{"year": 2020 + i % 3, "source": "ab"[i % 2]} if i % 5 else {"year": 2021}
+                for i in range(12)]
+    jm = JaxManifest()
+    for pid, pl in zip(ids, payloads):
+        jm.add(pid, pl)
+    pm = Manifest(ids, payloads)
+    assert (len(pm), pm.version) == (len(jm), jm.version)
+    for field in ("year", "source", "missing"):
+        (pc, pv), (jc, jv) = pm.payload_index(field), jm.payload_index(field)
+        np.testing.assert_array_equal(pc, jc)
+        assert pv == jv
+    assert "p3" in pm and "zz" not in pm
+    assert pm.index_of("p7") == jm.index_of("p7") == 7 and pm.index_of("zz") is None
+    np.testing.assert_array_equal(pm.indices_of(["p9", "zz", "p1"]), jm.indices_of(["p9", "zz", "p1"]))
+    np.testing.assert_array_equal(pm.id_mask(["p2", "p11", "zz"]), jm.id_mask(["p2", "p11", "zz"]))
+    pm.add("late", {"year": 2020})
+    codes, vocab = pm.payload_index("year")  # rebuilt after the append
+    assert pm.version == jm.version + 1 and codes[-1] == vocab[2020] and len(codes) == 13
+    with pytest.raises(ValueError, match="Duplicate"):
+        pm.add("p0")

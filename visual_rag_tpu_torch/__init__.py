@@ -14,8 +14,10 @@ lazily through module ``__getattr__``.
 from __future__ import annotations
 
 _LAZY_ATTRS = {
+    "PayloadFilter": "visual_rag_tpu_torch.retrieval.filters",
     "RetrievalEngine": "visual_rag_tpu_torch.retrieval.engine",
     "SealedIndex": "visual_rag_tpu_torch.index.store",
+    "build_filter": "visual_rag_tpu_torch.retrieval.filters",
     "synthetic_index": "visual_rag_tpu_torch.index.synth",
 }
 

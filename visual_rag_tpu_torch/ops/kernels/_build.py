@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels: ``nvcc`` + ``ctypes``.
 
-New in the port. All ``csrc/*.cu`` files compile with one ``nvcc`` call
+New in the port. Each ``csrc/*.cu`` file compiles in its own ``nvcc``
+process, all started together, and one more ``nvcc`` call links the objects
 into a shared library with a plain C interface, which :mod:`ctypes` loads.
 This takes seconds; a build through ``torch.utils.cpp_extension`` (which
 includes PyTorch's headers) takes minutes.
@@ -23,8 +24,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+                           "-lineinfo"]
 
 _lock = threading.Lock()
 _lib = None
@@ -62,6 +64,9 @@ def _declare(lib):
     lib.vrt_exhaustive_scores_packed.argtypes = [
         i32, vp, i32, vp, vp, i32, vp, vp, i32, i32, i32, i32, vp, vp, vp]
     lib.vrt_exhaustive_scores_packed.restype = i32
+    lib.vrt_pooled_maxsim_scores_packed.argtypes = [
+        i32, vp, i32, vp, vp, i32, i32, vp, i32, i32, i32, i32, i32, vp, vp, vp, vp]
+    lib.vrt_pooled_maxsim_scores_packed.restype = i32
     lib.vrt_error_string.argtypes = [i32]
     lib.vrt_error_string.restype = ctypes.c_char_p
     return lib
@@ -78,17 +83,28 @@ def load_library():
             import time
 
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+            nvcc, tag = find_nvcc(), f"{out.stem}.{os.getpid()}"
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{proc.stderr}{proc.stdout}")
+            jobs = []
+            for src in sorted(CSRC.glob("*.cu")):
+                obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                jobs.append((cmd, obj, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            logs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, _, proc in jobs]
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in jobs]]
+            if all(rc == 0 for _, _, rc in logs):
+                proc = subprocess.run(link, capture_output=True, text=True)
+                logs.append((link, proc.stderr + proc.stdout, proc.returncode))
+            for _, obj, _ in jobs:
+                obj.unlink(missing_ok=True)
+            failed = [(cmd, text, rc) for cmd, text, rc in logs if rc != 0]
+            if failed:
+                cmd, text, rc = failed[0]
+                raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{text}")
             build_seconds = time.perf_counter() - t0
-            out.with_suffix(".log").write_text(proc.stderr + proc.stdout)
+            out.with_suffix(".log").write_text("".join(text for _, text, _ in logs))
             os.replace(tmp, out)
         _lib = _declare(ctypes.CDLL(str(out)))
         return _lib

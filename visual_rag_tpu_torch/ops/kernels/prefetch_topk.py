@@ -1,0 +1,203 @@
+"""Tokens-vs-pooled stage-1: query token rows against every doc's pooled rows.
+
+Port of ``visual_rag_tpu/ops/kernels/prefetch_topk.py``. Its three Pallas
+kernels compute one function and differ only in how the TPU grid walks the
+queries, so here they are three entry points of one hand-written CUDA
+kernel, ``csrc/pooled_maxsim.cu``, each with its own launch counter:
+
+- :func:`pooled_maxsim_scores_packed` (K5, ``:172-227``): the group-packed
+  wire, queries ``[G * Rg, dim]`` with their in-group owners ``qid``;
+- :func:`pooled_maxsim_scores_qbatch` (K6, ``:263-329``): the padded wire,
+  tokens ``[B, NQ, dim]`` and ``qmask``;
+- :func:`pooled_maxsim_scores` (K7, ``:332-374``): the same one query per
+  call on the TPU grid; here the same launch as K6.
+
+K6 and K7 map the padded batch onto the packed form with one query per
+group (as ``retrieval/local.py`` does for the scan). On a CPU tensor each
+entry point runs the plain PyTorch version
+:func:`pooled_maxsim_scores_packed_ref`, ported from the XLA fallbacks
+``visual_rag_tpu/parallel/sharded.py:308-338`` and ``:533-573``; on a CUDA
+tensor it launches the kernel or raises.
+
+Semantics: ``out[b, d] = sum over b's rows m of w[m] * max over valid p of
+scale[p, d] * (q[m] . vals[p, d])``; a doc with no valid pooled row gives 0
+per row (not ``NEG_INF``, unlike the MaxSim kernels). Queries are cast to
+the store dtype, then all math is f32. The weight ``w`` defaults to 1 on
+owned rows (the JAX ``seg``/``qmask``); the int8 qdot variant will fold its
+query scales into it (``prefetch_topk.py:204-207``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from visual_rag_tpu_torch.ops.kernels import _build
+from visual_rag_tpu_torch.ops.kernels._checks import DTYPE_CODES, on_cpu, ptr, stream_ptr
+
+NEG_INF = -1e30
+_SIMS_BUDGET_BYTES = 256 * 1024 * 1024  # f32 [M, P, chunk] similarity tile per doc chunk
+_MAX_SMEM_BYTES = 227 * 1024  # shared memory one block may use on the H100
+_DOCS_PER_BLOCK = 64  # csrc PM_BD
+_ROW_THREADS = 16  # csrc PM_TY
+
+
+def pooled_maxsim_scores_packed(
+    vals_t: torch.Tensor,  # [P, D, dim] P-leading pooled store (f32/bf16/f16)
+    mask_t: torch.Tensor,  # [P, D] bool row validity
+    qpacked: torch.Tensor,  # [G * Rg, dim] l2-normalised packed query rows
+    qid: torch.Tensor,  # [G, Rg] int32 in-group owner (-1 = pad row)
+    b: int,  # batch size (G * gq)
+    w: Optional[torch.Tensor] = None,  # [G * Rg] f32 row weights (default: qid >= 0)
+    scales_t: Optional[torch.Tensor] = None,  # [P, D] f32 per-row scales
+) -> torch.Tensor:
+    """Group-packed stage-1 scores [B, D] f32 (K5)."""
+    if w is None:
+        w = (qid >= 0).to(torch.float32).reshape(-1)
+    if on_cpu(vals_t):
+        return pooled_maxsim_scores_packed_ref(vals_t, mask_t, qpacked, qid, b, w, scales_t)
+    out = _launch(vals_t, mask_t, qpacked, qid, b, w, scales_t)
+    pooled_maxsim_scores_packed.launches += 1
+    return out
+
+
+def pooled_maxsim_scores_qbatch(vals_t, mask_t, queries, qmask, scales_t=None) -> torch.Tensor:
+    """Padded-wire stage-1 scores [B, D] f32 (K6): ``queries`` [B, NQ, dim],
+    ``qmask`` [B, NQ] weights (0 = pad token)."""
+    args = _as_packed(vals_t, queries, qmask)
+    if on_cpu(vals_t):
+        return pooled_maxsim_scores_packed_ref(vals_t, mask_t, *args, scales_t=scales_t)
+    out = _launch(vals_t, mask_t, *args, scales_t)
+    pooled_maxsim_scores_qbatch.launches += 1
+    return out
+
+
+def pooled_maxsim_scores(vals_t, mask_t, queries, qmask, scales_t=None) -> torch.Tensor:
+    """Per-query stage-1 scores [B, D] f32 (K7): K6's function, the entry
+    point of a batch of single queries (the engine's ``search_embedded``)."""
+    args = _as_packed(vals_t, queries, qmask)
+    if on_cpu(vals_t):
+        return pooled_maxsim_scores_packed_ref(vals_t, mask_t, *args, scales_t=scales_t)
+    out = _launch(vals_t, mask_t, *args, scales_t)
+    pooled_maxsim_scores.launches += 1
+    return out
+
+
+pooled_maxsim_scores_packed.launches = 0
+pooled_maxsim_scores_qbatch.launches = 0
+pooled_maxsim_scores.launches = 0
+
+
+def _as_packed(vals_t, queries, qmask):
+    """Padded [B, NQ, dim] tokens as the packed form with one query per
+    group: group i is query i's NQ rows, owned where qmask is non-zero and
+    weighted by qmask. Returns (qpacked, qid, b, w)."""
+    if queries.dim() != 3 or tuple(qmask.shape) != tuple(queries.shape[:2]):
+        raise ValueError(f"queries must be [B, NQ, dim] and qmask [B, NQ], got "
+                         f"{tuple(queries.shape)} and {tuple(qmask.shape)}")
+    b, nq, dim = queries.shape
+    qid = torch.where(qmask != 0, 0, -1).to(torch.int32)
+    return queries.reshape(b * nq, dim), qid, b, qmask.to(torch.float32).reshape(-1)
+
+
+def rows_per_thread(rg: int) -> int:
+    """Query rows each thread of the kernel holds (csrc ``RM``): a chunk of
+    16 * RM rows covers the group, up to 128 rows."""
+    return next((rm for rm in (1, 2, 4) if rg <= _ROW_THREADS * rm), 8)
+
+
+def smem_bytes(rg: int, dim: int, gq: int) -> int:
+    """Shared memory of one block (csrc ``pooled_smem_floats``)."""
+    bm, ld = _ROW_THREADS * rows_per_thread(rg), dim + 4
+    v = max(_DOCS_PER_BLOCK * ld, bm * _DOCS_PER_BLOCK)
+    return 4 * (bm * ld + v + gq * _DOCS_PER_BLOCK + 2 * bm + 3 * _DOCS_PER_BLOCK)
+
+
+def _launch(vals_t, mask_t, qpacked, qid, b, w, scales_t) -> torch.Tensor:
+    """Check what the kernel takes, then launch it; raises on anything else."""
+    if vals_t.dtype not in DTYPE_CODES:
+        raise ValueError(f"store dtype {vals_t.dtype} not supported by the kernel "
+                         "(float32, bfloat16, float16)")
+    if vals_t.dim() != 3 or not vals_t.is_contiguous():
+        raise ValueError("vals_t must be a contiguous [P, D, dim] tensor")
+    p, d, dim = vals_t.shape
+    if dim % 8 or vals_t.data_ptr() % 16:
+        raise ValueError("vals_t rows must be 16-byte aligned: dim % 8 == 0 and an aligned base")
+    if tuple(mask_t.shape) != (p, d):
+        raise ValueError(f"mask_t must be [{p}, {d}], got {tuple(mask_t.shape)}")
+    if qid.dim() != 2:
+        raise ValueError(f"qid must be [G, Rg], got {tuple(qid.shape)}")
+    g, rg = qid.shape
+    if tuple(qpacked.shape) != (g * rg, dim):
+        raise ValueError(f"qpacked must be [{g * rg}, {dim}], got {tuple(qpacked.shape)}")
+    if tuple(w.shape) != (g * rg,):
+        raise ValueError(f"w must be [{g * rg}], got {tuple(w.shape)}")
+    if g == 0 or b % g:
+        raise ValueError(f"batch {b} is not a multiple of the {g} query groups")
+    gq = b // g
+    if -(-d // _DOCS_PER_BLOCK) > 65535:
+        raise ValueError(f"{d} docs exceed the kernel's grid limit of "
+                         f"{65535 * _DOCS_PER_BLOCK}")
+    if smem_bytes(rg, dim, gq) > _MAX_SMEM_BYTES:
+        raise ValueError(f"{gq} queries a group of dim {dim} do not fit the kernel's "
+                         "shared memory")
+    if scales_t is not None and (scales_t.dtype != torch.float32
+                                 or tuple(scales_t.shape) != (p, d)):
+        raise ValueError(f"scales_t must be a float32 [{p}, {d}] tensor")
+    for name, t in (("mask_t", mask_t), ("qpacked", qpacked), ("qid", qid), ("w", w),
+                    ("scales_t", scales_t)):
+        if t is not None and t.device != vals_t.device:
+            raise ValueError(f"{name} is on {t.device}, the store on {vals_t.device}")
+    q = qpacked.to(vals_t.dtype).contiguous()  # cast to the store dtype, as on the TPU
+    if q.data_ptr() % 16:
+        raise ValueError("qpacked must start 16-byte aligned")
+    m = mask_t.to(torch.bool).contiguous()
+    qi = qid.to(torch.int32).contiguous()
+    wt = w.to(torch.float32).contiguous()
+    sc = None if scales_t is None else scales_t.contiguous()
+    out = torch.empty((b, d), dtype=torch.float32, device=vals_t.device)
+    if d == 0:
+        return out
+    lib = _build.load_library()
+    err = lib.vrt_pooled_maxsim_scores_packed(
+        vals_t.device.index, ptr(vals_t), DTYPE_CODES[vals_t.dtype], ptr(m), ptr(sc), p, d,
+        ptr(q), g, rg, gq, dim, rows_per_thread(rg), ptr(qi), ptr(wt), ptr(out),
+        stream_ptr(vals_t.device))
+    _build.check(err, "pooled_maxsim_scores launch")
+    return out
+
+
+def pooled_maxsim_scores_packed_ref(vals_t, mask_t, qpacked, qid, b: int, w=None,
+                                    scales_t=None) -> torch.Tensor:
+    """Plain PyTorch version of the three entry points, on the packed form.
+
+    Per chunk of docs: one [M, dim] x [dim, P * chunk] product of every
+    query row with every pooled row, scaled, masked to ``NEG_INF`` where a
+    row is invalid, the max over P, 0 for docs with no valid row, then a
+    [gq, Rg] weighted-ownership product per group sums each query's rows.
+    The chunk keeps the f32 [M, P, chunk] tile under a fixed budget."""
+    p, d, dim = vals_t.shape
+    g, rg = qid.shape
+    gq = b // g
+    dev = vals_t.device
+    q = qpacked.to(vals_t.dtype).float()  # [M, dim]
+    if w is None:
+        w = (qid >= 0).to(torch.float32).reshape(-1)
+    own = qid.long()[:, None, :] == torch.arange(gq, device=dev)[None, :, None]
+    seg = own.float() * w.float().reshape(g, 1, rg)  # [G, gq, Rg]
+    mask = mask_t.bool()
+    per_doc = max(1, q.shape[0] * p * 4)
+    chunk = max(1, min(max(d, 1), _SIMS_BUDGET_BYTES // per_doc))
+    out = torch.empty((b, d), dtype=torch.float32, device=dev)
+    for s in range(0, d, chunk):
+        v = vals_t[:, s:s + chunk].float()  # [P, c, dim]
+        c = v.shape[1]
+        sims = (q @ v.reshape(p * c, dim).T).reshape(-1, p, c)  # [M, P, c]
+        if scales_t is not None:
+            sims = sims * scales_t[:, s:s + chunk].float()[None]
+        m = mask[:, s:s + chunk]
+        per_row = sims.masked_fill(~m[None], NEG_INF).amax(dim=1)  # [M, c]
+        per_row = torch.where(m.any(dim=0)[None, :], per_row, 0.0)
+        out[:, s:s + chunk] = torch.bmm(seg, per_row.reshape(g, rg, c)).reshape(b, c)
+    return out

@@ -1,12 +1,13 @@
 """RetrievalEngine: the batched query planner over a SealedIndex.
 
-Port of ``visual_rag_tpu/retrieval/engine.py`` for the main path: modes
-``two_stage`` (stage-1 ``pooled_query_vs_standard_pooling``) and
-``single_full``, through ``search_embedded_batch[es]`` and the
+Port of ``visual_rag_tpu/retrieval/engine.py``: all eight search modes, the
+five stage-1 modes and their deprecated aliases, and payload filters, over
+float stores, through ``search_embedded_batch[es]``, the per-query
+``search_embedded`` (a batch of one through the same plans) and the
 ``_dispatch_batch`` / ``_finish_batch`` split that the serving layer uses
-(``serving/server.py:195-236`` of the JAX package). Other modes, other
-stage-1 modes and filters raise ``NotImplementedError`` naming the ROADMAP
-item that ports them; nothing routes elsewhere without saying so.
+(``serving/server.py:195-236`` of the JAX package). What stays refused
+raises: ``dedup`` and ``sweep`` reranks and int8 stores (at conversion),
+naming the ROADMAP item that ports them, and ``scan`` on the padded wire.
 
 Policies, as the JAX engine's except where noted:
 
@@ -14,11 +15,14 @@ Policies, as the JAX engine's except where noted:
   padded wire on the CPU (``engine.py:637-639``). The wire is always f32;
   the JAX engine's automatic f16 wire is not inherited (ROADMAP C6).
 - rerank: ``scan`` when the wire is packed and B*K >= 4*D
-  (``engine.py:178``), else the ``plain`` rerank kernel. ``dedup`` and
-  ``sweep`` are not ported; asking for them raises. ``scan`` on the padded
-  wire raises (the JAX engine falls back there with a warning).
+  (``engine.py:178``), else the ``plain`` rerank kernel, for ``two_stage``
+  on ``prefetch_k`` and for ``three_stage`` on ``stage2_k``
+  (``engine.py:700-706``). ``scan`` on the padded wire raises (the JAX
+  engine falls back there with a warning).
 - stage-1 cut: always exact (the JAX engine's ``approx_max_k`` at >= 65536
   docs is a declared difference, ROADMAP).
+- filters: one device mask per (filter signature, manifest version),
+  memoised up to 64 masks (``engine.py:367-387``).
 """
 
 from __future__ import annotations
@@ -27,11 +31,13 @@ from collections import deque
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from visual_rag_tpu_torch.index.store import (
     PaddedMultiVectors,
     RaggedMultiVectors,
     SealedIndex,
+    SingleVectors,
 )
 from visual_rag_tpu_torch.retrieval import plans, wire
 from visual_rag_tpu_torch.retrieval.local import NEG_INF
@@ -62,7 +68,6 @@ SEARCH_MODES = (
     "two_stage",
     "three_stage",
 )
-PORTED_MODES = ("two_stage", "single_full")
 
 
 class BatchResultArrays:
@@ -103,6 +108,8 @@ class RetrievalEngine:
         index: SealedIndex,
         full_vector_name: str = "initial",
         pooled_vector_name: str = "mean_pooling",
+        global_vector_name: str = "global_pooling",
+        experimental_vector_name: str = "experimental_pooling",
         rerank_impl: str = "auto",
         query_wire: str = "auto",
     ):
@@ -117,11 +124,14 @@ class RetrievalEngine:
         self.index = index
         self.full_vector_name = full_vector_name
         self.pooled_vector_name = pooled_vector_name
+        self.global_vector_name = global_vector_name
+        self.experimental_vector_name = experimental_vector_name
         self.rerank_impl = rerank_impl
         self.query_wire = query_wire
         self.device = index.device if index.stores else None
         self._arrays: Dict[str, Dict] = {}
         self._ids: Optional[np.ndarray] = None
+        self._mask_cache: Dict[Any, torch.Tensor] = {}
 
     # -- policies --------------------------------------------------------------
 
@@ -157,12 +167,27 @@ class RetrievalEngine:
 
     def _fused_stage1(self, stage1_mode: str):
         m = _STAGE1_ALIASES.get(stage1_mode, stage1_mode)
-        if m not in STAGE1_MODES:
+        table = {
+            "pooled_query_vs_standard_pooling": ("pooled_padded", self.pooled_vector_name),
+            "tokens_vs_standard_pooling": ("tokens_padded", self.pooled_vector_name),
+            "pooled_query_vs_experimental_pooling": ("pooled_padded",
+                                                     self.experimental_vector_name),
+            "tokens_vs_experimental_pooling": ("tokens_padded", self.experimental_vector_name),
+            "pooled_query_vs_global": ("pooled_single", self.global_vector_name),
+        }
+        if m not in table:
             raise ValueError(f"Unknown stage1_mode: {stage1_mode}")
-        if m != "pooled_query_vs_standard_pooling":
-            raise NotImplementedError(
-                f"stage1_mode {m!r} is not ported yet (ROADMAP A6)")
-        return "pooled_padded", self.pooled_vector_name
+        return table[m]
+
+    def _single_stage(self, mode: str):
+        return {
+            "single_full": ("tokens_ragged", self.full_vector_name),
+            "single_tiles": ("tokens_padded", self.pooled_vector_name),
+            "single_pooled": ("pooled_padded", self.pooled_vector_name),
+            "single_global": ("pooled_single", self.global_vector_name),
+            "single_experimental_tokens": ("tokens_padded", self.experimental_vector_name),
+            "single_experimental_pooled": ("pooled_padded", self.experimental_vector_name),
+        }[mode]
 
     def _fused_arrays(self, name: str) -> Dict:
         """Store tensors in the layout the plans take, cached per store."""
@@ -175,13 +200,45 @@ class RetrievalEngine:
             elif isinstance(store, PaddedMultiVectors):
                 arr = {"vals_t": store.values.permute(1, 0, 2).contiguous(),
                        "mask_t": store.mask.T.contiguous()}
+            elif isinstance(store, SingleVectors):
+                arr = {"vals": store.values}
             else:
-                raise NotImplementedError(
-                    f"store {name!r} ({store.kind}) has no ported plan (ROADMAP A6)")
+                raise ValueError(f"store {name!r} has an unknown layout ({store.kind})")
             self._arrays[name] = arr
         return arr
 
+    def _doc_mask(self, filter_obj) -> Optional[torch.Tensor]:
+        """[D] bool device mask of a filter (None when unfiltered), memoised
+        on (signature, manifest version): a caller that applies one filter
+        to many queries evaluates and copies it once. Takes this package's
+        ``PayloadFilter`` or the JAX package's (same surface)."""
+        if filter_obj is None or filter_obj.is_empty():
+            return None
+        key = (filter_obj.signature(), self.index.manifest.version)
+        mask = self._mask_cache.get(key)
+        if mask is None:
+            mask = torch.as_tensor(np.asarray(filter_obj.evaluate(self.index.manifest),
+                                              dtype=bool)).to(self.device)
+            if len(self._mask_cache) >= 64:  # bound the device memory held by masks
+                self._mask_cache.pop(next(iter(self._mask_cache)))
+            self._mask_cache[key] = mask
+        return mask
+
     # -- public search API -------------------------------------------------------
+
+    def search_embedded(self, query_embedding, mode: str = "two_stage", top_k: int = 10,
+                        prefetch_k: Optional[int] = None,
+                        stage1_mode: str = "pooled_query_vs_standard_pooling",
+                        stage1_k: Optional[int] = None, stage2_k: Optional[int] = None,
+                        filter_obj=None, with_payload: bool = True) -> List[Dict[str, Any]]:
+        """Search with one query embedding [nq, dim] (or [dim]): a batch of
+        one through the batched plans (JAX ``engine.py:517-549``)."""
+        if mode not in SEARCH_MODES:
+            raise ValueError(f"Unknown mode: {mode}. Choose one of {SEARCH_MODES}")
+        return self.search_embedded_batch(
+            [query_embedding], mode=mode, top_k=top_k, prefetch_k=prefetch_k,
+            stage1_mode=stage1_mode, stage1_k=stage1_k, stage2_k=stage2_k,
+            filter_obj=filter_obj, with_payload=with_payload)[0]
 
     def search_embedded_batch(self, query_embeddings, mode: str = "two_stage",
                               top_k: int = 10, prefetch_k: Optional[int] = None,
@@ -220,11 +277,6 @@ class RetrievalEngine:
         :meth:`_finish_batch` (device results not yet fetched)."""
         if mode not in SEARCH_MODES:
             raise ValueError(f"Unknown mode: {mode}. Choose one of {SEARCH_MODES}")
-        if mode not in PORTED_MODES:
-            raise NotImplementedError(
-                f"mode {mode!r} is not ported yet (ROADMAP A6); ported: {PORTED_MODES}")
-        if filter_obj is not None:
-            raise NotImplementedError("payload filters are not ported yet (ROADMAP A6)")
         if return_arrays and with_payload:
             raise ValueError("return_arrays=True requires with_payload=False")
         d = self.index.num_docs
@@ -241,20 +293,38 @@ class RetrievalEngine:
             arrays = wire.pad_queries_raw(queries, dim)
             q1, q2 = wire.to_device(arrays, self.device)
             q3, nq = None, arrays[0].shape[1]
+        doc_mask = self._doc_mask(filter_obj)
         common = dict(wire="packed" if packed else "padded", b=b, nq=nq)
-        if mode == "single_full":
-            vals, idx = plans.single_plan(ragged, q1, q2, q3, k=max(1, min(int(top_k), d)),
-                                          **common)
+
+        if mode.startswith("single_"):
+            kind, name = self._single_stage(mode)
+            vals, idx = plans.single_plan(
+                self._fused_arrays(name), ragged, doc_mask, q1, q2, q3, kind=kind,
+                k=max(1, min(int(top_k), d)), **common)
             return ("done", n_real, with_payload, return_arrays, {"idx": idx, "score": vals})
-        if prefetch_k is None:
-            prefetch_k = max(100, top_k * 10)  # reference default (two_stage.py:128-129)
-        kind, name = self._fused_stage1(stage1_mode)
-        pk = max(1, min(int(prefetch_k), d))
-        vals, idx = plans.two_stage_plan(
-            self._fused_arrays(name), ragged, q1, q2, q3, kind=kind, pk=pk,
-            k=max(1, min(int(top_k), pk)), impl=self._rerank_impl(b, pk, packed), **common)
+
+        if mode == "two_stage":
+            if prefetch_k is None:
+                prefetch_k = max(100, top_k * 10)  # reference default (two_stage.py:128-129)
+            kind, name = self._fused_stage1(stage1_mode)
+            pk = max(1, min(int(prefetch_k), d))
+            vals, idx = plans.two_stage_plan(
+                self._fused_arrays(name), ragged, doc_mask, q1, q2, q3, kind=kind, pk=pk,
+                k=max(1, min(int(top_k), pk)), impl=self._rerank_impl(b, pk, packed),
+                **common)
+            return ("done", n_real, with_payload, return_arrays,
+                    {"idx": idx, "score_stage2": vals, "score_final": vals})
+
+        s1k = max(1, min(int(stage1_k or 1000), d))
+        s2k = max(1, min(int(stage2_k or 300), d))
+        vals, idx, s1_at, s2_at = plans.three_stage_plan(
+            self._fused_arrays(self.global_vector_name),
+            self._fused_arrays(self.experimental_vector_name), ragged, doc_mask, q1, q2, q3,
+            s1k=s1k, s2k=s2k, k=max(1, min(int(top_k), s2k)),
+            impl=self._rerank_impl(b, s2k, packed), **common)
         return ("done", n_real, with_payload, return_arrays,
-                {"idx": idx, "score_stage2": vals, "score_final": vals})
+                {"idx": idx, "score_stage3": vals, "score_final": vals,
+                 "score_stage1": s1_at, "score_stage2": s2_at})
 
     def _finish_batch(self, pending):
         tag, n_real, with_payload, return_arrays, arrays = pending

@@ -11,10 +11,21 @@ Port of the shard-local bodies in ``visual_rag_tpu/parallel/sharded.py``
   ``plain`` and ``scan``. The ``lax.map`` chunking at B*K > 64k
   (``:508-524``) worked around the TPU's scalar memory; one CUDA launch
   takes any B*K, so it is gone.
+- :func:`local_tokens_padded` <- ``_local_tokens_padded`` (``:308-338``) and
+  :func:`local_tokens_padded_packed` <- ``_local_tokens_padded_packed``
+  (``:533-573``): the tokens-vs-pooled stage-1 through the K5/K6/K7 kernel
+  (``ops/kernels/prefetch_topk.py``). A padded batch of one goes through
+  the K7 entry point, the per-query kernel.
+- :func:`local_pooled_single` <- ``_local_pooled_single`` (``:354-362``), a
+  plain ``torch.matmul``: XLA computed it outside any kernel.
+- :func:`gathered_tokens_padded` <- ``_gathered_tokens_padded``
+  (``:365-419``), plain torch for the same reason, query-chunked under
+  ``GATHER_BUDGET_BYTES``.
 - :func:`local_tokens_ragged` <- ``_local_tokens_ragged`` (``:580-634``),
   on the packed and the padded wire, without length buckets.
 - :func:`local_stage1` <- ``_local_stage1`` (``:637-662``), kinds
-  ``pooled_padded`` and ``tokens_ragged``.
+  ``tokens_padded``, ``pooled_padded``, ``pooled_single`` and
+  ``tokens_ragged``; the int8 qdot branch waits for int8 stores.
 - :func:`refine_topk` <- ``_refine_topk`` (``:730-742``), plain stores.
 """
 
@@ -26,8 +37,27 @@ import torch
 
 from visual_rag_tpu_torch.ops.kernels.maxsim_rerank import rerank_candidates
 from visual_rag_tpu_torch.ops.kernels.maxsim_scan import exhaustive_scores_packed
+from visual_rag_tpu_torch.ops.kernels.prefetch_topk import (
+    pooled_maxsim_scores,
+    pooled_maxsim_scores_packed,
+    pooled_maxsim_scores_qbatch,
+)
 
 NEG_INF = -1e30
+# device-memory cap of the stage-2 candidate gather (sharded.py:417-419)
+GATHER_BUDGET_BYTES = 320 * 1024 * 1024
+
+
+def local_tokens_padded(s1: Dict, tokens: torch.Tensor, qmask: torch.Tensor) -> torch.Tensor:
+    """[B, D] tokens-vs-pooled stage-1 on the padded wire (K6; K7 at B = 1)."""
+    fn = pooled_maxsim_scores if tokens.shape[0] == 1 else pooled_maxsim_scores_qbatch
+    return fn(s1["vals_t"], s1["mask_t"], tokens, qmask, s1.get("scales_t"))
+
+
+def local_tokens_padded_packed(s1: Dict, packed: Dict, b: int) -> torch.Tensor:
+    """[B, D] tokens-vs-pooled stage-1 on the group-packed wire (K5)."""
+    return pooled_maxsim_scores_packed(s1["vals_t"], s1["mask_t"], packed["q"], packed["qid"],
+                                       b, packed["w"], s1.get("scales_t"))
 
 
 def local_pooled_padded(s1: Dict, pooled: torch.Tensor) -> torch.Tensor:
@@ -43,6 +73,51 @@ def local_pooled_padded(s1: Dict, pooled: torch.Tensor) -> torch.Tensor:
         s = (q @ vals_t[p].float().T).masked_fill(~mask_t[p][None, :], NEG_INF)
         out = s if out is None else torch.maximum(out, s)
     return torch.where(mask_t.any(dim=0)[None, :], out, 0.0)
+
+
+def local_pooled_single(s1: Dict, pooled: torch.Tensor) -> torch.Tensor:
+    """[B, D] dot of the pooled query with each doc's single vector."""
+    vals = s1["vals"]  # [D, dim]
+    out = pooled.to(vals.dtype).float() @ vals.float().T
+    scales = s1.get("scales")
+    return out if scales is None else out * scales.float()[None, :]
+
+
+def gathered_tokens_padded(estore: Dict, tokens: torch.Tensor, qmask: torch.Tensor,
+                           cand: torch.Tensor) -> torch.Tensor:
+    """[B, K] tokens-vs-pooled scores of each query's candidates only.
+
+    Gathers the candidates' pooled rows ([P, Bc, K, dim]) for a chunk of Bc
+    queries at a time: the chunk halves until its gather and similarity
+    transients fit ``GATHER_BUDGET_BYTES``. Scores are per (query, doc), so
+    the chunking changes nothing. -1 candidates score ``NEG_INF``; docs
+    with no valid pooled row 0.
+    """
+    vals_t = estore["vals_t"]
+    b, k = cand.shape
+    p, _, dim = vals_t.shape
+    per_q = p * k * (dim * max(2, vals_t.element_size()) + tokens.shape[1] * 4)
+    bc = b
+    while bc > 1 and bc * per_q > GATHER_BUDGET_BYTES:
+        bc //= 2
+    return torch.cat([_gathered_chunk(estore, tokens[s:s + bc], qmask[s:s + bc],
+                                      cand[s:s + bc]) for s in range(0, b, bc)])
+
+
+def _gathered_chunk(estore: Dict, tokens, qmask, cand) -> torch.Tensor:
+    vals_t, mask_t = estore["vals_t"], estore["mask_t"]
+    scales_t = estore.get("scales_t")
+    safe = cand.clamp(min=0).long()  # [Bc, K]
+    sub = vals_t[:, safe].float()  # [P, Bc, K, dim]
+    msk = mask_t[:, safe].bool()  # [P, Bc, K]
+    sims = torch.einsum("bqd,pbkd->bqpk", tokens.to(vals_t.dtype).float(), sub)
+    if scales_t is not None:
+        sims = sims * scales_t[:, safe].float().permute(1, 0, 2)[:, None]
+    sims = sims.masked_fill(~msk.permute(1, 0, 2)[:, None], NEG_INF)
+    per_q = sims.amax(dim=2)  # [Bc, NQ, K]
+    per_q = torch.where(msk.any(dim=0)[:, None, :], per_q, 0.0)
+    scores = (per_q * qmask.float()[:, :, None]).sum(dim=1)
+    return torch.where(cand >= 0, scores, NEG_INF)
 
 
 def local_tokens_ragged(ragged: Dict, tokens: torch.Tensor, qmask: torch.Tensor,
@@ -82,8 +157,14 @@ def local_rerank(ragged: Dict, tokens: torch.Tensor, qmask: torch.Tensor,
 
 def local_stage1(kind: str, s1: Dict, ragged: Dict, tokens, qmask, pooled,
                  packed: Optional[Dict], b: int) -> torch.Tensor:
+    if kind == "tokens_padded":
+        if packed is not None:
+            return local_tokens_padded_packed(s1, packed, b)
+        return local_tokens_padded(s1, tokens, qmask)
     if kind == "pooled_padded":
         return local_pooled_padded(s1, pooled)
+    if kind == "pooled_single":
+        return local_pooled_single(s1, pooled)
     if kind == "tokens_ragged":
         return local_tokens_ragged(ragged, tokens, qmask, packed, b)
     raise ValueError(kind)

@@ -1,7 +1,7 @@
 """Query plans of the batched engine: device-side query prep, stage-1, top-k
 cut, rerank and final top-k.
 
-Port of ``visual_rag_tpu/retrieval/plans.py:33-136``. The JAX plans are
+Port of ``visual_rag_tpu/retrieval/plans.py:33-178``. The JAX plans are
 single ``jit`` dispatches; these are plain eager functions whose device
 work PyTorch queues asynchronously. Capturing them as CUDA graphs is later
 work (ROADMAP A4). The intermediate cut is always exact (``torch.topk``):
@@ -17,6 +17,7 @@ import torch
 
 from visual_rag_tpu_torch.retrieval.local import (
     NEG_INF,
+    gathered_tokens_padded,
     local_rerank,
     local_stage1,
     refine_topk,
@@ -40,7 +41,8 @@ def _prep_wire(q1, q2, q3, wire: str, b: int, nq: int):
 def _prep_queries_packed(packed, pos, qid, b: int, nq: int):
     """Packed wire -> the padded [B, NQ, dim] view (one row scatter; pad
     rows carry pos = B*NQ and land in a dropped extra row), plus the packed
-    rows l2-normalised for the scan kernel."""
+    rows l2-normalised for the scan and stage-1 kernels, their in-group
+    owners ``qid`` and row weights ``w`` (1 on real rows, 0 on pad rows)."""
     t = packed.float()
     dim = t.shape[1]
     p = pos.long()
@@ -52,7 +54,8 @@ def _prep_queries_packed(packed, pos, qid, b: int, nq: int):
     tokens, pooled = _prep_queries(flat_t[:b * nq].reshape(b, nq, dim), qmask)
     tn = t * (qid.reshape(-1) >= 0).float()[:, None]
     tn = tn / (torch.linalg.vector_norm(tn, dim=-1, keepdim=True) + 1e-8)
-    return tokens, qmask, pooled, {"q": tn, "qid": qid.to(torch.int32)}
+    return tokens, qmask, pooled, {"q": tn, "qid": qid.to(torch.int32),
+                                   "w": (qid.reshape(-1) >= 0).float()}
 
 
 def _prep_queries(raw, qmask):
@@ -66,27 +69,53 @@ def _prep_queries(raw, qmask):
     return tokens, pooled
 
 
-def _topk_masked(scores: torch.Tensor, k: int):
-    """Exact top-k per row; ids of ``NEG_INF`` entries become -1."""
+def _topk_masked(scores: torch.Tensor, k: int, doc_mask=None):
+    """Exact top-k per row; ids of ``NEG_INF`` entries become -1. Docs
+    outside ``doc_mask`` (a [D] bool filter mask; None = unfiltered) score
+    ``NEG_INF`` first, so the cut stays exact over the docs it admits."""
+    if doc_mask is not None:
+        scores = torch.where(doc_mask[None, :], scores, NEG_INF)
     vals, idx = torch.topk(scores, k, dim=-1)
     return vals, torch.where(vals > NEG_INF / 2, idx, -1).to(torch.int32)
 
 
-def single_plan(ragged: Dict, q1, q2, q3=None, *, k: int, wire: str = "padded",
-                b: int = 0, nq: int = 0):
-    """``single_full``: the exhaustive scan over the ragged store, top-k."""
+def single_plan(s1: Dict, ragged: Dict, doc_mask, q1, q2, q3=None, *, kind: str, k: int,
+                wire: str = "padded", b: int = 0, nq: int = 0):
+    """``single_*``: one store scored for every doc (stage-1 ``kind``), top-k."""
     tokens, qmask, pooled, packed = _prep_wire(q1, q2, q3, wire, b, nq)
-    scores = local_stage1("tokens_ragged", {}, ragged, tokens, qmask, pooled, packed, b)
-    return _topk_masked(scores, k)
+    scores = local_stage1(kind, s1, ragged, tokens, qmask, pooled, packed, b)
+    return _topk_masked(scores, k, doc_mask)
 
 
-def two_stage_plan(s1: Dict, ragged: Dict, q1, q2, q3=None, *, kind: str, pk: int,
-                   k: int, impl: str = "plain", wire: str = "padded", b: int = 0,
+def two_stage_plan(s1: Dict, ragged: Dict, doc_mask, q1, q2, q3=None, *, kind: str,
+                   pk: int, k: int, impl: str = "plain", wire: str = "padded", b: int = 0,
                    nq: int = 0):
     """``two_stage``: stage-1 scores, exact top-``pk`` cut, exact MaxSim
     rerank of the candidates, final top-``k``."""
     tokens, qmask, pooled, packed = _prep_wire(q1, q2, q3, wire, b, nq)
     scores = local_stage1(kind, s1, ragged, tokens, qmask, pooled, packed, b)
-    _, cand = _topk_masked(scores, pk)
+    _, cand = _topk_masked(scores, pk, doc_mask)
     rr = local_rerank(ragged, tokens, qmask, cand, impl, packed, b)
     return refine_topk(cand, rr, k)
+
+
+def three_stage_plan(gstore: Dict, estore: Dict, ragged: Dict, doc_mask, q1, q2, q3=None,
+                     *, s1k: int, s2k: int, k: int, impl: str = "plain",
+                     wire: str = "padded", b: int = 0, nq: int = 0):
+    """``three_stage``: pooled query vs the global vectors, top-``s1k``; the
+    query tokens vs the experimental pooled rows of those candidates only,
+    top-``s2k``; exact MaxSim rerank, final top-``k``. Returns (scores,
+    ids, stage-1 scores, stage-2 scores), the last two at the winners."""
+    tokens, qmask, pooled, packed = _prep_wire(q1, q2, q3, wire, b, nq)
+    s1 = local_stage1("pooled_single", gstore, ragged, tokens, qmask, pooled, packed, b)
+    _, c1 = _topk_masked(s1, s1k, doc_mask)
+    s2c = gathered_tokens_padded(estore, tokens, qmask, c1)  # [B, s1k]
+    s2k = min(s2k, s1k)
+    k = min(k, s2k)  # the stage-2 pool bounds the final cut
+    v2, pos2 = torch.topk(s2c, s2k, dim=1)
+    c2 = torch.where(v2 > NEG_INF / 2, c1.gather(1, pos2), -1).to(torch.int32)
+    rr = local_rerank(ragged, tokens, qmask, c2, impl, packed, b)
+    vals, pos = torch.topk(rr, k, dim=1)
+    idx = torch.where(vals > NEG_INF / 2, c2.gather(1, pos), -1).to(torch.int32)
+    fi = idx.clamp(min=0).long()
+    return vals, idx, s1.gather(1, fi), v2.gather(1, pos)
