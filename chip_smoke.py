@@ -33,6 +33,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    per-query ``search_embedded`` calls (K7) that agree with the batch, and
    the strict oracle of the new stage-1 (``prefetch_k`` = corpus against
    ``single_full``, tolerance 0). K5, K6 and K7 must each have launched.
+9. int8 storage. The 3k corpus is quantized once on the CPU
+   (``quantize_index``) to ``int8`` and ``int8_refined`` and moved to the
+   card. First, not counted: the int8 bodies (bf16 queries) of K2, K1, K5,
+   K6 and K7 and the qdot bodies (int8 queries, integer dots) of K1 and
+   K5/K6/K7 -- K5's is K9's function -- against their plain versions (K2 32
+   x 200; K1 64 packed x 3000 docs; K5 64 packed x 3000 docs, P 10, and
+   1024 packed x 100k docs, P 12; K6/K7 16 queries; a P = 76 int8 store with
+   holes), within ATOL, two calls bit-equal, and with one query row a group
+   the qdot scores bit-equal to the plain version's. Then, counts at 0: the
+   card against the CPU in every mode, stage-1 mode and a filter (16
+   queries, ids); ``two_stage`` QPS at 3k bs 256 (pooled and tokens, both
+   dtypes); ``single_tiles`` and the tokens ``two_stage`` at bs 16 and 256;
+   per-query ``search_embedded`` (K7); the strict oracles at tolerance 0
+   for both dtypes and both stage-1 kinds; the top-10 overlap with the bf16
+   engine; at 100k ``int8_refined`` ``two_stage`` bs 1024 (pooled, tokens),
+   ``single_full`` bs 256, ``three_stage`` bs 1024, and ``int8`` ``two_stage``
+   bs 1024; the token store's bytes per dtype. Every entry point's int8
+   count and every qdot count must be > 0.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary. Without a CUDA device the script raises at once.
@@ -40,6 +58,7 @@ the per-kernel JSON summary. Without a CUDA device the script raises at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -424,6 +443,9 @@ def main() -> None:
         k["launches"] = counts.get(k["name"], counts8[k["name"]])
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on its path")
+
+    # -- 9. int8 storage ---------------------------------------------------------------
+    kernels += int8_phase(dev, card, idx3k, eng3k, qs, entry_points)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "visual_rag_tpu"))
     if leaked:
         raise AssertionError(f"the JAX package or jax was imported: {leaked[:5]}")
@@ -431,6 +453,269 @@ def main() -> None:
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
+
+
+@contextlib.contextmanager
+def uncounted(entry_points):
+    """Launches inside the block (kernel-vs-plain checks) leave every
+    launch count as it was."""
+    saved = [(fn, fn.launches, getattr(fn, "launches_qdot", 0)) for fn in entry_points]
+    try:
+        yield
+    finally:
+        for fn, n, nq in saved:
+            fn.launches = n
+            if hasattr(fn, "launches_qdot"):
+                fn.launches_qdot = nq
+
+
+def int8_phase(dev, card, idx3k, eng3k, qs, entry_points):
+    """Phase 9: int8 and int8_refined storage (module docstring). Returns
+    the kernel summary entries of the int8 and qdot bodies."""
+    import torch
+
+    from visual_rag_tpu_torch import RetrievalEngine, synthetic_index
+    from visual_rag_tpu_torch.index.quantize import quantize_index, quantize_rows_int8
+    from visual_rag_tpu_torch.ops.kernels.maxsim_rerank import rerank_candidates_ref
+    from visual_rag_tpu_torch.ops.kernels.maxsim_scan import exhaustive_scores_packed_ref
+    from visual_rag_tpu_torch.ops.kernels.prefetch_topk import (
+        _as_packed,
+        pooled_maxsim_scores_packed_ref,
+    )
+    from visual_rag_tpu_torch.retrieval import plans, wire
+    from visual_rag_tpu_torch.retrieval.engine import SEARCH_MODES, STAGE1_MODES
+    from visual_rag_tpu_torch.retrieval.filters import build_filter
+    from visual_rag_tpu_torch.retrieval.local import local_pooled_padded
+    from visual_rag_tpu_torch.retrieval.oracle import run_strict_oracle, strict_rank_equal
+
+    k2, k1, k5, k6, k7 = entry_points
+    dtypes = ("int8", "int8_refined")
+    t0 = time.perf_counter()
+    cpu3k = idx3k.to("cpu")
+    q_cpu = {dt: quantize_index(cpu3k, dt) for dt in dtypes}
+    q_card = {dt: q_cpu[dt].to(dev) for dt in dtypes}
+    eng = {dt: RetrievalEngine(q_card[dt]) for dt in dtypes}
+    torch.cuda.synchronize()
+    log(f"3k corpus quantized on the CPU to {dtypes} and moved to the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # 9a. each int8 and qdot body against its plain version (not counted)
+    entries = {}
+
+    def hold(key, fn, ref, args, kw, shape, exact_rows=None):
+        got, again, want = fn(*args, **kw), fn(*args, **kw), ref(*args, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=0, atol=ATOL):
+            raise AssertionError(f"{key} disagrees with its plain version: {err}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{key} is not deterministic")
+        if exact_rows is not None:  # one query row a group: bit-equal to the plain version
+            rows_kw = dict(kw, qdot_int8=True)
+            a, b = fn(*exact_rows, **rows_kw), ref(*exact_rows, **rows_kw)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise AssertionError(f"{key}: per-row qdot maxima differ from the plain "
+                                     f"version by {float((a - b).abs().max())}")
+        e = entries.get(key)
+        if e is None:  # times at the first (main) shape
+            ms = cuda_ms(lambda: fn(*args, **kw))
+            plain_ms = cuda_ms(lambda: ref(*args, **kw), iters=3)
+            entries[key] = e = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            log(f"{key} [{shape}]: max_abs_err {err:.3g} kernel {ms:.4f} ms "
+                f"plain {plain_ms:.4f} ms{' (per-row qdot maxima bit-equal)' if exact_rows else ''}")
+        else:
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+            log(f"{key} [{shape}]: max_abs_err {err:.3g}")
+        return e
+
+    def padded_ref(vals, mask, tokens, qmask, scales_t=None, qdot_int8=False):
+        return pooled_maxsim_scores_packed_ref(vals, mask, *_as_packed(vals, tokens, qmask),
+                                               scales_t=scales_t, qdot_int8=qdot_int8)
+
+    with uncounted(entry_points):
+        r8 = eng["int8"]._fused_arrays("initial")
+        store = (r8["flat"], r8["offsets"], r8["lengths"])
+        raw, qmask = wire.to_device(wire.pad_queries_raw(queries(11, 32), 128), dev)
+        tokens, pooled = plans._prep_queries(raw, qmask)
+        _, cand = plans._topk_masked(local_pooled_padded(eng["int8"]._fused_arrays(
+            "mean_pooling"), pooled), 200)
+        cand[:, -5:] = -1
+        hold("rerank_candidates[int8]", k2, rerank_candidates_ref,
+             store + (tokens, qmask, cand, r8["max_len"], r8["scales"]), {}, "32 x 200")
+
+        (p, pos, qid), nq, _ = wire.pack_queries_grouped(queries(12, 64), 128)
+        packed = plans._prep_queries_packed(*wire.to_device((p, pos, qid), dev), 64, nq)[3]
+        m = packed["q"].shape[0]
+        one_row = (packed["qid"].reshape(-1, 1) >= 0).int() - 1  # [M, 1]: a group a row
+        for body, qdot in (("int8", False), ("qdot", True)):
+            hold(f"exhaustive_scores_packed[{body}]", k1, exhaustive_scores_packed_ref,
+                 store + (packed["q"], packed["qid"], r8["max_len"], 64, r8["scales"]),
+                 dict(qdot_int8=qdot), "64 packed queries x 3000 docs",
+                 store + (packed["q"], one_row, r8["max_len"], m, r8["scales"]) if qdot else None)
+
+        s8 = eng["int8"]._fused_arrays("mean_pooling")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(14)
+        v76 = torch.nn.functional.normalize(
+            torch.randn((76, 3000, 128), generator=gen, device=dev), dim=-1)
+        c76, sc76 = quantize_rows_int8(v76)
+        m76 = torch.rand((76, 3000), generator=gen, device=dev) > 0.3
+        m76[:, [17, 2999]] = False
+        raw16, qmask16 = wire.to_device(wire.pad_queries_raw(queries(15, 16), 128), dev)
+        tokens16, _ = plans._prep_queries(raw16, qmask16)
+        for body, qdot in (("int8", False), ("qdot", True)):
+            kw = dict(qdot_int8=qdot)
+            for vals, mask, sc, shape in ((s8["vals_t"], s8["mask_t"], s8["scales_t"], "P 10"),
+                                          (c76, m76, sc76, "P 76 with holes")):
+                exact = ((vals, mask, packed["q"], torch.zeros_like(one_row), m, None, sc)
+                         if qdot else None)
+                hold(f"pooled_maxsim_scores_packed[{body}]", k5,
+                     pooled_maxsim_scores_packed_ref,
+                     (vals, mask, packed["q"], packed["qid"], 64, packed["w"], sc), kw,
+                     f"64 packed queries x 3000 docs, {shape}", exact)
+                for fn in (k6, k7):
+                    hold(f"{fn.__name__}[{body}]", fn, padded_ref,
+                         (vals, mask, tokens16, qmask16, sc), kw,
+                         f"16 padded queries x 3000 docs, {shape}")
+
+    # 9b. the int8 path, counts from 0
+    for fn in entry_points:
+        fn.launches = 0
+        if hasattr(fn, "launches_qdot"):
+            fn.launches_qdot = 0
+    tok = dict(stage1_mode=TOKENS)
+    qs16 = qs[:16]
+    cuts = dict(BENCH_KW, prefetch_k=60, stage1_k=100, stage2_k=40)
+    runs = [dict(cuts, mode=m) for m in SEARCH_MODES] + [
+        dict(cuts, stage1_mode=m) for m in STAGE1_MODES[1:]] + [
+        dict(cuts, filter_obj=build_filter(year=[2021, 2023]))]
+    for dt in dtypes:
+        on_cpu = RetrievalEngine(q_cpu[dt])
+        for kw in runs:
+            a = eng[dt].search_embedded_batch(qs16, **kw)
+            b = on_cpu.search_embedded_batch(qs16, **kw)
+            key = "score" if kw["mode"].startswith("single_") else "score_final"
+            if not all(strict_rank_equal([dict(h, score=h[key]) for h in x], y, score_tol=ATOL)
+                       for x, y in zip(b, a)):
+                what = " ".join(str(kw[k]) for k in ("mode", "stage1_mode", "filter_obj")
+                                if k in kw)
+                raise AssertionError(f"{dt}: card and CPU disagree on {what}")
+        log(f"3k {dt}: card == cpu by ids in {len(runs)} runs (8 modes, 4 more stage-1 "
+            f"modes, 1 filter; 16 queries, padded wire)")
+
+    for dt in dtypes:
+        for what, kw in (("pooled", {}), ("tokens", tok)):
+            r = qps(eng[dt], qs[:1024], 256, f"3k {dt} {what} bs=256", **kw)
+            log(f"3k {dt} two_stage {what} stage-1 bs=256: {r:.1f} QPS [{card}]")
+    e8 = eng["int8"]
+    for bs in (16, 256):
+        r = qps(e8, qs[:512], bs, f"3k int8 single_tiles bs={bs}", mode="single_tiles")
+        log(f"3k int8 single_tiles bs={bs}: {r:.1f} QPS [{card}]")
+    r = qps(e8, qs[:256], 16, "3k int8 tokens bs=16", **tok)
+    log(f"3k int8 two_stage {TOKENS} bs=16 (padded wire): {r:.1f} QPS [{card}]")
+    for kw in (dict(BENCH_KW, **tok), dict(BENCH_KW, mode="single_tiles")):
+        batch = e8.search_embedded_batch(qs[:8], **kw)
+        for q, want_hits in zip(qs[:8], batch):
+            if [h["id"] for h in e8.search_embedded(q, **kw)] != [h["id"] for h in want_hits]:
+                raise AssertionError(f"int8 per-query search_embedded differs from the batch: "
+                                     f"{kw['mode']}")
+    log("3k int8 per-query search_embedded (8 queries, tokens two_stage and single_tiles): "
+        "same ids as the batch")
+
+    for dt in dtypes:
+        ok = run_strict_oracle(eng[dt], qs[:256], idx3k.num_docs, score_tol=0.0)
+        exact = eng[dt].search_embedded_batch(qs[:256], mode="single_full", top_k=10,
+                                              with_payload=False)
+        wide = eng[dt].search_embedded_batch(qs[:256], mode="two_stage", top_k=10,
+                                             prefetch_k=idx3k.num_docs, with_payload=False, **tok)
+        ok_tok = all(strict_rank_equal(ex, wd, score_tol=0.0) for ex, wd in zip(exact, wide))
+        log(f"strict oracle 3k {dt} (256 queries, tol 0): pooled {ok}, tokens {ok_tok}")
+        if not (ok and ok_tok):
+            raise AssertionError(f"strict oracle failed for {dt}")
+
+    kw = dict(BENCH_KW)
+    top_bf16 = [{h["id"] for h in hits} for hits in eng3k.search_embedded_batch(qs[:256], **kw)]
+    for dt in dtypes:
+        top = [{h["id"] for h in hits} for hits in eng[dt].search_embedded_batch(qs[:256], **kw)]
+        ov = float(np.mean([len(a & b) / 10 for a, b in zip(top_bf16, top)]))
+        log(f"top-10 overlap of 3k {dt} with the bf16 engine (two_stage, 256 queries): {ov:.4f}")
+
+    # 100k docs: int8_refined, then int8 (one at a time on the card)
+    for dt in ("int8_refined", "int8"):
+        t0 = time.perf_counter()
+        idx = synthetic_index(100000, min_tokens=128, max_tokens=256, pooled_rows=12,
+                              storage_dtype=dt, seed=2, device=dev)
+        torch.cuda.synchronize()
+        ragged = idx.store("initial")
+        log(f"100k {dt} corpus: {ragged.flat.shape[0]} rows in {time.perf_counter() - t0:.2f} s")
+        bf16 = ragged.flat.numel() * 2 + ragged.offsets.numel() * 8
+        log(f"100k token store bytes: bf16 {bf16 / 1e9:.3f} GB (reckoned: same rows, 2 bytes); "
+            f"{dt} {ragged.nbytes() / 1e9:.3f} GB = codes {ragged.flat.numel() / 1e9:.3f} + "
+            f"res4 {(ragged.res4.numel() if ragged.res4 is not None else 0) / 1e9:.3f} + "
+            f"res_scales {(ragged.res_scales.numel() * 4 if ragged.res_scales is not None else 0) / 1e9:.3f} GB"
+            f" + scales and offsets; whole index {idx.nbytes() / 1e9:.3f} GB")
+        e = RetrievalEngine(idx)
+        if dt == "int8_refined":
+            (p, pos, qid), nq, _ = wire.pack_queries_grouped(qs[:1024], 128)
+            pk = plans._prep_queries_packed(*wire.to_device((p, pos, qid), dev), 1024, nq)[3]
+            s100 = e._fused_arrays("mean_pooling")
+            args = (s100["vals_t"], s100["mask_t"], pk["q"], pk["qid"], 1024, pk["w"],
+                    s100["scales_t"])
+            with uncounted(entry_points):
+                for body, qdot in (("int8", False), ("qdot", True)):
+                    got = k5(*args, qdot_int8=qdot)
+                    want = pooled_maxsim_scores_packed_ref(*args, qdot_int8=qdot)
+                    torch.cuda.synchronize()
+                    err = float((got - want).abs().max())
+                    if not torch.allclose(got, want, rtol=0, atol=ATOL):
+                        raise AssertionError(f"K5 {body} disagrees at 100k: {err}")
+                    del got, want
+                    ms = cuda_ms(lambda: k5(*args, qdot_int8=qdot), iters=3)
+                    plain_ms = cuda_ms(lambda: pooled_maxsim_scores_packed_ref(
+                        *args, qdot_int8=qdot), iters=1)
+                    ent = entries[f"pooled_maxsim_scores_packed[{body}]"]
+                    ent.update(max_abs_err=max(ent["max_abs_err"], err), ms_100k=ms,
+                               plain_ms_100k=plain_ms)
+                    log(f"pooled_maxsim_scores_packed[{body}] [1024 packed queries "
+                        f"({pk['q'].shape[0]} rows) x 100000 docs, P 12]: max_abs_err {err:.3g} "
+                        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+            for what, kw in (("pooled", {}), ("tokens", tok)):
+                r = qps(e, qs, 1024, f"100k {dt} {what}", **kw)
+                log(f"100k {dt} two_stage {what} stage-1 bs=1024: {r:.1f} QPS [{card}]")
+            r = qps(e, qs[:512], 256, f"100k {dt} single_full", mode="single_full")
+            log(f"100k {dt} single_full bs=256: {r:.1f} QPS [{card}]")
+            r = qps(e, qs, 1024, f"100k {dt} three_stage", mode="three_stage", stage1_k=1000,
+                    stage2_k=300)
+            log(f"100k {dt} three_stage bs=1024: {r:.1f} QPS [{card}]")
+        else:
+            r = qps(e, qs, 1024, f"100k {dt} pooled")
+            log(f"100k {dt} two_stage pooled stage-1 bs=1024: {r:.1f} QPS [{card}]")
+        del e, idx, ragged
+        torch.cuda.empty_cache()
+
+    counts = {f"{fn.__name__}[{body}]": getattr(fn, attr) for fn in entry_points
+              for body, attr in (("int8", "launches"), ("qdot", "launches_qdot"))
+              if hasattr(fn, attr) and f"{fn.__name__}[{body}]" in entries}
+    log(f"launches over phase 9's path: {counts}")
+    out = []
+    for key, e in entries.items():
+        name, body = key[:-1].split("[")
+        src = {"rerank_candidates": ("maxsim_rerank.cu", "maxsim_rerank.py:163"),
+               "exhaustive_scores_packed": ("maxsim_scan.cu", "maxsim_scan.py:240"),
+               "pooled_maxsim_scores_packed": ("pooled_maxsim.cu", "prefetch_topk.py:212"),
+               "pooled_maxsim_scores_qbatch": ("pooled_maxsim.cu", "prefetch_topk.py:314"),
+               "pooled_maxsim_scores": ("pooled_maxsim.cu", "prefetch_topk.py:358")}[name]
+        out.append(dict(name=key, route="cuda", source=f"visual_rag_tpu_torch/csrc/{src[0]}",
+                        replaces=f"visual_rag_tpu/ops/kernels/{src[1]}", launches=counts[key],
+                        **e))
+        if key == "pooled_maxsim_scores_packed[qdot]":  # K9 is this body's function
+            out.append(dict(out[-1], name="tpu_tokens_qdot_ab.make_v2 (K9) = " + key,
+                            replaces="scripts/tpu_tokens_qdot_ab.py:143"))
+    for k in out:
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']} never launched on phase 9's path")
+    return out
 
 
 if __name__ == "__main__":

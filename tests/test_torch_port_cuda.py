@@ -13,6 +13,13 @@ scales, and every float storage dtype. The tokens stage-1 kernel (K5, K6,
 K7): P = 4, 13 and 76 pooled rows, mask holes, docs with no valid row
 (scored 0), a doc count that is not a multiple of the 64-doc block, pad
 rows, groups of 8 to 768 rows, per-row scales; two calls bit-equal.
+
+int8 stores: the int8 bodies (bf16 queries) of K1, K2 and K5/K6/K7 and the
+qdot bodies (int8 queries, integer dots) of K1 and K5/K6/K7 (K9) against
+their plain versions, each counted on its own counter; with one query row
+a group, the qdot scores equal the plain version's bit for bit (the integer
+dots are exact on both sides). The engine over int8 and int8_refined
+stores on the card against the same index on the CPU.
 """
 
 import numpy as np
@@ -20,6 +27,7 @@ import pytest
 import torch
 
 from visual_rag_tpu_torch import RetrievalEngine, synthetic_index
+from visual_rag_tpu_torch.index.quantize import quantize_per_doc, quantize_rows_int8
 from visual_rag_tpu_torch.ops.kernels.maxsim_rerank import (
     rerank_candidates,
     rerank_candidates_ref,
@@ -223,3 +231,121 @@ def test_engine_on_card_matches_cpu(dev, query_wire):
         for a, c in zip(card.search_embedded_batch(qs, **kw),
                         cpu.search_embedded_batch(qs, **kw)):
             assert strict_rank_equal([dict(h, score=h[key]) for h in c], a, score_tol=1e-4)
+
+
+# -- int8 stores -------------------------------------------------------------------
+
+INT8_ATOL = 1e-3  # exact products on both sides, f32 sums in another order
+
+
+def _int8_store(dev, seed=0):
+    flat, offs, lens, max_len = _store(torch.float32, "cpu", seed=seed)
+    codes, scales = quantize_per_doc(flat, offs, lens)
+    return codes.to(dev), offs.to(dev), lens.to(dev), max_len, scales.to(dev)
+
+
+def test_rerank_int8_matches_plain(dev):
+    codes, offs, lens, max_len, scales = _int8_store(dev)
+    rng = np.random.default_rng(1)
+    raw, qmask = wire.to_device(wire.pad_queries_raw(_queries(rng, 6, 8, 40), DIM), dev)
+    tokens, _ = plans._prep_queries(raw, qmask)
+    cand = torch.from_numpy(rng.integers(-1, 37, (6, 19)).astype(np.int32)).to(dev)
+    args = (codes, offs, lens, tokens, qmask, cand, max_len, scales)
+    before = rerank_candidates.launches
+    got, want = rerank_candidates(*args), rerank_candidates_ref(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=INT8_ATOL)
+    assert rerank_candidates.launches == before + 1
+
+
+@pytest.mark.parametrize("qdot", [False, True])
+@pytest.mark.parametrize("b", [8, 64])
+def test_scan_int8_matches_plain(dev, qdot, b):
+    codes, offs, lens, max_len, scales = _int8_store(dev, seed=2)
+    rng = np.random.default_rng(3)
+    (p, pos, qid), nq, _ = wire.pack_queries_grouped(_queries(rng, b, 5, 40), DIM)
+    packed = plans._prep_queries_packed(*wire.to_device((p, pos, qid), dev), b, nq)[3]
+    args = (codes, offs, lens, packed["q"], packed["qid"], max_len, b, scales)
+    counter = "launches_qdot" if qdot else "launches"
+    before = getattr(exhaustive_scores_packed, counter)
+    got = exhaustive_scores_packed(*args, qdot_int8=qdot)
+    again = exhaustive_scores_packed(*args, qdot_int8=qdot)
+    want = exhaustive_scores_packed_ref(*args, qdot_int8=qdot)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=INT8_ATOL)
+    assert torch.equal(got, again) and (got[:, lens == 0] == -1e30).all()
+    assert getattr(exhaustive_scores_packed, counter) == before + 2
+    if qdot:  # one row a group: w * (rowmax * scale) on both sides, rowmax exact
+        m = packed["q"].shape[0]
+        rows = (packed["q"], (packed["qid"].reshape(-1, 1) >= 0).int() - 1, max_len, m, scales)
+        torch.testing.assert_close(
+            exhaustive_scores_packed(codes, offs, lens, *rows, qdot_int8=True),
+            exhaustive_scores_packed_ref(codes, offs, lens, *rows, qdot_int8=True),
+            rtol=0, atol=0)
+
+
+def _pooled_int8_store(p, dev, seed=0):
+    vals, mask, _ = _pooled_store(p, torch.float32, "cpu", seed=seed)
+    codes, scales = quantize_rows_int8(vals)
+    return codes.to(dev), mask.to(dev), scales.to(dev)
+
+
+@pytest.mark.parametrize("qdot", [False, True])
+@pytest.mark.parametrize("p", [4, 13, 76])
+def test_pooled_int8_matches_plain(dev, p, qdot):
+    """K5 (packed), K6 and K7 (padded) over int8 codes, and their qdot body
+    (K9's function), each on its own counter."""
+    vals, mask, scales = _pooled_int8_store(p, dev)
+    rng = np.random.default_rng(p)
+    (q, pos, qid), nq, _ = wire.pack_queries_grouped(_queries(rng, 64, 8, 24), DIM)
+    packed = plans._prep_queries_packed(*wire.to_device((q, pos, qid), dev), 64, nq)[3]
+    counter = "launches_qdot" if qdot else "launches"
+    args = (vals, mask, packed["q"], packed["qid"], 64, packed["w"], scales)
+    before = getattr(pt.pooled_maxsim_scores_packed, counter)
+    got = pt.pooled_maxsim_scores_packed(*args, qdot_int8=qdot)
+    again = pt.pooled_maxsim_scores_packed(*args, qdot_int8=qdot)
+    want = pt.pooled_maxsim_scores_packed_ref(*args, qdot_int8=qdot)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=INT8_ATOL)
+    assert torch.equal(got, again) and (got[:, ~mask.any(dim=0)] == 0).all()
+    assert getattr(pt.pooled_maxsim_scores_packed, counter) == before + 2
+    raw, qmask = wire.to_device(wire.pad_queries_raw(_queries(rng, 16, 3, 40), DIM), dev)
+    tokens, _ = plans._prep_queries(raw, qmask)
+    want = pt.pooled_maxsim_scores_packed_ref(vals, mask, *pt._as_packed(vals, tokens, qmask),
+                                              scales_t=scales, qdot_int8=qdot)
+    for fn in (pt.pooled_maxsim_scores_qbatch, pt.pooled_maxsim_scores):
+        before = getattr(fn, counter)
+        got = fn(vals, mask, tokens, qmask, scales, qdot_int8=qdot)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=INT8_ATOL)
+        assert getattr(fn, counter) == before + 1
+    if qdot:  # one row a group: w * rowmax on both sides, rowmax exact
+        m = packed["q"].shape[0]
+        rows = (vals, mask, packed["q"], torch.zeros((m, 1), dtype=torch.int32, device=dev), m,
+                None, scales)
+        torch.testing.assert_close(pt.pooled_maxsim_scores_packed(*rows, qdot_int8=True),
+                                   pt.pooled_maxsim_scores_packed_ref(*rows, qdot_int8=True),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("storage_dtype", ["int8", "int8_refined"])
+@pytest.mark.parametrize("query_wire", ["padded", "packed"])
+def test_engine_int8_on_card_matches_cpu(dev, storage_dtype, query_wire):
+    """Every mode, every stage-1 mode and a filter over int8 stores: the
+    card against the same index on the CPU. 1e-3: a query normalised on
+    each device can round to a different bf16 value or int8 code."""
+    idx = synthetic_index(150, min_tokens=20, max_tokens=300, pooled_rows=6,
+                          storage_dtype=storage_dtype, seed=7, device="cpu")
+    for i, pl in enumerate(idx.manifest.payloads):
+        pl["year"] = 2020 + i % 4
+    qs = _queries(np.random.default_rng(8), 40, 8, 24)
+    card, cpu = (RetrievalEngine(i, query_wire=query_wire) for i in (idx.to(dev), idx))
+    cuts = dict(top_k=10, prefetch_k=40, stage1_k=60, stage2_k=30, with_payload=False)
+    runs = [dict(mode=m) for m in SEARCH_MODES] + [
+        dict(mode="two_stage", stage1_mode=s) for s in STAGE1_MODES] + [
+        dict(mode="two_stage", filter_obj=build_filter(year=[2021, 2023]))]
+    for kw in runs:
+        key = "score" if kw["mode"].startswith("single_") else "score_final"
+        for a, c in zip(card.search_embedded_batch(qs, **kw, **cuts),
+                        cpu.search_embedded_batch(qs, **kw, **cuts)):
+            assert strict_rank_equal([dict(h, score=h[key]) for h in c], a, score_tol=1e-3), kw

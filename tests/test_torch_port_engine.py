@@ -180,7 +180,8 @@ def test_empty_index_and_empty_batch(indexes, queries):
 
 def test_refusals(indexes, queries):
     """What the port still refuses: unknown modes, explicit dedup/sweep
-    reranks, scan on the padded wire, int8 stores. Each raises."""
+    reranks, scan on the padded wire, int8 codes without their scales, an
+    unknown storage dtype. Each raises."""
     _, p = indexes
     pe = RetrievalEngine(p)
     with pytest.raises(ValueError, match="Unknown mode"):
@@ -199,14 +200,14 @@ def test_refusals(indexes, queries):
         RetrievalEngine(p, rerank_impl="scan").search_embedded_batch(queries[:2])
     with pytest.raises(ValueError, match="query_wire"):
         RetrievalEngine(p, query_wire="f16")
-    # int8 stores are refused where they would enter the port
+    # int8 stores enter the port with their scales (tests/test_torch_port_int8*.py);
+    # codes without them, or an unknown storage dtype, are refused
     int8 = {"initial": {"flat": np.zeros((32, 128), np.int8), "offsets": np.zeros(1, np.int32),
-                        "lengths": np.ones(1, np.int32), "max_len": 1,
-                        "scales": np.ones(1, np.float32)}}
-    with pytest.raises(NotImplementedError, match="int8"):
-        sealed_from_numpy(int8, ["a"], [{}], "float32", "cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        sealed_from_numpy({}, [], [], "int8", "cpu")
+                        "lengths": np.ones(1, np.int32), "max_len": 1}}
+    with pytest.raises(ValueError, match="int8 codes without their scales"):
+        sealed_from_numpy(int8, ["a"], [{}], "int8", "cpu")
+    with pytest.raises(ValueError, match="storage dtype"):
+        sealed_from_numpy({}, [], [], "int4", "cpu")
 
 
 def _pair(built, query_wire):

@@ -155,11 +155,19 @@ def test_sealed_from_numpy_keeps_bytes(storage_dtype):
 
 
 def test_sealed_from_numpy_refuses_int8():
+    """int8 codes come across only with their scales: this helper drops
+    them, and the conversion refuses every store it left without
+    (``tests/test_torch_port_int8.py`` carries whole int8 indexes)."""
     jidx = _jax_sealed("int8")
     arrs = _numpy_stores(jidx)
+    for name in arrs:
+        with pytest.raises(ValueError, match=f"store '{name}' holds int8 codes"):
+            sealed_from_numpy({name: arrs[name]}, jidx.manifest.ids, jidx.manifest.payloads,
+                              "int8", "cpu")
     arrs["initial"]["scales"] = np.asarray(jidx.store("initial").scales)
-    with pytest.raises(NotImplementedError):
-        sealed_from_numpy(arrs, jidx.manifest.ids, jidx.manifest.payloads, "int8", "cpu")
+    idx = sealed_from_numpy({"initial": arrs["initial"]}, jidx.manifest.ids,
+                            jidx.manifest.payloads, "int8", "cpu")
+    assert idx.store("initial").scales.numpy().tobytes() == arrs["initial"]["scales"].tobytes()
 
 
 @pytest.mark.parametrize("storage_dtype", ["float32", "bfloat16"])

@@ -4,11 +4,15 @@
 // shared memory (f32) and ONE doc's token rows [0, len) in device memory,
 // compute rowmax[t] = max_r dot(q[t], doc[r]). tile_rowmax() does that step.
 //
-// Numerics: store values (f32, bf16 or f16) and queries (already cast to the
-// store dtype by the wrapper) are widened to f32, so every product is exact
-// and products accumulate in f32 -- the TPU kernels' bf16 x bf16 -> f32 MXU
-// semantics. Each dot product is summed by one thread in a fixed order and
-// max is exact, so a kernel's result does not depend on scheduling.
+// Numerics: store values (f32, bf16, f16 or int8 codes) and queries (cast
+// by the wrapper to the store dtype, or to bf16 for int8 codes) are widened
+// to f32, so every product is exact (at most 8-bit x 8-bit significands
+// for int8) and products accumulate in f32 -- the TPU kernels' bf16 x bf16
+// -> f32 MXU semantics. The qdot form (tile_rowmax_qdot) takes int8 query
+// codes and int8 store codes and sums their products in int32 with __dp4a:
+// exact integer dots, as the TPU's int8 x int8 -> int32 MXU dot. Each dot
+// product is summed by one thread in a fixed order and max is exact, so a
+// kernel's result does not depend on scheduling.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -16,6 +20,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace vrt {
 
@@ -26,6 +32,20 @@ constexpr int NWARPS = THREADS / 32;
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
+
+// dtype codes of the C interface: 0 float32, 1 bfloat16, 2 float16, 3 int8.
+// The (store, query) pairs the kernels take: a float store with queries of
+// its own dtype; int8 codes with bf16 queries; int8 codes with int8 query
+// codes (qdot: the scan and the tokens stage-1 only).
+enum Pair { kF32, kBF16, kF16, kInt8Bf16, kInt8Qdot, kBadPair };
+
+__host__ inline Pair dtype_pair(int dtype, int qdtype) {
+  if (dtype == qdtype && dtype >= 0 && dtype <= 2) return static_cast<Pair>(dtype);
+  if (dtype == 3 && qdtype == 1) return kInt8Bf16;
+  if (dtype == 3 && qdtype == 3) return kInt8Qdot;
+  return kBadPair;
+}
 
 // 8 consecutive elements -> f32. The source is 16-byte aligned (the wrapper
 // requires dim % 8 == 0 and 16-byte-aligned base pointers).
@@ -56,6 +76,39 @@ __device__ __forceinline__ void load8(const __half* p, float v[8]) {
     v[2 * i] = f.x;
     v[2 * i + 1] = f.y;
   }
+}
+
+__device__ __forceinline__ void load8(const int8_t* p, float v[8]) {
+  const int2 u = *reinterpret_cast<const int2*>(p);  // 8-byte aligned: dim % 8 == 0
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[i] = static_cast<float>(static_cast<int8_t>(u.x >> (8 * i)));
+    v[4 + i] = static_cast<float>(static_cast<int8_t>(u.y >> (8 * i)));
+  }
+}
+
+// Reduce each thread's running maxima m[t] over the block: rowmax_s[t] =
+// max over threads, for t < TQ. Every thread of the block must call this;
+// it ends with __syncthreads(), after which rowmax_s is valid.
+template <int TQ>
+__device__ __forceinline__ void block_rowmax(const float (&m)[TQ], float* red_s,
+                                             float* rowmax_s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int t = 0; t < TQ; ++t) {
+    float x = m[t];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+    if (lane == 0) red_s[warp * TQ + t] = x;
+  }
+  __syncthreads();
+  if (threadIdx.x < TQ) {
+    float x = red_s[threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < NWARPS; ++w) x = fmaxf(x, red_s[w * TQ + threadIdx.x]);
+    rowmax_s[threadIdx.x] = x;
+  }
+  __syncthreads();
 }
 
 // rowmax_s[t] = max over r < len of dot(q_s[t, :], doc[r, :]) for t < TQ.
@@ -98,22 +151,44 @@ __device__ __forceinline__ void tile_rowmax(const float* __restrict__ q_s, int d
 #pragma unroll
     for (int t = 0; t < TQ; ++t) m[t] = fmaxf(m[t], acc[t]);
   }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  block_rowmax<TQ>(m, red_s, rowmax_s);
+}
+
+// tile_rowmax for int8 query codes against int8 store codes: q_w holds the
+// TQ query rows as int32 words of 4 codes each ([TQ, dim / 4], shared
+// memory); each dot is an int32 sum of __dp4a steps over 16-byte loads
+// (dim % 16 == 0), exact, and converted to f32 once (|dot| < 2^24 for
+// dim <= 1024, so exactly).
+template <int TQ>
+__device__ __forceinline__ void tile_rowmax_qdot(const int* __restrict__ q_w, int dim,
+                                                 const int8_t* __restrict__ doc, int len,
+                                                 float* red_s, float* rowmax_s) {
+  const int dw = dim / 4;
+  float m[TQ];
 #pragma unroll
-  for (int t = 0; t < TQ; ++t) {
-    float x = m[t];
+  for (int t = 0; t < TQ; ++t) m[t] = -CUDART_INF_F;
+  for (int r = threadIdx.x; r < len; r += THREADS) {
+    const int4* row = reinterpret_cast<const int4*>(doc + static_cast<size_t>(r) * dim);
+    int acc[TQ];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-    if (lane == 0) red_s[warp * TQ + t] = x;
+    for (int t = 0; t < TQ; ++t) acc[t] = 0;
+    for (int c = 0; c < dw; c += 4) {
+      const int4 v = row[c / 4];
+#pragma unroll
+      for (int t = 0; t < TQ; ++t) {
+        const int4 qa = *reinterpret_cast<const int4*>(q_w + t * dw + c);
+        int a = acc[t];
+        a = __dp4a(qa.x, v.x, a);
+        a = __dp4a(qa.y, v.y, a);
+        a = __dp4a(qa.z, v.z, a);
+        a = __dp4a(qa.w, v.w, a);
+        acc[t] = a;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < TQ; ++t) m[t] = fmaxf(m[t], static_cast<float>(acc[t]));
   }
-  __syncthreads();
-  if (threadIdx.x < TQ) {
-    float x = red_s[threadIdx.x];
-#pragma unroll
-    for (int w = 1; w < NWARPS; ++w) x = fmaxf(x, red_s[w * TQ + threadIdx.x]);
-    rowmax_s[threadIdx.x] = x;
-  }
-  __syncthreads();
+  block_rowmax<TQ>(m, red_s, rowmax_s);
 }
 
 // Dynamic shared memory above the default 48 KB must be opted into.

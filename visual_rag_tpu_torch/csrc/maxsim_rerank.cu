@@ -4,7 +4,9 @@
 // rerank_candidates (_make_kernel :35, pallas_call :163). Semantics, as
 // there: for query b and candidate doc c = candidates[b, k],
 //   out[b, k] = scale[c] * sum_t qmask[b, t] * max_{r < len[c]} q[b, t] . flat[off[c] + r]
-// and NEG_INF where c == -1 or len[c] == 0.
+// and NEG_INF where c == -1 or len[c] == 0. For an int8 store the codes are
+// widened to f32 against bf16-rounded queries (:69, :171) and the per-doc
+// scale multiplies the finished score (:89).
 //
 // What bounds it on the H100: arithmetic. Each (query, candidate) pair is
 // a small [NQ, dim] x [dim, len] product (NQ ~ 24, len ~ 200-800), done
@@ -24,11 +26,12 @@
 
 namespace vrt {
 
-template <typename T, int TQ>
+// T: the store's element type; Q: the queries'.
+template <typename T, typename Q, int TQ>
 __global__ void __launch_bounds__(THREADS)
 rerank_kernel(const T* __restrict__ flat, const int* __restrict__ offsets,
               const int* __restrict__ lengths, const float* __restrict__ doc_scales,
-              int64_t n_docs, const T* __restrict__ queries,
+              int64_t n_docs, const Q* __restrict__ queries,
               const float* __restrict__ qmask, int nq, int nq_pad, int dim,
               const int* __restrict__ candidates, int k, float* __restrict__ out) {
   extern __shared__ float smem[];
@@ -44,7 +47,7 @@ rerank_kernel(const T* __restrict__ flat, const int* __restrict__ offsets,
     if (threadIdx.x == 0) out[o] = NEG_INF;
     return;
   }
-  const T* qb = queries + static_cast<size_t>(b) * nq * dim;
+  const Q* qb = queries + static_cast<size_t>(b) * nq * dim;
   for (int i = threadIdx.x; i < nq_pad * dim; i += THREADS)
     q_s[i] = (i / dim < nq) ? to_float(qb[i]) : 0.f;
   __syncthreads();
@@ -59,46 +62,47 @@ rerank_kernel(const T* __restrict__ flat, const int* __restrict__ offsets,
   if (threadIdx.x == 0) out[o] = score * (doc_scales ? doc_scales[c] : 1.f);
 }
 
-template <typename T, int TQ>
+template <typename T, typename Q, int TQ>
 cudaError_t launch_rerank(const void* flat, const int* offsets, const int* lengths,
                           const float* doc_scales, int64_t n_docs, int b, int nq,
                           int dim, const void* queries, const float* qmask, int k,
                           const int* candidates, float* out, cudaStream_t stream) {
   const int nq_pad = (nq + TQ - 1) / TQ * TQ;
   const size_t smem = sizeof(float) * (static_cast<size_t>(nq_pad) * dim + NWARPS * TQ + TQ);
-  auto kernel = rerank_kernel<T, TQ>;
+  auto kernel = rerank_kernel<T, Q, TQ>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(k, b), THREADS, smem, stream>>>(
       static_cast<const T*>(flat), offsets, lengths, doc_scales, n_docs,
-      static_cast<const T*>(queries), qmask, nq, nq_pad, dim, candidates, k, out);
+      static_cast<const Q*>(queries), qmask, nq, nq_pad, dim, candidates, k, out);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename Q>
 cudaError_t dispatch_rerank(int tq, const void* flat, const int* offsets,
                             const int* lengths, const float* doc_scales, int64_t n_docs,
                             int b, int nq, int dim, const void* queries,
                             const float* qmask, int k, const int* candidates,
                             float* out, cudaStream_t s) {
   switch (tq) {
-    case 8: return launch_rerank<T, 8>(flat, offsets, lengths, doc_scales, n_docs, b, nq, dim, queries, qmask, k, candidates, out, s);
-    case 16: return launch_rerank<T, 16>(flat, offsets, lengths, doc_scales, n_docs, b, nq, dim, queries, qmask, k, candidates, out, s);
-    case 24: return launch_rerank<T, 24>(flat, offsets, lengths, doc_scales, n_docs, b, nq, dim, queries, qmask, k, candidates, out, s);
-    default: return launch_rerank<T, 32>(flat, offsets, lengths, doc_scales, n_docs, b, nq, dim, queries, qmask, k, candidates, out, s);
+    case 8: return launch_rerank<T, Q, 8>(flat, offsets, lengths, doc_scales, n_docs, b, nq, dim, queries, qmask, k, candidates, out, s);
+    case 16: return launch_rerank<T, Q, 16>(flat, offsets, lengths, doc_scales, n_docs, b, nq, dim, queries, qmask, k, candidates, out, s);
+    case 24: return launch_rerank<T, Q, 24>(flat, offsets, lengths, doc_scales, n_docs, b, nq, dim, queries, qmask, k, candidates, out, s);
+    default: return launch_rerank<T, Q, 32>(flat, offsets, lengths, doc_scales, n_docs, b, nq, dim, queries, qmask, k, candidates, out, s);
   }
 }
 
 }  // namespace vrt
 
 // device: the CUDA device of every pointer and of the stream.
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (flat and queries alike).
-// doc_scales may be null (scale 1). Returns the cudaError_t of the launch.
+// dtype, qdtype: the dtype codes of flat and queries (maxsim_common.cuh
+// dtype_pair; no qdot body here). doc_scales may be null (scale 1).
+// Returns the cudaError_t of the launch.
 extern "C" int vrt_rerank_candidates(int device, const void* flat, int dtype, const void* offsets,
                                      const void* lengths, const void* doc_scales, int b,
-                                     int nq, int dim, const void* queries, const void* qmask,
-                                     int k, int64_t n_docs, const void* candidates,
-                                     void* out, void* stream) {
+                                     int nq, int dim, const void* queries, int qdtype,
+                                     const void* qmask, int k, int64_t n_docs,
+                                     const void* candidates, void* out, void* stream) {
   if (b == 0 || k == 0) return 0;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -110,10 +114,11 @@ extern "C" int vrt_rerank_candidates(int device, const void* flat, int dtype, co
   auto qm = static_cast<const float*>(qmask);
   auto cand = static_cast<const int*>(candidates);
   auto o = static_cast<float*>(out);
-  switch (dtype) {
-    case 0: return vrt::dispatch_rerank<float>(tq, flat, off, len, sc, n_docs, b, nq, dim, queries, qm, k, cand, o, s);
-    case 1: return vrt::dispatch_rerank<__nv_bfloat16>(tq, flat, off, len, sc, n_docs, b, nq, dim, queries, qm, k, cand, o, s);
-    case 2: return vrt::dispatch_rerank<__half>(tq, flat, off, len, sc, n_docs, b, nq, dim, queries, qm, k, cand, o, s);
+  switch (vrt::dtype_pair(dtype, qdtype)) {
+    case vrt::kF32: return vrt::dispatch_rerank<float, float>(tq, flat, off, len, sc, n_docs, b, nq, dim, queries, qm, k, cand, o, s);
+    case vrt::kBF16: return vrt::dispatch_rerank<__nv_bfloat16, __nv_bfloat16>(tq, flat, off, len, sc, n_docs, b, nq, dim, queries, qm, k, cand, o, s);
+    case vrt::kF16: return vrt::dispatch_rerank<__half, __half>(tq, flat, off, len, sc, n_docs, b, nq, dim, queries, qm, k, cand, o, s);
+    case vrt::kInt8Bf16: return vrt::dispatch_rerank<int8_t, __nv_bfloat16>(tq, flat, off, len, sc, n_docs, b, nq, dim, queries, qm, k, cand, o, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -12,33 +12,43 @@
 //
 // Semantics (prefetch_topk.py:120-167, the XLA fallback sharded.py:533-573).
 // vals is P-leading [P, D, dim], mask [P, D], scales [P, D] f32 or null,
-// q [G * Rg, dim] in the store dtype, qid [G, Rg] the in-group owner of each
-// row (-1 = pad row), w [G * Rg] f32 row weights:
+// q [G * Rg, dim] in the store dtype (bf16 for int8 codes), or int8 query
+// codes against int8 store codes for the qdot body, qid [G, Rg] the
+// in-group owner of each row (-1 = pad row), w [G * Rg] f32 row weights:
 //   per_row[m, d] = max over p with mask[p, d] of scales[p, d] * (q[m] . vals[p, d]),
 //                   and 0 where doc d has NO valid pooled row (not NEG_INF:
 //                   stage-1 differs from the MaxSim kernels here, as in JAX);
 //   out[g * gq + j, d] = sum over rows r of group g with qid[g, r] == j of
 //                        w[g * Rg + r] * per_row[g * Rg + r, d].
 // Products are exact (store values and queries widened to f32) and sums are
-// f32, as on the TPU's MXU. per_row is finite wherever it is weighted, so
+// f32, as on the TPU's MXU. The qdot body -- K5's qdot_int8 path
+// (prefetch_topk.py:141-149, :195-207) and the function of the A/B prototype
+// scripts/tpu_tokens_qdot_ab.py::main.make_v2 (K9, pallas_call :143) --
+// sums int8 x int8 products in int32 with __dp4a (exact), converts each dot
+// to f32 once and scales it by scales[p, d]; the wrapper folds each row's
+// query scale into w. per_row is finite wherever it is weighted, so
 // NEG_INF * 0 never happens.
 //
 // What bounds it on the H100: arithmetic. Every (query row, pooled row) pair
 // is a 128-long dot: at the 100k serving shape (bs 1024, ~16k query rows in
 // ~20k packed rows, P = 12, 100k docs) that is 5-6 TFLOP per batch against ~0.3 GB of bf16
 // store, thousands of FLOPs per byte. This version runs on the f32 FMA units
-// (67 TFLOP/s peak); tensor cores are later work.
+// (67 TFLOP/s peak), and the qdot body on __dp4a (four int8 products an
+// instruction); tensor cores are later work.
 //
 // Design: one block per (query group g, tile of BD = 64 docs) -- the group
 // index is the fast grid axis, so the blocks that read one doc tile run
 // together and can share it through the L2 cache. The block walks
 // the group's rows in chunks of BM = 16 * RM rows staged in shared memory as
-// f32 (chunks of pad rows only are skipped). For each chunk it walks p over
-// the P pooled rows: the [BD, dim] slice vals[p, tile] is staged in shared
-// memory, and each of the 256 threads computes an RM x 4 register tile of
-// dots (RM query rows x 4 docs), folding it into a running max kept in
-// registers. The doc tile never sits in shared memory whole, so P is not
-// bounded (P = 76 needs no more memory than P = 4). After the P loop the
+// f32, or as int8 codes packed four to a 32-bit word for qdot (chunks of pad
+// rows only are skipped). For each chunk it walks p over the P pooled rows:
+// the [BD, dim] slice vals[p, tile] is staged in shared memory the same
+// way, and each of the 256 threads computes an RM x 4 register tile of dots
+// (RM query rows x 4 docs), folding it into a running max kept in registers
+// (qdot: RM x 4 int32 sums of __dp4a over 16-byte words, a quarter of the
+// shared-memory loads of the f32 body). The doc tile never sits in shared
+// memory whole, so P is not bounded (P = 76 needs no more memory than
+// P = 4). After the P loop the
 // chunk's per-row maxima go to shared memory and one thread per doc adds
 // them into per-query sums in row order: no float atomics, so two calls
 // give bit-equal scores.
@@ -58,9 +68,15 @@ __host__ __device__ inline int pooled_v_floats(int bm, int ld) {
   return PM_BD * ld > bm * PM_BD ? PM_BD * ld : bm * PM_BD;
 }
 
-// Shared memory of one block, in floats; the wrapper computes the same sum.
-__host__ inline int pooled_smem_floats(int rm, int dim, int gq) {
-  const int bm = PM_TY * rm, ld = dim + PM_PAD;
+// Words of one staged row: dim f32, or dim / 4 words of int8 codes (qdot),
+// plus padding.
+__host__ __device__ inline int pooled_ld(int dim, bool qdot) {
+  return (qdot ? dim / 4 : dim) + PM_PAD;
+}
+
+// Shared memory of one block, in 4-byte words; the wrapper computes the same sum.
+__host__ inline int pooled_smem_floats(int rm, int dim, int gq, bool qdot) {
+  const int bm = PM_TY * rm, ld = pooled_ld(dim, qdot);
   return bm * ld + pooled_v_floats(bm, ld) + gq * PM_BD + 2 * bm + 3 * PM_BD;
 }
 
@@ -76,15 +92,102 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-template <typename T, int RM>
+// rows [0, BM or BD) of a source with `dim` elements a row -> shared memory
+// at `ld` words a row: f32 values, or for qdot the int8 codes as they are
+// (16 bytes a copy); rows at or beyond `valid` are zero.
+template <typename S, bool QDOT>
+__device__ __forceinline__ void stage_rows(float* dst, const S* src, int rows, int valid,
+                                           int dim, int ld) {
+  if constexpr (QDOT) {
+    const int vecs = dim / 16;
+    for (int i = threadIdx.x; i < rows * vecs; i += PM_THREADS) {
+      const int r = i / vecs, c = i % vecs;
+      const int4 v = r < valid
+          ? reinterpret_cast<const int4*>(src + static_cast<size_t>(r) * dim)[c]
+          : make_int4(0, 0, 0, 0);
+      reinterpret_cast<int4*>(dst + r * ld)[c] = v;
+    }
+  } else {
+    const int vecs = dim / 8;
+    for (int i = threadIdx.x; i < rows * vecs; i += PM_THREADS) {
+      const int r = i / vecs, c = (i % vecs) * 8;
+      float v[8];
+      if (r < valid) {
+        load8(src + static_cast<size_t>(r) * dim + c, v);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = 0.f;
+      }
+      store8(dst + r * ld + c, v);
+    }
+  }
+}
+
+// acc[i][j] = dot(query row ty + 16 i, doc tx + 16 j) over the staged rows.
+template <int RM, bool QDOT>
+__device__ __forceinline__ void tile_dots(const float* q_s, const float* v_s, int dim, int ld,
+                                          int tx, int ty, float (&acc)[RM][PM_RD]) {
+  if constexpr (QDOT) {
+    const int* qw = reinterpret_cast<const int*>(q_s);
+    const int* vw = reinterpret_cast<const int*>(v_s);
+    int iacc[RM][PM_RD];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < PM_RD; ++j) iacc[i][j] = 0;
+    for (int k = 0; k < dim / 4; k += 4) {
+      int4 b[PM_RD];
+#pragma unroll
+      for (int j = 0; j < PM_RD; ++j)
+        b[j] = *reinterpret_cast<const int4*>(vw + (tx + PM_TX * j) * ld + k);
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int4 a = *reinterpret_cast<const int4*>(qw + (ty + PM_TY * i) * ld + k);
+#pragma unroll
+        for (int j = 0; j < PM_RD; ++j) {
+          int x = iacc[i][j];
+          x = __dp4a(a.x, b[j].x, x);
+          x = __dp4a(a.y, b[j].y, x);
+          x = __dp4a(a.z, b[j].z, x);
+          iacc[i][j] = __dp4a(a.w, b[j].w, x);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < PM_RD; ++j) acc[i][j] = static_cast<float>(iacc[i][j]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < PM_RD; ++j) acc[i][j] = 0.f;
+    for (int k = 0; k < dim; k += 4) {
+      float4 b[PM_RD];
+#pragma unroll
+      for (int j = 0; j < PM_RD; ++j)
+        b[j] = *reinterpret_cast<const float4*>(v_s + (tx + PM_TX * j) * ld + k);
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(q_s + (ty + PM_TY * i) * ld + k);
+#pragma unroll
+        for (int j = 0; j < PM_RD; ++j) acc[i][j] = dot4(a, b[j], acc[i][j]);
+      }
+    }
+  }
+}
+
+// T: the store's element type; Q: the queries' (Q = int8_t is the qdot body).
+template <typename T, typename Q, int RM>
 __global__ void __launch_bounds__(PM_THREADS, 2)  // two blocks an SM: <= 128 registers
 pooled_kernel(const T* __restrict__ vals, const unsigned char* __restrict__ mask,
               const float* __restrict__ scales, int p_rows, int n_docs,
-              const T* __restrict__ q, const int* __restrict__ qid,
+              const Q* __restrict__ q, const int* __restrict__ qid,
               const float* __restrict__ w, int rg, int gq, int dim,
               float* __restrict__ out) {
   constexpr int BM = PM_TY * RM;
-  const int ld = dim + PM_PAD;
+  constexpr bool QDOT = std::is_same<Q, int8_t>::value;
+  const int ld = pooled_ld(dim, QDOT);
   extern __shared__ float smem[];
   float* q_s = smem;                                   // [BM, ld]
   float* v_s = q_s + BM * ld;                          // [BD, ld]; then [BM, BD] maxima
@@ -97,10 +200,9 @@ pooled_kernel(const T* __restrict__ vals, const unsigned char* __restrict__ mask
 
   const int g = blockIdx.x, d0 = blockIdx.y * PM_BD;
   const int tid = threadIdx.x, tx = tid % PM_TX, ty = tid / PM_TX;
-  const int vecs = dim / 8;  // 8-element loads per row
   const int* qid_g = qid + static_cast<size_t>(g) * rg;
   const float* w_g = w + static_cast<size_t>(g) * rg;
-  const T* q_g = q + static_cast<size_t>(g) * rg * dim;
+  const Q* q_g = q + static_cast<size_t>(g) * rg * dim;
 
   for (int i = tid; i < gq * PM_BD; i += PM_THREADS) acc_s[i] = 0.f;
   if (tid < PM_BD) {
@@ -113,17 +215,7 @@ pooled_kernel(const T* __restrict__ vals, const unsigned char* __restrict__ mask
   for (int r0 = 0; r0 < rg; r0 += BM) {
     // also orders the previous chunk's reads of q_s and v_s before the writes below
     if (!__syncthreads_or(tid < BM && r0 + tid < rg && qid_g[r0 + tid] >= 0)) continue;
-    for (int i = tid; i < BM * vecs; i += PM_THREADS) {
-      const int r = i / vecs, c = (i % vecs) * 8;
-      float v[8];
-      if (r0 + r < rg) {
-        load8(q_g + static_cast<size_t>(r0 + r) * dim + c, v);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = 0.f;
-      }
-      store8(q_s + r * ld + c, v);
-    }
+    stage_rows<Q, QDOT>(q_s, q_g + static_cast<size_t>(r0) * dim, BM, rg - r0, dim, ld);
     if (tid < BM) {
       const bool ok = r0 + tid < rg;
       qid_s[tid] = ok ? qid_g[r0 + tid] : -1;
@@ -138,18 +230,8 @@ pooled_kernel(const T* __restrict__ vals, const unsigned char* __restrict__ mask
 
     for (int p = 0; p < p_rows; ++p) {
       __syncthreads();  // the previous p's reads of v_s are done
-      const T* vp = vals + (static_cast<size_t>(p) * n_docs + d0) * dim;
-      for (int i = tid; i < PM_BD * vecs; i += PM_THREADS) {
-        const int r = i / vecs, c = (i % vecs) * 8;
-        float v[8];
-        if (d0 + r < n_docs) {
-          load8(vp + static_cast<size_t>(r) * dim + c, v);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = 0.f;
-        }
-        store8(v_s + r * ld + c, v);
-      }
+      stage_rows<T, QDOT>(v_s, vals + (static_cast<size_t>(p) * n_docs + d0) * dim, PM_BD,
+                          n_docs - d0, dim, ld);
       if (tid < PM_BD) {
         const size_t at = static_cast<size_t>(p) * n_docs + d0 + tid;
         const bool ok = d0 + tid < n_docs;
@@ -159,22 +241,7 @@ pooled_kernel(const T* __restrict__ vals, const unsigned char* __restrict__ mask
       __syncthreads();
 
       float acc[RM][PM_RD];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < PM_RD; ++j) acc[i][j] = 0.f;
-      for (int k = 0; k < dim; k += 4) {
-        float4 b[PM_RD];
-#pragma unroll
-        for (int j = 0; j < PM_RD; ++j)
-          b[j] = *reinterpret_cast<const float4*>(v_s + (tx + PM_TX * j) * ld + k);
-#pragma unroll
-        for (int i = 0; i < RM; ++i) {
-          const float4 a = *reinterpret_cast<const float4*>(q_s + (ty + PM_TY * i) * ld + k);
-#pragma unroll
-          for (int j = 0; j < PM_RD; ++j) acc[i][j] = dot4(a, b[j], acc[i][j]);
-        }
-      }
+      tile_dots<RM, QDOT>(q_s, v_s, dim, ld, tx, ty, acc);
 #pragma unroll
       for (int j = 0; j < PM_RD; ++j) {
         const int c = tx + PM_TX * j;
@@ -210,47 +277,50 @@ pooled_kernel(const T* __restrict__ vals, const unsigned char* __restrict__ mask
   }
 }
 
-template <typename T, int RM>
+template <typename T, typename Q, int RM>
 cudaError_t launch_pooled(const void* vals, const unsigned char* mask, const float* scales,
                           int p_rows, int n_docs, const void* q, int g, int rg, int gq,
                           int dim, const int* qid, const float* w, float* out,
                           cudaStream_t stream) {
-  const size_t smem = sizeof(float) * pooled_smem_floats(RM, dim, gq);
-  auto kernel = pooled_kernel<T, RM>;
+  constexpr bool QDOT = std::is_same<Q, int8_t>::value;
+  const size_t smem = sizeof(float) * pooled_smem_floats(RM, dim, gq, QDOT);
+  auto kernel = pooled_kernel<T, Q, RM>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(g, (n_docs + PM_BD - 1) / PM_BD), PM_THREADS, smem, stream>>>(
-      static_cast<const T*>(vals), mask, scales, p_rows, n_docs, static_cast<const T*>(q),
+      static_cast<const T*>(vals), mask, scales, p_rows, n_docs, static_cast<const Q*>(q),
       qid, w, rg, gq, dim, out);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename Q>
 cudaError_t dispatch_pooled(int rm, const void* vals, const unsigned char* mask,
                             const float* scales, int p_rows, int n_docs, const void* q,
                             int g, int rg, int gq, int dim, const int* qid, const float* w,
                             float* out, cudaStream_t s) {
   switch (rm) {
-    case 1: return launch_pooled<T, 1>(vals, mask, scales, p_rows, n_docs, q, g, rg, gq, dim, qid, w, out, s);
-    case 2: return launch_pooled<T, 2>(vals, mask, scales, p_rows, n_docs, q, g, rg, gq, dim, qid, w, out, s);
-    case 4: return launch_pooled<T, 4>(vals, mask, scales, p_rows, n_docs, q, g, rg, gq, dim, qid, w, out, s);
-    default: return launch_pooled<T, 8>(vals, mask, scales, p_rows, n_docs, q, g, rg, gq, dim, qid, w, out, s);
+    case 1: return launch_pooled<T, Q, 1>(vals, mask, scales, p_rows, n_docs, q, g, rg, gq, dim, qid, w, out, s);
+    case 2: return launch_pooled<T, Q, 2>(vals, mask, scales, p_rows, n_docs, q, g, rg, gq, dim, qid, w, out, s);
+    case 4: return launch_pooled<T, Q, 4>(vals, mask, scales, p_rows, n_docs, q, g, rg, gq, dim, qid, w, out, s);
+    default: return launch_pooled<T, Q, 8>(vals, mask, scales, p_rows, n_docs, q, g, rg, gq, dim, qid, w, out, s);
   }
 }
 
 }  // namespace vrt
 
 // device: the CUDA device of every pointer and of the stream.
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (vals and q alike).
+// dtype, qdtype: the dtype codes of vals and q (maxsim_common.cuh
+// dtype_pair; qdtype 3 with dtype 3 is the qdot body, which needs
+// dim % 16 == 0; the others need dim % 8 == 0).
 // rm: query rows per thread (1, 2, 4 or 8; the wrapper picks it from rg).
 // mask is [p_rows, n_docs] bool (one byte each); scales may be null (1).
 // out is [g * gq, n_docs] f32. Returns the cudaError_t of the launch.
 extern "C" int vrt_pooled_maxsim_scores_packed(int device, const void* vals, int dtype,
                                                const void* mask, const void* scales,
-                                               int p_rows, int n_docs, const void* q, int g,
-                                               int rg, int gq, int dim, int rm,
-                                               const void* qid, const void* w, void* out,
-                                               void* stream) {
+                                               int p_rows, int n_docs, const void* q,
+                                               int qdtype, int g, int rg, int gq, int dim,
+                                               int rm, const void* qid, const void* w,
+                                               void* out, void* stream) {
   if (n_docs == 0 || g == 0 || gq == 0) return 0;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -260,10 +330,14 @@ extern "C" int vrt_pooled_maxsim_scores_packed(int device, const void* vals, int
   auto qi = static_cast<const int*>(qid);
   auto wt = static_cast<const float*>(w);
   auto o = static_cast<float*>(out);
-  switch (dtype) {
-    case 0: return vrt::dispatch_pooled<float>(rm, vals, m, sc, p_rows, n_docs, q, g, rg, gq, dim, qi, wt, o, s);
-    case 1: return vrt::dispatch_pooled<__nv_bfloat16>(rm, vals, m, sc, p_rows, n_docs, q, g, rg, gq, dim, qi, wt, o, s);
-    case 2: return vrt::dispatch_pooled<__half>(rm, vals, m, sc, p_rows, n_docs, q, g, rg, gq, dim, qi, wt, o, s);
+  switch (vrt::dtype_pair(dtype, qdtype)) {
+    case vrt::kF32: return vrt::dispatch_pooled<float, float>(rm, vals, m, sc, p_rows, n_docs, q, g, rg, gq, dim, qi, wt, o, s);
+    case vrt::kBF16: return vrt::dispatch_pooled<__nv_bfloat16, __nv_bfloat16>(rm, vals, m, sc, p_rows, n_docs, q, g, rg, gq, dim, qi, wt, o, s);
+    case vrt::kF16: return vrt::dispatch_pooled<__half, __half>(rm, vals, m, sc, p_rows, n_docs, q, g, rg, gq, dim, qi, wt, o, s);
+    case vrt::kInt8Bf16: return vrt::dispatch_pooled<int8_t, __nv_bfloat16>(rm, vals, m, sc, p_rows, n_docs, q, g, rg, gq, dim, qi, wt, o, s);
+    case vrt::kInt8Qdot:
+      if (dim % 16) return static_cast<int>(cudaErrorInvalidValue);
+      return vrt::dispatch_pooled<int8_t, int8_t>(rm, vals, m, sc, p_rows, n_docs, q, g, rg, gq, dim, qi, wt, o, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -15,6 +15,10 @@ STORAGE_DTYPES = {
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
     "float16": torch.float16,
+    # int8 codes with f32 scales beside them; int8_refined adds the int4
+    # residual sidecar to the ragged token store (index/quantize.py)
+    "int8": torch.int8,
+    "int8_refined": torch.int8,
 }
 
 
@@ -42,9 +46,9 @@ def require_cuda() -> None:
 
 
 def storage_dtype(name: str) -> torch.dtype:
-    """Torch dtype of a float storage dtype name (int8 stores come later)."""
+    """Torch dtype of a storage dtype name (``index/store.py:32`` of the JAX
+    package): the element type of the stored values, int8 for both int8
+    dtypes."""
     if name not in STORAGE_DTYPES:
-        raise NotImplementedError(
-            f"storage dtype {name!r} is not ported yet (float32, bfloat16 and "
-            "float16 are; int8 and int8_refined are ROADMAP A6)")
+        raise ValueError(f"unknown storage dtype {name!r} (have: {sorted(STORAGE_DTYPES)})")
     return STORAGE_DTYPES[name]

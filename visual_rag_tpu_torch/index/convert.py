@@ -51,26 +51,39 @@ def sealed_from_numpy(
     ``stores`` maps each vector name to the arrays of its JAX store:
     ``{"flat", "offsets", "lengths", "max_len"}`` for a ragged store,
     ``{"values", "mask"}`` for a padded one and ``{"values"}`` for single
-    vectors. Stores with int8 ``scales`` are refused (ROADMAP A6).
+    vectors; int8 stores add ``scales``, and the ragged store of an
+    ``int8_refined`` index ``res4`` and ``res_scales``. Every array goes
+    across bit for bit. int8 codes without their scales are refused.
     """
-    _torch_dtype(storage_dtype)  # raises on storage dtypes the port lacks
+    _torch_dtype(storage_dtype)  # raises on an unknown storage dtype
     dev = resolve_device(device)
     out = {}
+
+    def opt(arrs, key, dtype=None):
+        a = arrs.get(key)
+        if a is None:
+            return None
+        return tensor_from_numpy(a if dtype is None else np.asarray(a, dtype), dev)
+
     for name, arrs in stores.items():
-        if arrs.get("scales") is not None or arrs.get("res4") is not None:
-            raise NotImplementedError(
-                f"store {name!r} is int8: int8 stores are ROADMAP A6")
+        vals = arrs["flat"] if "flat" in arrs else arrs["values"]
+        if np.asarray(vals).dtype == np.int8 and arrs.get("scales") is None:
+            raise ValueError(f"store {name!r} holds int8 codes without their scales")
+        scales = opt(arrs, "scales", np.float32)
         if "flat" in arrs:
             out[name] = RaggedMultiVectors(
                 flat=tensor_from_numpy(arrs["flat"], dev),
                 offsets=tensor_from_numpy(np.asarray(arrs["offsets"], np.int32), dev),
                 lengths=tensor_from_numpy(np.asarray(arrs["lengths"], np.int32), dev),
-                max_len=int(arrs["max_len"]))
+                max_len=int(arrs["max_len"]), scales=scales,
+                res4=opt(arrs, "res4", np.uint8),
+                res_scales=opt(arrs, "res_scales", np.float32))
         elif "mask" in arrs:
             out[name] = PaddedMultiVectors(
                 values=tensor_from_numpy(arrs["values"], dev),
-                mask=tensor_from_numpy(np.asarray(arrs["mask"], bool), dev))
+                mask=tensor_from_numpy(np.asarray(arrs["mask"], bool), dev), scales=scales)
         else:
-            out[name] = SingleVectors(values=tensor_from_numpy(arrs["values"], dev))
+            out[name] = SingleVectors(values=tensor_from_numpy(arrs["values"], dev),
+                                      scales=scales)
     return SealedIndex(stores=out, manifest=Manifest(ids, payloads),
                        storage_dtype=storage_dtype)

@@ -1,8 +1,11 @@
 """Device-resident vector stores: padded, ragged and single-vector layouts.
 
-Port of ``visual_rag_tpu/index/store.py:111-380`` for float storage
-(float32, bfloat16, float16); int8, ``int8_refined`` and the ``res4``
-sidecar come later (ROADMAP A6). Each store holds its tensors on one device.
+Port of ``visual_rag_tpu/index/store.py:111-397`` for every storage dtype:
+float32, bfloat16, float16, and int8 codes with f32 scales beside them
+(per row on the padded and single-vector stores, per doc on the ragged
+store). ``int8_refined`` is int8 plus the ragged store's int4 residual
+sidecar ``res4``/``res_scales``. Each store holds its tensors on one device;
+``index/quantize.py`` makes the int8 stores from float ones.
 
 The byte layout is the JAX package's, exactly: the ragged store's doc
 blocks start on 32-row boundaries, and ``flat`` ends with a tail pad of
@@ -14,7 +17,7 @@ across from the JAX package (``index/convert.py``) is the same bytes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -25,12 +28,18 @@ def _storage_name(t: torch.Tensor) -> str:
     return str(t.dtype).replace("torch.", "")
 
 
+def _nbytes(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.numel() * t.element_size()
+
+
 @dataclasses.dataclass
 class PaddedMultiVectors:
-    """Dense padded multivector store: values [D, P, dim], mask [D, P] bool."""
+    """Dense padded multivector store: values [D, P, dim], mask [D, P] bool,
+    and for int8 codes per-row f32 ``scales`` [D, P]."""
 
     values: torch.Tensor
     mask: torch.Tensor
+    scales: Optional[torch.Tensor] = None
     kind: str = "multi"
 
     @property
@@ -45,19 +54,34 @@ class PaddedMultiVectors:
     def storage_dtype(self) -> str:
         return _storage_name(self.values)
 
+    def nbytes(self) -> int:
+        return _nbytes(self.values) + self.mask.numel() + _nbytes(self.scales)
+
+    def dequantized(self, compute_dtype=torch.float32) -> torch.Tensor:
+        """Values in a matmul dtype (int8 rows rescaled)."""
+        if self.scales is not None:
+            return (self.values.float() * self.scales[..., None]).to(compute_dtype)
+        return self.values.to(compute_dtype)
+
 
 @dataclasses.dataclass
 class RaggedMultiVectors:
     """Ragged token store: flat [N + pad, dim] plus per-doc offsets/lengths.
 
     ``offsets`` and ``lengths`` are int32 [D], as in the JAX store; callers
-    that index with them convert to int64 themselves.
+    that index with them convert to int64 themselves. int8 codes carry
+    per-doc f32 ``scales`` [D]; ``int8_refined`` adds ``res4`` (uint8
+    [N + pad, dim // 2], two int4 residual nibbles a byte) and ``res_scales``
+    (f32 [N + pad], 0 on alignment rows).
     """
 
     flat: torch.Tensor
     offsets: torch.Tensor
     lengths: torch.Tensor
     max_len: int
+    scales: Optional[torch.Tensor] = None
+    res4: Optional[torch.Tensor] = None
+    res_scales: Optional[torch.Tensor] = None
     kind: str = "multi_ragged"
 
     @property
@@ -70,14 +94,60 @@ class RaggedMultiVectors:
 
     @property
     def storage_dtype(self) -> str:
+        if self.res4 is not None:
+            return "int8_refined"
         return _storage_name(self.flat)
+
+    def nbytes(self) -> int:
+        """Bytes of the store as the JAX store counts them (offsets and
+        lengths 4 bytes each)."""
+        return (_nbytes(self.flat) + self.offsets.numel() * 8 + _nbytes(self.scales)
+                + _nbytes(self.res4) + _nbytes(self.res_scales))
+
+    def dequantized_flat(self, refined: bool = True) -> torch.Tensor:
+        """f32 flat token matrix with the per-doc int8 scales applied and,
+        when present and ``refined``, the int4 residual added back (column
+        2j in a byte's low nibble, 2j+1 in its high nibble: JAX
+        ``store.py:223-239``)."""
+        flat = self.flat.float()
+        if self.scales is not None:  # rows outside every doc keep their codes, as in JAX
+            doc = row_docs(self.offsets, self.lengths, flat.shape[0])
+            flat = flat * torch.where(doc >= 0, self.scales.float()[doc.clamp(min=0)],
+                                      1.0)[:, None]
+        if refined and self.res4 is not None:
+            flat = flat + unpack_int4(self.res4).float() * self.res_scales.float()[:, None]
+        return flat
+
+
+def row_docs(offsets: torch.Tensor, lengths: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """int64 [n_rows]: the doc each row of a ragged store belongs to, -1 on
+    alignment and tail-pad rows."""
+    offs, lens = offsets.long(), lengths.long().clamp(min=0)
+    dev = offs.device
+    ids = torch.repeat_interleave(torch.arange(offs.shape[0], device=dev), lens)
+    starts = torch.repeat_interleave(offs, lens)
+    ranks = torch.arange(ids.shape[0], device=dev) - torch.repeat_interleave(
+        torch.cumsum(lens, 0) - lens, lens)
+    doc = torch.full((n_rows,), -1, dtype=torch.long, device=dev)
+    doc[starts + ranks] = ids
+    return doc
+
+
+def unpack_int4(res4: torch.Tensor) -> torch.Tensor:
+    """Residual codes int8 [..., 2 * n] in [-8, 7] from packed nibbles
+    [..., n] (low nibble = even column, high = odd; code = nibble - 8)."""
+    r = res4.to(torch.int16)
+    lo, hi = (r & 15) - 8, (r >> 4) - 8
+    return torch.stack((lo, hi), dim=-1).reshape(*res4.shape[:-1], -1).to(torch.int8)
 
 
 @dataclasses.dataclass
 class SingleVectors:
-    """Dense single-vector store: values [D, dim]."""
+    """Dense single-vector store: values [D, dim], and for int8 codes
+    per-row f32 ``scales`` [D]."""
 
     values: torch.Tensor
+    scales: Optional[torch.Tensor] = None
     kind: str = "single"
 
     @property
@@ -91,6 +161,14 @@ class SingleVectors:
     @property
     def storage_dtype(self) -> str:
         return _storage_name(self.values)
+
+    def nbytes(self) -> int:
+        return _nbytes(self.values) + _nbytes(self.scales)
+
+    def dequantized(self, compute_dtype=torch.float32) -> torch.Tensor:
+        if self.scales is not None:
+            return (self.values.float() * self.scales[:, None]).to(compute_dtype)
+        return self.values.to(compute_dtype)
 
 
 @dataclasses.dataclass
@@ -125,6 +203,9 @@ class SealedIndex:
             for name, s in self.stores.items()}
         return SealedIndex(stores=stores, manifest=self.manifest,
                            storage_dtype=self.storage_dtype)
+
+    def nbytes(self) -> int:
+        return sum(s.nbytes() for s in self.stores.values())
 
     def store(self, name: str):
         if name not in self.stores:

@@ -1,10 +1,15 @@
 """Synthetic corpus generated on the device: a SealedIndex without host transfer.
 
 Port of ``visual_rag_tpu/index/synth.py:41-171`` (``synthetic_index``) for
-float storage dtypes. Doc lengths, offsets and the tail pad come from the
+every storage dtype. Doc lengths, offsets and the tail pad come from the
 same ``np.random.default_rng(seed)`` stream as the JAX version (``:62-70``),
 so the layout matches it exactly; the vector values come from a
 ``torch.Generator`` on the target device and differ from ``jax.random``'s.
+
+int8 stores use one global scale, 1/127 (rows are unit-normalised, so
+``|x| <= 1``), as the JAX version does; ``int8_refined`` adds the per-row
+int4 residual of each row as its ``fill_chunk`` does (``:88-107``): f32
+rows, ``c8 = round(127 x)``, ``r = x - c8 / 127``, ``rs = max|r| / 7``.
 """
 
 from __future__ import annotations
@@ -24,10 +29,13 @@ from visual_rag_tpu_torch.index.store import (
 ALIGN = 32  # doc block alignment of the ragged store (index/store.py)
 
 
-def _fill_normalized(buf: torch.Tensor, gen: torch.Generator, chunk_rows: int):
-    """Fill ``buf`` [rows, dim] in place with row-normalised gaussians.
+def _fill_normalized(buf: torch.Tensor, gen: torch.Generator, chunk_rows: int,
+                     res4=None, res_scales=None):
+    """Fill ``buf`` [rows, dim] in place with row-normalised gaussians: the
+    values, or for an int8 ``buf`` their codes at scale 1/127 (and, given
+    ``res4``/``res_scales``, each row's int4 residual).
 
-    Generated in chunks: the f32 intermediate exists only at chunk size, so
+    Generated in chunks: the f32 intermediates exist only at chunk size, so
     a 100k-doc bf16 store (~5 GB) never needs an f32 copy of itself.
     """
     rows, dim = buf.shape
@@ -36,7 +44,17 @@ def _fill_normalized(buf: torch.Tensor, gen: torch.Generator, chunk_rows: int):
         x = torch.randn((n, dim), generator=gen, device=buf.device,
                         dtype=torch.float32)
         x *= torch.rsqrt((x * x).sum(dim=-1, keepdim=True) + 1e-12)
-        buf[s:s + n] = x.to(buf.dtype)
+        if buf.dtype != torch.int8:
+            buf[s:s + n] = x.to(buf.dtype)
+            continue
+        c8 = torch.round(x * 127.0).clamp(-127, 127)
+        buf[s:s + n] = c8.to(torch.int8)
+        if res4 is not None:
+            r = x - c8 * (1.0 / 127.0)
+            rs = (r.abs().amax(dim=1) / 7.0).clamp(min=1e-12)
+            c4 = torch.round(r / rs[:, None]).clamp(-7, 7).to(torch.int16) + 8
+            res4[s:s + n] = (c4[:, 0::2] | (c4[:, 1::2] << 4)).to(torch.uint8)
+            res_scales[s:s + n] = rs
 
 
 def synthetic_index(
@@ -55,9 +73,10 @@ def synthetic_index(
     Stores, as in the JAX version: ``initial`` (ragged, ``min_tokens`` to
     ``max_tokens`` rows per doc), ``mean_pooling`` and
     ``experimental_pooling`` (padded, ``pooled_rows`` rows each), and
-    ``global_pooling`` (single vectors, float32).
+    ``global_pooling`` (single vectors, float32, for every storage dtype).
     """
     sdt = _torch_dtype(storage_dtype)
+    refined = storage_dtype == "int8_refined"
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     lengths = rng.integers(min_tokens, max_tokens + 1, num_docs).astype(np.int32)
@@ -70,14 +89,24 @@ def synthetic_index(
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     flat = torch.empty((total, dim), dtype=sdt, device=dev)
-    _fill_normalized(flat, gen, chunk_rows)
+    res4 = res_scales = None
+    if refined:
+        res4 = torch.empty((total, dim // 2), dtype=torch.uint8, device=dev)
+        res_scales = torch.empty((total,), dtype=torch.float32, device=dev)
+    _fill_normalized(flat, gen, chunk_rows, res4, res_scales)
+
+    def scale(shape):  # the global int8 scale, None for float stores
+        if sdt != torch.int8:
+            return None
+        return torch.full(shape, 1.0 / 127.0, dtype=torch.float32, device=dev)
 
     def padded():
         vals = torch.empty((num_docs, pooled_rows, dim), dtype=sdt, device=dev)
         _fill_normalized(vals.view(num_docs * pooled_rows, dim), gen, chunk_rows)
         return PaddedMultiVectors(
             values=vals,
-            mask=torch.ones((num_docs, pooled_rows), dtype=torch.bool, device=dev))
+            mask=torch.ones((num_docs, pooled_rows), dtype=torch.bool, device=dev),
+            scales=scale((num_docs, pooled_rows)))
 
     glob = torch.empty((num_docs, dim), dtype=torch.float32, device=dev)
     stores = {
@@ -85,7 +114,8 @@ def synthetic_index(
             flat=flat,
             offsets=torch.from_numpy(offsets.astype(np.int32)).to(dev),
             lengths=torch.from_numpy(lengths).to(dev),
-            max_len=max_len),
+            max_len=max_len, scales=scale((num_docs,)), res4=res4,
+            res_scales=res_scales),
         "mean_pooling": padded(),
         "experimental_pooling": padded(),
     }

@@ -59,13 +59,13 @@ def library_path() -> Path:
 def _declare(lib):
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.vrt_rerank_candidates.argtypes = [
-        i32, vp, i32, vp, vp, vp, i32, i32, i32, vp, vp, i32, i64, vp, vp, vp]
+        i32, vp, i32, vp, vp, vp, i32, i32, i32, vp, i32, vp, i32, i64, vp, vp, vp]
     lib.vrt_rerank_candidates.restype = i32
     lib.vrt_exhaustive_scores_packed.argtypes = [
-        i32, vp, i32, vp, vp, i32, vp, vp, i32, i32, i32, i32, vp, vp, vp]
+        i32, vp, i32, vp, vp, i32, vp, vp, i32, vp, i32, i32, i32, i32, vp, vp, vp]
     lib.vrt_exhaustive_scores_packed.restype = i32
     lib.vrt_pooled_maxsim_scores_packed.argtypes = [
-        i32, vp, i32, vp, vp, i32, i32, vp, i32, i32, i32, i32, i32, vp, vp, vp, vp]
+        i32, vp, i32, vp, vp, i32, i32, vp, i32, i32, i32, i32, i32, i32, vp, vp, vp, vp]
     lib.vrt_pooled_maxsim_scores_packed.restype = i32
     lib.vrt_error_string.argtypes = [i32]
     lib.vrt_error_string.restype = ctypes.c_char_p

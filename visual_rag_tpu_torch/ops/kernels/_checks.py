@@ -13,7 +13,14 @@ import ctypes
 import torch
 
 # dtype codes of the kernels' C interface (csrc/*.cu)
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3}
+
+
+def compute_dtype(store_dtype: torch.dtype) -> torch.dtype:
+    """The dtype queries are rounded to against a store: the store's own for
+    float stores, bf16 for int8 codes (JAX ``sharded.py:304-305``,
+    ``maxsim_rerank.py:171``, ``prefetch_topk.py:209``)."""
+    return torch.bfloat16 if store_dtype == torch.int8 else store_dtype
 
 
 def on_cpu(t: torch.Tensor) -> bool:
@@ -28,7 +35,7 @@ def on_cpu(t: torch.Tensor) -> bool:
 def check_store(flat: torch.Tensor, offsets: torch.Tensor, lengths: torch.Tensor) -> None:
     if flat.dtype not in DTYPE_CODES:
         raise ValueError(f"store dtype {flat.dtype} not supported by the kernels "
-                         "(float32, bfloat16, float16)")
+                         "(float32, bfloat16, float16, int8)")
     if flat.dim() != 2 or not flat.is_contiguous():
         raise ValueError("flat must be a contiguous [rows, dim] tensor")
     if flat.shape[1] % 8 or flat.data_ptr() % 16:

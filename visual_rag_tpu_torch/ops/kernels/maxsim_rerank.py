@@ -1,12 +1,18 @@
 """Stage-2 rerank: exact MaxSim of each query against its own K candidates.
 
 Port of ``visual_rag_tpu/ops/kernels/maxsim_rerank.py:95-181``
-(``rerank_candidates``). On a CUDA tensor the wrapper launches the
-hand-written kernel in ``csrc/maxsim_rerank.cu``; on a CPU tensor it runs
-the plain PyTorch version :func:`rerank_candidates_ref`, ported from
-``visual_rag_tpu/retrieval/batch.py:474-508`` (``xla_rerank_batch``,
-chunked over K). Both score -1 candidates and 0-token docs ``NEG_INF``, as
-the TPU kernel does (``:177-181``).
+(``rerank_candidates``) for float and int8 stores. On a CUDA tensor the
+wrapper launches the hand-written kernel in ``csrc/maxsim_rerank.cu``; on a
+CPU tensor it runs the plain PyTorch version :func:`rerank_candidates_ref`,
+ported from ``visual_rag_tpu/retrieval/batch.py:474-508``
+(``xla_rerank_batch``, chunked over K). Both score -1 candidates and
+0-token docs ``NEG_INF``, as the TPU kernel does (``:177-181``).
+
+Queries are rounded to the store dtype, and to bf16 for int8 codes, as the
+TPU kernel rounds them (``:171``); the per-doc scale multiplies the finished
+score (``:89``). The JAX package's XLA fallback keeps f32 queries on int8
+stores (``batch.py:473-479``): the port follows the kernel on both devices
+(ROADMAP, declared differences).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from visual_rag_tpu_torch.ops.kernels._checks import (
     DTYPE_CODES,
     check_scales,
     check_store,
+    compute_dtype,
     on_cpu,
     ptr,
     stream_ptr,
@@ -31,7 +38,7 @@ _GATHER_BUDGET_BYTES = 256 * 1024 * 1024  # f32 doc windows per chunk
 
 
 def rerank_candidates(
-    flat: torch.Tensor,  # [N + pad, dim] ragged store (f32/bf16/f16)
+    flat: torch.Tensor,  # [N + pad, dim] ragged store (f32/bf16/f16/int8 codes)
     offsets: torch.Tensor,  # [D] int32
     lengths: torch.Tensor,  # [D] int32
     queries: torch.Tensor,  # [B, NQ, dim] l2-normalised tokens
@@ -62,7 +69,7 @@ def rerank_candidates(
             raise ValueError(f"{name} is on {t.device}, the store on {flat.device}")
     check_scales(doc_scales, flat, offsets)
     k = candidates.shape[1]
-    q = queries.to(flat.dtype).contiguous()  # cast to the store dtype, as on the TPU
+    q = queries.to(compute_dtype(flat.dtype)).contiguous()  # as on the TPU
     if q.data_ptr() % 16:
         raise ValueError("queries must start 16-byte aligned")
     qm = qmask.to(torch.float32).contiguous()
@@ -73,7 +80,8 @@ def rerank_candidates(
     lib = _build.load_library()
     err = lib.vrt_rerank_candidates(
         flat.device.index, ptr(flat), DTYPE_CODES[flat.dtype], ptr(offsets), ptr(lengths),
-        ptr(doc_scales), b, nq, dim, ptr(q), ptr(qm), k, offsets.shape[0], ptr(cand),
+        ptr(doc_scales), b, nq, dim, ptr(q), DTYPE_CODES[q.dtype], ptr(qm), k,
+        offsets.shape[0], ptr(cand),
         ptr(out), stream_ptr(flat.device))
     _build.check(err, "rerank_candidates launch")
     rerank_candidates.launches += 1
@@ -88,12 +96,12 @@ def rerank_candidates_ref(flat, offsets, lengths, queries, qmask, candidates,
     """Plain PyTorch version of :func:`rerank_candidates`: gather each
     candidate's ``max_len``-row window, chunked over K to bound the f32
     gather, then mask rows ``>= len``, take the max per query token and the
-    qmask-weighted sum. Queries are cast to the store dtype, then all math
-    is f32."""
+    qmask-weighted sum, times the doc's scale. Queries are rounded as the
+    kernel rounds them, then all math is f32."""
     b, k = candidates.shape
     dev = flat.device
     dim = flat.shape[1]
-    q = queries.to(flat.dtype).float()
+    q = queries.to(compute_dtype(flat.dtype)).float()
     qm = qmask.float()
     cand = candidates.long()
     valid = cand >= 0

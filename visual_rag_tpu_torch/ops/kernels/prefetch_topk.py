@@ -21,10 +21,18 @@ tensor it launches the kernel or raises.
 
 Semantics: ``out[b, d] = sum over b's rows m of w[m] * max over valid p of
 scale[p, d] * (q[m] . vals[p, d])``; a doc with no valid pooled row gives 0
-per row (not ``NEG_INF``, unlike the MaxSim kernels). Queries are cast to
-the store dtype, then all math is f32. The weight ``w`` defaults to 1 on
-owned rows (the JAX ``seg``/``qmask``); the int8 qdot variant will fold its
-query scales into it (``prefetch_topk.py:204-207``).
+per row (not ``NEG_INF``, unlike the MaxSim kernels). Two bodies, each
+entry point counting its launches of each:
+
+- ``launches``: queries rounded to the store dtype (bf16 for int8 codes),
+  products exact in f32, the per-row scale on each similarity before the
+  max over P (``prefetch_topk.py:106``, ``:156``);
+- ``launches_qdot`` (``qdot_int8=True``, int8 stores; the engine's choice
+  for a prefetch stage-1): query rows quantized to int8, integer dots, and
+  each row's query scale folded into its weight ``w`` (``:204-207``). This
+  is also the function of the A/B prototype
+  ``scripts/tpu_tokens_qdot_ab.py::main.make_v2`` (K9). The integer dots are
+  exact in both versions, so the per-row maxima agree bit for bit.
 """
 
 from __future__ import annotations
@@ -34,7 +42,14 @@ from typing import Optional
 import torch
 
 from visual_rag_tpu_torch.ops.kernels import _build
-from visual_rag_tpu_torch.ops.kernels._checks import DTYPE_CODES, on_cpu, ptr, stream_ptr
+from visual_rag_tpu_torch.ops.kernels._checks import (
+    DTYPE_CODES,
+    compute_dtype,
+    on_cpu,
+    ptr,
+    stream_ptr,
+)
+from visual_rag_tpu_torch.ops.kernels.maxsim_scan import quantize_queries_int8
 
 NEG_INF = -1e30
 _SIMS_BUDGET_BYTES = 256 * 1024 * 1024  # f32 [M, P, chunk] similarity tile per doc chunk
@@ -44,49 +59,68 @@ _ROW_THREADS = 16  # csrc PM_TY
 
 
 def pooled_maxsim_scores_packed(
-    vals_t: torch.Tensor,  # [P, D, dim] P-leading pooled store (f32/bf16/f16)
+    vals_t: torch.Tensor,  # [P, D, dim] P-leading pooled store (f32/bf16/f16/int8 codes)
     mask_t: torch.Tensor,  # [P, D] bool row validity
     qpacked: torch.Tensor,  # [G * Rg, dim] l2-normalised packed query rows
     qid: torch.Tensor,  # [G, Rg] int32 in-group owner (-1 = pad row)
     b: int,  # batch size (G * gq)
     w: Optional[torch.Tensor] = None,  # [G * Rg] f32 row weights (default: qid >= 0)
     scales_t: Optional[torch.Tensor] = None,  # [P, D] f32 per-row scales
+    qdot_int8: bool = False,  # int8 store: int8 queries, integer dots
 ) -> torch.Tensor:
-    """Group-packed stage-1 scores [B, D] f32 (K5)."""
+    """Group-packed stage-1 scores [B, D] f32 (K5; K9 under ``qdot_int8``)."""
     if w is None:
         w = (qid >= 0).to(torch.float32).reshape(-1)
-    if on_cpu(vals_t):
-        return pooled_maxsim_scores_packed_ref(vals_t, mask_t, qpacked, qid, b, w, scales_t)
-    out = _launch(vals_t, mask_t, qpacked, qid, b, w, scales_t)
-    pooled_maxsim_scores_packed.launches += 1
-    return out
+    return _run(pooled_maxsim_scores_packed, vals_t, mask_t, qpacked, qid, b, w, scales_t,
+                qdot_int8)
 
 
-def pooled_maxsim_scores_qbatch(vals_t, mask_t, queries, qmask, scales_t=None) -> torch.Tensor:
+def pooled_maxsim_scores_qbatch(vals_t, mask_t, queries, qmask, scales_t=None,
+                                qdot_int8: bool = False) -> torch.Tensor:
     """Padded-wire stage-1 scores [B, D] f32 (K6): ``queries`` [B, NQ, dim],
     ``qmask`` [B, NQ] weights (0 = pad token)."""
-    args = _as_packed(vals_t, queries, qmask)
-    if on_cpu(vals_t):
-        return pooled_maxsim_scores_packed_ref(vals_t, mask_t, *args, scales_t=scales_t)
-    out = _launch(vals_t, mask_t, *args, scales_t)
-    pooled_maxsim_scores_qbatch.launches += 1
-    return out
+    return _run(pooled_maxsim_scores_qbatch, vals_t, mask_t,
+                *_as_packed(vals_t, queries, qmask), scales_t, qdot_int8)
 
 
-def pooled_maxsim_scores(vals_t, mask_t, queries, qmask, scales_t=None) -> torch.Tensor:
+def pooled_maxsim_scores(vals_t, mask_t, queries, qmask, scales_t=None,
+                         qdot_int8: bool = False) -> torch.Tensor:
     """Per-query stage-1 scores [B, D] f32 (K7): K6's function, the entry
-    point of a batch of single queries (the engine's ``search_embedded``)."""
-    args = _as_packed(vals_t, queries, qmask)
+    point of a batch of single queries (the engine's ``search_embedded``).
+    The TPU's K7 has no qdot form; here a batch of one that the engine sends
+    qdot goes through this entry point as through K6."""
+    return _run(pooled_maxsim_scores, vals_t, mask_t, *_as_packed(vals_t, queries, qmask),
+                scales_t, qdot_int8)
+
+
+for _fn in (pooled_maxsim_scores_packed, pooled_maxsim_scores_qbatch, pooled_maxsim_scores):
+    _fn.launches = 0
+    _fn.launches_qdot = 0
+
+
+def _run(entry, vals_t, mask_t, qpacked, qid, b, w, scales_t, qdot_int8):
+    """The plain version for a CPU store, else the kernel, counted on ``entry``."""
+    if qdot_int8 and vals_t.dtype != torch.int8:
+        raise ValueError("qdot_int8 requires an int8 store")
     if on_cpu(vals_t):
-        return pooled_maxsim_scores_packed_ref(vals_t, mask_t, *args, scales_t=scales_t)
-    out = _launch(vals_t, mask_t, *args, scales_t)
-    pooled_maxsim_scores.launches += 1
+        return pooled_maxsim_scores_packed_ref(vals_t, mask_t, qpacked, qid, b, w, scales_t,
+                                               qdot_int8)
+    out = _launch(vals_t, mask_t, qpacked, qid, b, w, scales_t, qdot_int8)
+    if qdot_int8:
+        entry.launches_qdot += 1
+    else:
+        entry.launches += 1
     return out
 
 
-pooled_maxsim_scores_packed.launches = 0
-pooled_maxsim_scores_qbatch.launches = 0
-pooled_maxsim_scores.launches = 0
+def _query_rows(vals_t, qpacked, w, qdot_int8):
+    """(query rows as the kernel reads them, row weights): int8 codes and
+    ``w`` times each row's scale under ``qdot_int8``, else the rows rounded
+    to the store's compute dtype and ``w`` itself."""
+    if qdot_int8:
+        codes, qs = quantize_queries_int8(qpacked)
+        return codes, w.float() * qs
+    return qpacked.to(compute_dtype(vals_t.dtype)), w.float()
 
 
 def _as_packed(vals_t, queries, qmask):
@@ -107,23 +141,26 @@ def rows_per_thread(rg: int) -> int:
     return next((rm for rm in (1, 2, 4) if rg <= _ROW_THREADS * rm), 8)
 
 
-def smem_bytes(rg: int, dim: int, gq: int) -> int:
-    """Shared memory of one block (csrc ``pooled_smem_floats``)."""
-    bm, ld = _ROW_THREADS * rows_per_thread(rg), dim + 4
+def smem_bytes(rg: int, dim: int, gq: int, qdot: bool = False) -> int:
+    """Shared memory of one block (csrc ``pooled_smem_floats``): rows of
+    ``dim`` f32, or of ``dim / 4`` words of packed int8 codes for qdot."""
+    bm, ld = _ROW_THREADS * rows_per_thread(rg), (dim // 4 if qdot else dim) + 4
     v = max(_DOCS_PER_BLOCK * ld, bm * _DOCS_PER_BLOCK)
     return 4 * (bm * ld + v + gq * _DOCS_PER_BLOCK + 2 * bm + 3 * _DOCS_PER_BLOCK)
 
 
-def _launch(vals_t, mask_t, qpacked, qid, b, w, scales_t) -> torch.Tensor:
+def _launch(vals_t, mask_t, qpacked, qid, b, w, scales_t, qdot_int8) -> torch.Tensor:
     """Check what the kernel takes, then launch it; raises on anything else."""
     if vals_t.dtype not in DTYPE_CODES:
         raise ValueError(f"store dtype {vals_t.dtype} not supported by the kernel "
-                         "(float32, bfloat16, float16)")
+                         "(float32, bfloat16, float16, int8)")
     if vals_t.dim() != 3 or not vals_t.is_contiguous():
         raise ValueError("vals_t must be a contiguous [P, D, dim] tensor")
     p, d, dim = vals_t.shape
-    if dim % 8 or vals_t.data_ptr() % 16:
-        raise ValueError("vals_t rows must be 16-byte aligned: dim % 8 == 0 and an aligned base")
+    step = 16 if qdot_int8 else 8  # elements a thread loads at once
+    if dim % step or vals_t.data_ptr() % 16:
+        raise ValueError(f"vals_t rows must be 16-byte aligned: dim % {step} == 0 and an "
+                         "aligned base")
     if tuple(mask_t.shape) != (p, d):
         raise ValueError(f"mask_t must be [{p}, {d}], got {tuple(mask_t.shape)}")
     if qid.dim() != 2:
@@ -139,7 +176,7 @@ def _launch(vals_t, mask_t, qpacked, qid, b, w, scales_t) -> torch.Tensor:
     if -(-d // _DOCS_PER_BLOCK) > 65535:
         raise ValueError(f"{d} docs exceed the kernel's grid limit of "
                          f"{65535 * _DOCS_PER_BLOCK}")
-    if smem_bytes(rg, dim, gq) > _MAX_SMEM_BYTES:
+    if smem_bytes(rg, dim, gq, qdot_int8) > _MAX_SMEM_BYTES:
         raise ValueError(f"{gq} queries a group of dim {dim} do not fit the kernel's "
                          "shared memory")
     if scales_t is not None and (scales_t.dtype != torch.float32
@@ -149,12 +186,12 @@ def _launch(vals_t, mask_t, qpacked, qid, b, w, scales_t) -> torch.Tensor:
                     ("scales_t", scales_t)):
         if t is not None and t.device != vals_t.device:
             raise ValueError(f"{name} is on {t.device}, the store on {vals_t.device}")
-    q = qpacked.to(vals_t.dtype).contiguous()  # cast to the store dtype, as on the TPU
+    q, wt = _query_rows(vals_t, qpacked, w, qdot_int8)
+    q, wt = q.contiguous(), wt.contiguous()
     if q.data_ptr() % 16:
         raise ValueError("qpacked must start 16-byte aligned")
     m = mask_t.to(torch.bool).contiguous()
     qi = qid.to(torch.int32).contiguous()
-    wt = w.to(torch.float32).contiguous()
     sc = None if scales_t is None else scales_t.contiguous()
     out = torch.empty((b, d), dtype=torch.float32, device=vals_t.device)
     if d == 0:
@@ -162,30 +199,32 @@ def _launch(vals_t, mask_t, qpacked, qid, b, w, scales_t) -> torch.Tensor:
     lib = _build.load_library()
     err = lib.vrt_pooled_maxsim_scores_packed(
         vals_t.device.index, ptr(vals_t), DTYPE_CODES[vals_t.dtype], ptr(m), ptr(sc), p, d,
-        ptr(q), g, rg, gq, dim, rows_per_thread(rg), ptr(qi), ptr(wt), ptr(out),
-        stream_ptr(vals_t.device))
+        ptr(q), DTYPE_CODES[q.dtype], g, rg, gq, dim, rows_per_thread(rg), ptr(qi), ptr(wt),
+        ptr(out), stream_ptr(vals_t.device))
     _build.check(err, "pooled_maxsim_scores launch")
     return out
 
 
 def pooled_maxsim_scores_packed_ref(vals_t, mask_t, qpacked, qid, b: int, w=None,
-                                    scales_t=None) -> torch.Tensor:
+                                    scales_t=None, qdot_int8: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the three entry points, on the packed form.
 
     Per chunk of docs: one [M, dim] x [dim, P * chunk] product of every
     query row with every pooled row, scaled, masked to ``NEG_INF`` where a
     row is invalid, the max over P, 0 for docs with no valid row, then a
     [gq, Rg] weighted-ownership product per group sums each query's rows.
-    The chunk keeps the f32 [M, P, chunk] tile under a fixed budget."""
+    The chunk keeps the f32 [M, P, chunk] tile under a fixed budget. Under
+    ``qdot_int8`` the product is of int8 codes, exact in f32."""
     p, d, dim = vals_t.shape
     g, rg = qid.shape
     gq = b // g
     dev = vals_t.device
-    q = qpacked.to(vals_t.dtype).float()  # [M, dim]
     if w is None:
         w = (qid >= 0).to(torch.float32).reshape(-1)
+    q, w = _query_rows(vals_t, qpacked, w, qdot_int8)
+    q = q.float()  # [M, dim]
     own = qid.long()[:, None, :] == torch.arange(gq, device=dev)[None, :, None]
-    seg = own.float() * w.float().reshape(g, 1, rg)  # [G, gq, Rg]
+    seg = own.float() * w.reshape(g, 1, rg)  # [G, gq, Rg]
     mask = mask_t.bool()
     per_doc = max(1, q.shape[0] * p * 4)
     chunk = max(1, min(max(d, 1), _SIMS_BUDGET_BYTES // per_doc))

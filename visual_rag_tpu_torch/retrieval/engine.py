@@ -2,12 +2,12 @@
 
 Port of ``visual_rag_tpu/retrieval/engine.py``: all eight search modes, the
 five stage-1 modes and their deprecated aliases, and payload filters, over
-float stores, through ``search_embedded_batch[es]``, the per-query
-``search_embedded`` (a batch of one through the same plans) and the
-``_dispatch_batch`` / ``_finish_batch`` split that the serving layer uses
-(``serving/server.py:195-236`` of the JAX package). What stays refused
-raises: ``dedup`` and ``sweep`` reranks and int8 stores (at conversion),
-naming the ROADMAP item that ports them, and ``scan`` on the padded wire.
+float, int8 and int8_refined stores, through ``search_embedded_batch[es]``,
+the per-query ``search_embedded`` (a batch of one through the same plans)
+and the ``_dispatch_batch`` / ``_finish_batch`` split that the serving layer
+uses (``serving/server.py:195-236`` of the JAX package). What stays refused
+raises: ``dedup`` and ``sweep`` reranks, naming the ROADMAP item that ports
+them, and ``scan`` on the padded wire.
 
 Policies, as the JAX engine's except where noted:
 
@@ -190,18 +190,28 @@ class RetrievalEngine:
         }[mode]
 
     def _fused_arrays(self, name: str) -> Dict:
-        """Store tensors in the layout the plans take, cached per store."""
+        """Store tensors in the layout the plans take, cached per store
+        (JAX ``engine.py:735-754``, ``batch.py:600-634``): int8 ragged and
+        padded stores keep their codes with f32 scales beside them (per doc
+        ``scales``, the ``res4``/``res_scales`` sidecar; per row ``scales_t``
+        [P, D]); an int8 single-vector store is dequantized to f32 once."""
         arr = self._arrays.get(name)
         if arr is None:
             store = self.index.store(name)
             if isinstance(store, RaggedMultiVectors):
                 arr = {"flat": store.flat, "offsets": store.offsets,
                        "lengths": store.lengths, "max_len": store.max_len}
+                for key in ("scales", "res4", "res_scales"):
+                    if getattr(store, key) is not None:
+                        arr[key] = getattr(store, key)
             elif isinstance(store, PaddedMultiVectors):
                 arr = {"vals_t": store.values.permute(1, 0, 2).contiguous(),
                        "mask_t": store.mask.T.contiguous()}
+                if store.scales is not None:
+                    arr["scales_t"] = store.scales.T.float().contiguous()
             elif isinstance(store, SingleVectors):
-                arr = {"vals": store.values}
+                arr = {"vals": store.dequantized(torch.float32) if store.scales is not None
+                       else store.values}
             else:
                 raise ValueError(f"store {name!r} has an unknown layout ({store.kind})")
             self._arrays[name] = arr

@@ -25,16 +25,28 @@ Port of the shard-local bodies in ``visual_rag_tpu/parallel/sharded.py``
   on the packed and the padded wire, without length buckets.
 - :func:`local_stage1` <- ``_local_stage1`` (``:637-662``), kinds
   ``tokens_padded``, ``pooled_padded``, ``pooled_single`` and
-  ``tokens_ragged``; the int8 qdot branch waits for int8 stores.
-- :func:`refine_topk` <- ``_refine_topk`` (``:730-742``), plain stores.
+  ``tokens_ragged``, with the qdot branch of a prefetch tokens stage-1.
+- :func:`refine_topk` <- ``_refine_topk`` (``:730-751``), with the int4
+  residual refine of ``int8_refined`` stores (``ops/kernels/refine.py``).
+
+int8 stores (``:304-305``): queries are rounded to bf16 against int8 codes
+everywhere outside the qdot bodies, and every scorer applies the store's
+scales where the JAX bodies do. The qdot bodies (int8 query codes, integer
+dots) run where the JAX package runs them: the scan of an ``int8_refined``
+ragged store (``:593-599``) and a prefetch tokens stage-1 over an int8
+pooled store (``:640-649``), the latter unless ``VISUALRAG_TOKENS_QDOT=0``
+was set when this module was imported (the JAX package's own opt-out,
+``:76-78``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import torch
 
+from visual_rag_tpu_torch.ops.kernels._checks import compute_dtype
 from visual_rag_tpu_torch.ops.kernels.maxsim_rerank import rerank_candidates
 from visual_rag_tpu_torch.ops.kernels.maxsim_scan import exhaustive_scores_packed
 from visual_rag_tpu_torch.ops.kernels.prefetch_topk import (
@@ -42,43 +54,54 @@ from visual_rag_tpu_torch.ops.kernels.prefetch_topk import (
     pooled_maxsim_scores_packed,
     pooled_maxsim_scores_qbatch,
 )
+from visual_rag_tpu_torch.ops.kernels.refine import refine_rerank, refine_window
 
 NEG_INF = -1e30
 # device-memory cap of the stage-2 candidate gather (sharded.py:417-419)
 GATHER_BUDGET_BYTES = 320 * 1024 * 1024
+# the qdot prefetch stage-1 opt-out, read once at import (sharded.py:76-78)
+TOKENS_QDOT = os.environ.get("VISUALRAG_TOKENS_QDOT", "1") != "0"
 
 
-def local_tokens_padded(s1: Dict, tokens: torch.Tensor, qmask: torch.Tensor) -> torch.Tensor:
+def local_tokens_padded(s1: Dict, tokens: torch.Tensor, qmask: torch.Tensor,
+                        qdot: bool = False) -> torch.Tensor:
     """[B, D] tokens-vs-pooled stage-1 on the padded wire (K6; K7 at B = 1)."""
     fn = pooled_maxsim_scores if tokens.shape[0] == 1 else pooled_maxsim_scores_qbatch
-    return fn(s1["vals_t"], s1["mask_t"], tokens, qmask, s1.get("scales_t"))
+    return fn(s1["vals_t"], s1["mask_t"], tokens, qmask, s1.get("scales_t"), qdot_int8=qdot)
 
 
-def local_tokens_padded_packed(s1: Dict, packed: Dict, b: int) -> torch.Tensor:
+def local_tokens_padded_packed(s1: Dict, packed: Dict, b: int,
+                               qdot: bool = False) -> torch.Tensor:
     """[B, D] tokens-vs-pooled stage-1 on the group-packed wire (K5)."""
     return pooled_maxsim_scores_packed(s1["vals_t"], s1["mask_t"], packed["q"], packed["qid"],
-                                       b, packed["w"], s1.get("scales_t"))
+                                       b, packed["w"], s1.get("scales_t"), qdot_int8=qdot)
 
 
 def local_pooled_padded(s1: Dict, pooled: torch.Tensor) -> torch.Tensor:
     """[B, D] max over each doc's valid pooled rows of the pooled query's dot.
 
-    The query is cast to the store dtype (the TPU engine's bf16 compute),
-    then the product is f32. Docs without rows score 0.
+    The query is rounded to the store's compute dtype (the TPU engine's
+    bf16 compute; bf16 for int8 codes), then the product is f32, times the
+    row's scale on an int8 store, before the max. Docs without rows score 0.
     """
     vals_t, mask_t = s1["vals_t"], s1["mask_t"]  # [P, D, dim], [P, D] bool
-    q = pooled.to(vals_t.dtype).float()
+    scales_t = s1.get("scales_t")  # [P, D] f32 for int8 codes
+    q = pooled.to(compute_dtype(vals_t.dtype)).float()
     out = None
     for p in range(vals_t.shape[0]):
-        s = (q @ vals_t[p].float().T).masked_fill(~mask_t[p][None, :], NEG_INF)
+        s = q @ vals_t[p].float().T
+        if scales_t is not None:
+            s = s * scales_t[p][None, :]
+        s = s.masked_fill(~mask_t[p][None, :], NEG_INF)
         out = s if out is None else torch.maximum(out, s)
     return torch.where(mask_t.any(dim=0)[None, :], out, 0.0)
 
 
 def local_pooled_single(s1: Dict, pooled: torch.Tensor) -> torch.Tensor:
-    """[B, D] dot of the pooled query with each doc's single vector."""
+    """[B, D] dot of the pooled query with each doc's single vector (an
+    int8 single-vector store arrives dequantized, as in the JAX engine)."""
     vals = s1["vals"]  # [D, dim]
-    out = pooled.to(vals.dtype).float() @ vals.float().T
+    out = pooled.to(compute_dtype(vals.dtype)).float() @ vals.float().T
     scales = s1.get("scales")
     return out if scales is None else out * scales.float()[None, :]
 
@@ -110,7 +133,7 @@ def _gathered_chunk(estore: Dict, tokens, qmask, cand) -> torch.Tensor:
     safe = cand.clamp(min=0).long()  # [Bc, K]
     sub = vals_t[:, safe].float()  # [P, Bc, K, dim]
     msk = mask_t[:, safe].bool()  # [P, Bc, K]
-    sims = torch.einsum("bqd,pbkd->bqpk", tokens.to(vals_t.dtype).float(), sub)
+    sims = torch.einsum("bqd,pbkd->bqpk", tokens.to(compute_dtype(vals_t.dtype)).float(), sub)
     if scales_t is not None:
         sims = sims * scales_t[:, safe].float().permute(1, 0, 2)[:, None]
     sims = sims.masked_fill(~msk.permute(1, 0, 2)[:, None], NEG_INF)
@@ -126,6 +149,9 @@ def local_tokens_ragged(ragged: Dict, tokens: torch.Tensor, qmask: torch.Tensor,
 
     The padded wire goes through the same kernel as a packing with one
     query per group: group i is query i's NQ rows, owned where qmask is set.
+    An ``int8_refined`` store scans with int8 queries (qdot): its refine
+    pass re-scores the final window, so the query rounding never reaches a
+    returned score (``sharded.py:593-599``).
     """
     if packed is not None:
         q, qid = packed["q"], packed["qid"]
@@ -133,7 +159,8 @@ def local_tokens_ragged(ragged: Dict, tokens: torch.Tensor, qmask: torch.Tensor,
         q = tokens.reshape(-1, tokens.shape[2])
         qid = torch.where(qmask > 0, 0, -1).to(torch.int32)  # [B, NQ]
     return exhaustive_scores_packed(ragged["flat"], ragged["offsets"], ragged["lengths"],
-                                    q, qid, ragged["max_len"], b)
+                                    q, qid, ragged["max_len"], b, ragged.get("scales"),
+                                    qdot_int8=ragged.get("res4") is not None)
 
 
 def local_rerank(ragged: Dict, tokens: torch.Tensor, qmask: torch.Tensor,
@@ -152,15 +179,20 @@ def local_rerank(ragged: Dict, tokens: torch.Tensor, qmask: torch.Tensor,
     if impl != "plain":
         raise ValueError(f"unknown rerank impl {impl!r}")
     return rerank_candidates(ragged["flat"], ragged["offsets"], ragged["lengths"],
-                             tokens, qmask, cand, ragged["max_len"])
+                             tokens, qmask, cand, ragged["max_len"], ragged.get("scales"))
 
 
 def local_stage1(kind: str, s1: Dict, ragged: Dict, tokens, qmask, pooled,
-                 packed: Optional[Dict], b: int) -> torch.Tensor:
+                 packed: Optional[Dict], b: int, s1_prefetch: bool = False) -> torch.Tensor:
+    """[B, D] stage-1 scores of one kind. ``s1_prefetch``: the scores only
+    pick candidates for an exact rerank (``two_stage``), so a tokens
+    stage-1 over int8 codes may use int8 queries (``sharded.py:640-649``);
+    where they are final (``single_tiles``) it keeps bf16 queries."""
     if kind == "tokens_padded":
+        qdot = TOKENS_QDOT and s1_prefetch and s1["vals_t"].dtype == torch.int8
         if packed is not None:
-            return local_tokens_padded_packed(s1, packed, b)
-        return local_tokens_padded(s1, tokens, qmask)
+            return local_tokens_padded_packed(s1, packed, b, qdot)
+        return local_tokens_padded(s1, tokens, qmask, qdot)
     if kind == "pooled_padded":
         return local_pooled_padded(s1, pooled)
     if kind == "pooled_single":
@@ -170,9 +202,23 @@ def local_stage1(kind: str, s1: Dict, ragged: Dict, tokens, qmask, pooled,
     raise ValueError(kind)
 
 
-def refine_topk(cand: torch.Tensor, rr: torch.Tensor, k: int):
-    """Final top-k of the rerank scores: (scores [B, k], doc ids, -1 where
-    the score is a padding ``NEG_INF``)."""
-    vals, pos = torch.topk(rr, k, dim=1)
-    idx = torch.where(vals > NEG_INF / 2, cand.gather(1, pos), -1)
+def refine_topk(ragged: Dict, tokens: torch.Tensor, qmask: torch.Tensor,
+                cand: torch.Tensor, rr: torch.Tensor, k: int):
+    """Final top-k of the rerank scores: (scores [B, k'], doc ids, -1 where
+    the score is a padding ``NEG_INF``). Plain stores: the top-k of ``rr``.
+    ``int8_refined`` stores: the int8 top ``max(32, 2k)`` window is
+    re-scored at int8 + int4 precision with f32 queries, then cut to
+    ``k' = min(k, window)``."""
+    if ragged.get("res4") is None:
+        vals, pos = torch.topk(rr, k, dim=1)
+        idx = torch.where(vals > NEG_INF / 2, cand.gather(1, pos), -1)
+        return vals, idx.to(torch.int32)
+    rk = refine_window(k, cand.shape[1])
+    v8, pos8 = torch.topk(rr, rk, dim=1)
+    c8 = torch.where(v8 > NEG_INF / 2, cand.gather(1, pos8), -1).to(torch.int32)
+    fine = refine_rerank(ragged["flat"], ragged["res4"], ragged["res_scales"],
+                         ragged["offsets"], ragged["lengths"], tokens, qmask, c8,
+                         ragged["max_len"], ragged.get("scales"))
+    vals, pos = torch.topk(fine, min(k, rk), dim=1)
+    idx = torch.where(vals > NEG_INF / 2, c8.gather(1, pos), -1)
     return vals, idx.to(torch.int32)

@@ -15,6 +15,7 @@ from typing import Dict
 
 import torch
 
+from visual_rag_tpu_torch.ops.kernels.refine import refine_window
 from visual_rag_tpu_torch.retrieval.local import (
     NEG_INF,
     gathered_tokens_padded,
@@ -81,9 +82,14 @@ def _topk_masked(scores: torch.Tensor, k: int, doc_mask=None):
 
 def single_plan(s1: Dict, ragged: Dict, doc_mask, q1, q2, q3=None, *, kind: str, k: int,
                 wire: str = "padded", b: int = 0, nq: int = 0):
-    """``single_*``: one store scored for every doc (stage-1 ``kind``), top-k."""
+    """``single_*``: one store scored for every doc (stage-1 ``kind``), top-k.
+    ``single_full`` on an ``int8_refined`` store cuts the int8 scan to the
+    refine window and re-scores it (JAX ``plans.py:114-118``)."""
     tokens, qmask, pooled, packed = _prep_wire(q1, q2, q3, wire, b, nq)
     scores = local_stage1(kind, s1, ragged, tokens, qmask, pooled, packed, b)
+    if kind == "tokens_ragged" and ragged.get("res4") is not None:
+        vals8, cand = _topk_masked(scores, refine_window(k, scores.shape[1]), doc_mask)
+        return refine_topk(ragged, tokens, qmask, cand, vals8, k)
     return _topk_masked(scores, k, doc_mask)
 
 
@@ -91,12 +97,13 @@ def two_stage_plan(s1: Dict, ragged: Dict, doc_mask, q1, q2, q3=None, *, kind: s
                    pk: int, k: int, impl: str = "plain", wire: str = "padded", b: int = 0,
                    nq: int = 0):
     """``two_stage``: stage-1 scores, exact top-``pk`` cut, exact MaxSim
-    rerank of the candidates, final top-``k``."""
+    rerank of the candidates (refined on ``int8_refined``), final top-``k``."""
     tokens, qmask, pooled, packed = _prep_wire(q1, q2, q3, wire, b, nq)
-    scores = local_stage1(kind, s1, ragged, tokens, qmask, pooled, packed, b)
+    scores = local_stage1(kind, s1, ragged, tokens, qmask, pooled, packed, b,
+                          s1_prefetch=True)
     _, cand = _topk_masked(scores, pk, doc_mask)
     rr = local_rerank(ragged, tokens, qmask, cand, impl, packed, b)
-    return refine_topk(cand, rr, k)
+    return refine_topk(ragged, tokens, qmask, cand, rr, k)
 
 
 def three_stage_plan(gstore: Dict, estore: Dict, ragged: Dict, doc_mask, q1, q2, q3=None,
@@ -105,7 +112,10 @@ def three_stage_plan(gstore: Dict, estore: Dict, ragged: Dict, doc_mask, q1, q2,
     """``three_stage``: pooled query vs the global vectors, top-``s1k``; the
     query tokens vs the experimental pooled rows of those candidates only,
     top-``s2k``; exact MaxSim rerank, final top-``k``. Returns (scores,
-    ids, stage-1 scores, stage-2 scores), the last two at the winners."""
+    ids, stage-1 scores, stage-2 scores), the last two at the winners. On
+    an ``int8_refined`` store the winners come from the refine window, not
+    in stage-2 order, so each winner's stage-2 score is found by matching
+    its id in the stage-2 candidates (JAX ``plans.py:163-175``)."""
     tokens, qmask, pooled, packed = _prep_wire(q1, q2, q3, wire, b, nq)
     s1 = local_stage1("pooled_single", gstore, ragged, tokens, qmask, pooled, packed, b)
     _, c1 = _topk_masked(s1, s1k, doc_mask)
@@ -115,7 +125,14 @@ def three_stage_plan(gstore: Dict, estore: Dict, ragged: Dict, doc_mask, q1, q2,
     v2, pos2 = torch.topk(s2c, s2k, dim=1)
     c2 = torch.where(v2 > NEG_INF / 2, c1.gather(1, pos2), -1).to(torch.int32)
     rr = local_rerank(ragged, tokens, qmask, c2, impl, packed, b)
-    vals, pos = torch.topk(rr, k, dim=1)
-    idx = torch.where(vals > NEG_INF / 2, c2.gather(1, pos), -1).to(torch.int32)
+    if ragged.get("res4") is None:
+        vals, pos = torch.topk(rr, k, dim=1)
+        idx = torch.where(vals > NEG_INF / 2, c2.gather(1, pos), -1).to(torch.int32)
+        s2_at = v2.gather(1, pos)
+    else:
+        vals, idx = refine_topk(ragged, tokens, qmask, c2, rr, k)
+        match = (c2[:, None, :] == idx[:, :, None]) & (idx[:, :, None] >= 0)
+        pos2 = match.to(torch.int32).argmax(dim=2)  # ids are unique in a row of c2
+        s2_at = torch.where(idx >= 0, v2.gather(1, pos2), NEG_INF)
     fi = idx.clamp(min=0).long()
-    return vals, idx, s1.gather(1, fi), v2.gather(1, pos)
+    return vals, idx, s1.gather(1, fi), s2_at
