@@ -18,12 +18,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. The main path: ``two_stage`` (prefetch_k=200, top_k=10) through
    ``search_embedded_batches`` at bs 32, 256 and 1024 on the 3k corpus.
 4. The strict oracle at 3k on 256 queries at score tolerance 0.
-5. 100k docs: ``two_stage`` at bs 1024, ``single_full`` at bs 256 and the
-   strict oracle on 64 queries.
+5. 100k docs: ``two_stage`` at bs 1024 (K3, the dedup rerank, by the JAX
+   engine's policy), ``single_full`` at bs 256 and the strict oracle on 64
+   queries.
 6. Serving: the port's SearchServer answers 8 concurrent POST /search with
    the ids a direct ``search_embedded_batch`` gives.
-7. Launch counts of the rerank and scan kernels over phases 3-6; each
-   must be > 0.
+7. Launch counts of K2, K3 and the scan over phases 3-6; each must be > 0.
 8. The tokens stage-1 path (``stage1_mode="tokens_vs_standard_pooling"``),
    with the counts set to 0 first: K5 once against its plain version at
    the 100k bs 1024 shape (before the reset), then ``two_stage`` at 3k bs 16
@@ -51,6 +51,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``single_full`` bs 256, ``three_stage`` bs 1024, and ``int8`` ``two_stage``
    bs 1024; the token store's bytes per dtype. Every entry point's int8
    count and every qdot count must be > 0.
+10. K3 (dedup) and K4 (sweep), the reranks the policy picks for batches of
+   64 and more (K4 where the candidates cover the store six times and more).
+   First, not counted: each against its plain version (within ATOL, two calls
+   bit-equal) and against K2 on the same inputs (the difference is logged;
+   they share K2's row dots and fold), with the CUDA-event ms of K2, K3, K4
+   and both plain versions, at 32 x 200 and 256 x 200 on the 3k corpus and
+   1024 x 200 at 100k, on bf16 and on ``int8`` (the plain versions once at
+   100k). Then, counts at 0: at 100k bf16 ``two_stage`` bs 1024 (pooled,
+   then tokens stage-1) and ``three_stage`` bs 1024, at 100k
+   ``int8_refined`` pooled ``two_stage`` bs 1024 (K3 each, count > 0), and
+   on the 3k corpus on the padded wire at bs 256 (K4, count > 0), each with
+   its QPS beside the same engine's with ``rerank_impl="plain"`` (K2; two
+   runs each, alternating) and ids equal to that engine's;
+   the strict oracle on the padded 3k engine (64 queries, ``prefetch_k`` =
+   corpus: K4 against ``single_full``'s K1), logged at tolerance 0 and
+   required at 1e-4.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary. Without a CUDA device the script raises at once.
@@ -138,12 +154,14 @@ def main() -> None:
     from visual_rag_tpu_torch.ops.kernels import _build
     from visual_rag_tpu_torch.ops.kernels.maxsim_rerank import (
         rerank_candidates,
+        rerank_candidates_dedup,
         rerank_candidates_ref,
     )
     from visual_rag_tpu_torch.ops.kernels.maxsim_scan import (
         exhaustive_scores_packed,
         exhaustive_scores_packed_ref,
     )
+    from visual_rag_tpu_torch.ops.kernels.maxsim_sweep import rerank_candidates_sweep
     from visual_rag_tpu_torch.ops.kernels.prefetch_topk import (
         _as_packed,
         pooled_maxsim_scores,
@@ -303,8 +321,9 @@ def main() -> None:
             f"(8 modes, 4 more stage-1 modes, 1 filter)")
 
     # -- 3. main path at the bench protocol ----------------------------------------
-    rerank_candidates.launches = 0
-    exhaustive_scores_packed.launches = 0
+    for fn in (rerank_candidates, rerank_candidates_dedup, rerank_candidates_sweep,
+               exhaustive_scores_packed):
+        fn.launches = 0
     qs = queries(1, 2048)
     rungs = {}
     for bs, n in ((32, 512), (256, 2048), (1024, 2048)):
@@ -366,6 +385,7 @@ def main() -> None:
 
     # -- 7. launch counts ----------------------------------------------------------
     counts = {"rerank_candidates": rerank_candidates.launches,
+              "rerank_candidates_dedup": rerank_candidates_dedup.launches,
               "exhaustive_scores_packed": exhaustive_scores_packed.launches}
     log(f"launches over phases 3-6: {counts}")
     for name, n in counts.items():
@@ -446,6 +466,9 @@ def main() -> None:
 
     # -- 9. int8 storage ---------------------------------------------------------------
     kernels += int8_phase(dev, card, idx3k, eng3k, qs, entry_points)
+
+    # -- 10. K3 and K4 -------------------------------------------------------------------
+    kernels += pair_rerank_phase(dev, card, idx3k, qs, entry_points)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "visual_rag_tpu"))
     if leaked:
         raise AssertionError(f"the JAX package or jax was imported: {leaked[:5]}")
@@ -715,6 +738,163 @@ def int8_phase(dev, card, idx3k, eng3k, qs, entry_points):
     for k in out:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on phase 9's path")
+    return out
+
+
+def timed_once(fn):
+    """(result, CUDA-event ms) of a single call."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def pair_rerank_phase(dev, card, idx3k, qs, entry_points):
+    """Phase 10: K3 (dedup) and K4 (sweep) (module docstring). Returns their
+    kernel summary entries."""
+    import torch
+
+    from visual_rag_tpu_torch import RetrievalEngine, synthetic_index
+    from visual_rag_tpu_torch.index.quantize import quantize_index
+    from visual_rag_tpu_torch.ops.kernels.maxsim_rerank import (
+        rerank_candidates_dedup,
+        rerank_candidates_dedup_ref,
+    )
+    from visual_rag_tpu_torch.ops.kernels.maxsim_sweep import (
+        rerank_candidates_sweep,
+        rerank_candidates_sweep_ref,
+    )
+    from visual_rag_tpu_torch.retrieval import plans, wire
+    from visual_rag_tpu_torch.retrieval.local import local_pooled_padded
+    from visual_rag_tpu_torch.retrieval.oracle import run_strict_oracle
+
+    k2 = entry_points[0]
+    k3, k4 = rerank_candidates_dedup, rerank_candidates_sweep
+    pairs = {"K3": (k3, rerank_candidates_dedup_ref), "K4": (k4, rerank_candidates_sweep_ref)}
+    summary = {name: {"max_abs_err": 0.0, "max_abs_diff_k2": 0.0, "shapes": {}}
+               for name in pairs}
+    all_fns = entry_points + (k3, k4)
+
+    # 10a. each kernel against its plain version and K2 (not counted)
+    def hold(store, index, n, iters):
+        eng = RetrievalEngine(index)
+        ragged = eng._fused_arrays("initial")
+        raw, qmask = wire.to_device(wire.pad_queries_raw(qs[:n], 128), dev)
+        tokens, pooled = plans._prep_queries(raw, qmask)
+        _, cand = plans._topk_masked(
+            local_pooled_padded(eng._fused_arrays("mean_pooling"), pooled), 200)
+        cand[:, -3:] = -1  # padding slots
+        args = (ragged["flat"], ragged["offsets"], ragged["lengths"], tokens, qmask, cand,
+                ragged["max_len"], ragged.get("scales"))
+        shape = f"{store} {n} x 200"
+        times = {"K2": cuda_ms(lambda: k2(*args), iters)}
+        base = k2(*args)
+        notes = []
+        for name, (fn, ref) in pairs.items():
+            want, plain_ms = timed_once(lambda: ref(*args))
+            got, again = fn(*args), fn(*args)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            diff = float((got - base).abs().max())
+            if not torch.allclose(got, want, rtol=0, atol=ATOL):
+                raise AssertionError(f"{name} disagrees with its plain version at {shape}: {err}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name} is not deterministic at {shape}")
+            times[name] = cuda_ms(lambda: fn(*args), iters)
+            times[f"{name} plain"] = plain_ms
+            s = summary[name]
+            s["max_abs_err"] = max(s["max_abs_err"], err)
+            s["max_abs_diff_k2"] = max(s["max_abs_diff_k2"], diff)
+            s["shapes"][shape] = {"ms": times[name], "plain_ms": plain_ms, "k2_ms": times["K2"],
+                                  "max_abs_err": err, "max_abs_diff_k2": diff}
+            notes.append(f"{name} max_abs_err {err:.3g}, "
+                         + ("bit-equal to K2" if diff == 0 else f"max |K2 diff| {diff:.3g}"))
+            del want, got, again
+        log(f"K3/K4 [{shape}]: " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+            + "; " + "; ".join(notes) + f" [{card}]")
+
+    with uncounted(all_fns):
+        q3k = quantize_index(idx3k, "int8")
+        for store, index in (("3k bf16", idx3k), ("3k int8", q3k)):
+            for n in (32, 256):
+                hold(store, index, n, 10)
+        del q3k
+        for dt in ("bfloat16", "int8"):
+            index = synthetic_index(100000, min_tokens=128, max_tokens=256, pooled_rows=12,
+                                    storage_dtype=dt, seed=2, device=dev)
+            hold(f"100k {'bf16' if dt == 'bfloat16' else dt}", index, 1024, 5)
+            del index
+            torch.cuda.empty_cache()
+
+    # 10b. the paths that route to K3 and K4, counts from 0
+    for fn in all_fns:
+        fn.launches = 0
+        if hasattr(fn, "launches_qdot"):
+            fn.launches_qdot = 0
+
+    def run(what, engine, plain_engine, bs, n, kernel, **kw):
+        before = kernel.launches
+        route = engine._rerank_impl(bs, kw.get("stage2_k", 200), engine._use_packed(bs))
+        r = qps(engine, qs[:n], bs, what, **kw)
+        launched = kernel.launches - before
+        # the same path with K2, in this call: route, K2, route, K2
+        r_plain = qps(plain_engine, qs[:n], bs, what, **kw)
+        r2, r2_plain = qps(engine, qs[:n], bs, what, **kw), qps(plain_engine, qs[:n], bs, what, **kw)
+        args = dict(BENCH_KW, return_arrays=True, **kw)
+        got = engine.search_embedded_batch(qs[:bs], **args)
+        want = plain_engine.search_embedded_batch(qs[:bs], **args)
+        same = bool(np.array_equal(got.indices, want.indices))
+        log(f"{what} ({route} rerank): {r:.1f}, {r2:.1f} QPS (rerank_impl='plain': "
+            f"{r_plain:.1f}, {r2_plain:.1f}), {kernel.__name__} launched {launched} "
+            f"times in the first, ids == rerank_impl='plain': {same} [{card}]")
+        if launched <= 0:
+            raise AssertionError(f"{what}: {kernel.__name__} never launched")
+        if not same:
+            raise AssertionError(f"{what}: ids differ from the plain rerank's")
+
+    for dt in ("bfloat16", "int8_refined"):
+        index = synthetic_index(100000, min_tokens=128, max_tokens=256, pooled_rows=12,
+                                storage_dtype=dt, seed=2, device=dev)
+        eng, plain = RetrievalEngine(index), RetrievalEngine(index, rerank_impl="plain")
+        run(f"100k {dt} two_stage bs=1024", eng, plain, 1024, 2048, k3)
+        if dt == "bfloat16":
+            run(f"100k {dt} two_stage {TOKENS} bs=1024", eng, plain, 1024, 2048, k3,
+                stage1_mode=TOKENS)
+            run(f"100k {dt} three_stage bs=1024", eng, plain, 1024, 2048, k3,
+                mode="three_stage", stage1_k=1000, stage2_k=300)
+        del eng, plain, index
+        torch.cuda.empty_cache()
+    padded = RetrievalEngine(idx3k, query_wire="padded")
+    run("3k two_stage padded wire bs=256", padded,
+        RetrievalEngine(idx3k, query_wire="padded", rerank_impl="plain"), 256, 1024, k4)
+    before = k4.launches
+    exact = run_strict_oracle(padded, qs[:64], idx3k.num_docs, score_tol=0.0)
+    close = exact or run_strict_oracle(padded, qs[:64], idx3k.num_docs, score_tol=1e-4)
+    log(f"strict oracle 3k padded wire (64 queries, prefetch_k = corpus, "
+        f"{padded._rerank_impl(64, idx3k.num_docs, False)} rerank): tol 0 {exact}, "
+        f"tol 1e-4 {close}; {k4.__name__} launched {k4.launches - before} times")
+    if not close:
+        raise AssertionError("strict oracle failed on the padded wire (K4)")
+
+    counts = {"K3": k3.launches, "K4": k4.launches}
+    log(f"launches over phase 10's path: {counts}")
+    main = {"K3": "100k bf16 1024 x 200", "K4": "3k bf16 256 x 200"}  # each one's path shape
+    src = {"K3": ("rerank_candidates_dedup", "maxsim_dedup.cu", "maxsim_rerank.py:355"),
+           "K4": ("rerank_candidates_sweep", "maxsim_sweep.cu", "maxsim_sweep.py:343")}
+    out = []
+    for name, s in summary.items():
+        fn_name, cu, tpu = src[name]
+        at = s["shapes"][main[name]]
+        out.append(dict(name=fn_name, route="cuda", source=f"visual_rag_tpu_torch/csrc/{cu}",
+                        replaces=f"visual_rag_tpu/ops/kernels/{tpu}", launches=counts[name],
+                        max_abs_err=s["max_abs_err"], ms=at["ms"], plain_ms=at["plain_ms"],
+                        k2_ms=at["k2_ms"], max_abs_diff_k2=s["max_abs_diff_k2"],
+                        shapes=s["shapes"]))
     return out
 
 

@@ -20,6 +20,13 @@ their plain versions, each counted on its own counter; with one query row
 a group, the qdot scores equal the plain version's bit for bit (the integer
 dots are exact on both sides). The engine over int8 and int8_refined
 stores on the card against the same index on the CPU.
+
+K3 (dedup) and K4 (sweep): each against its plain version and bit-equal to
+K2 on the same inputs, on f32, bf16, f16 and int8 stores, with heavy
+sharing (runs cut at 16 pairs of one doc, ranges of many pairs), -1 and
+0-token candidates, one range and many ranges, queries of 3 to 130 tokens;
+two calls bit-equal; launch counts; the inputs the wrappers refuse; the
+engine with each on the card against the CPU.
 """
 
 import numpy as np
@@ -30,6 +37,8 @@ from visual_rag_tpu_torch import RetrievalEngine, synthetic_index
 from visual_rag_tpu_torch.index.quantize import quantize_per_doc, quantize_rows_int8
 from visual_rag_tpu_torch.ops.kernels.maxsim_rerank import (
     rerank_candidates,
+    rerank_candidates_dedup,
+    rerank_candidates_dedup_ref,
     rerank_candidates_ref,
 )
 from visual_rag_tpu_torch.ops.kernels.maxsim_scan import (
@@ -37,6 +46,10 @@ from visual_rag_tpu_torch.ops.kernels.maxsim_scan import (
     exhaustive_scores_packed_ref,
 )
 from visual_rag_tpu_torch.ops.kernels import prefetch_topk as pt
+from visual_rag_tpu_torch.ops.kernels.maxsim_sweep import (
+    rerank_candidates_sweep,
+    rerank_candidates_sweep_ref,
+)
 from visual_rag_tpu_torch.retrieval import plans, wire
 from visual_rag_tpu_torch.retrieval.engine import SEARCH_MODES, STAGE1_MODES
 from visual_rag_tpu_torch.retrieval.filters import build_filter
@@ -349,3 +362,91 @@ def test_engine_int8_on_card_matches_cpu(dev, storage_dtype, query_wire):
         for a, c in zip(card.search_embedded_batch(qs, **kw, **cuts),
                         cpu.search_embedded_batch(qs, **kw, **cuts)):
             assert strict_rank_equal([dict(h, score=h[key]) for h in c], a, score_tol=1e-3), kw
+
+
+# -- K3 (dedup) and K4 (sweep) -------------------------------------------------------
+
+
+def _pair_candidates(rng, case, b, k, n_docs):
+    if case == "heavy_sharing":  # 6 docs for every query: runs of 16, full ranges
+        cand = rng.integers(0, 6, (b, k))
+    else:
+        cand = rng.integers(-1, n_docs, (b, k))
+    cand[:, 0] = 3  # a 0-token doc in every row
+    cand[0, 1:3] = [-1, n_docs - 1]  # padding; the last doc, also empty
+    return torch.from_numpy(cand.astype(np.int32))
+
+
+@pytest.mark.parametrize("dtype", DTYPES + (torch.int8,))
+@pytest.mark.parametrize("case", ["heavy_sharing", "uniform"])
+@pytest.mark.parametrize("r_step", [64, 4096])  # many ranges; one range (the store is small)
+def test_dedup_and_sweep_match_plain_and_k2(dev, dtype, case, r_step):
+    if dtype == torch.int8:
+        flat, offs, lens, max_len, scales = _int8_store(dev, seed=4)
+    else:
+        flat, offs, lens, max_len = _store(dtype, dev, seed=4)
+        scales = None
+    rng = np.random.default_rng(5)
+    for nq_range in ((3, 6), (8, 24), (100, 130)):
+        raw, qmask = wire.to_device(wire.pad_queries_raw(_queries(rng, 20, *nq_range), DIM), dev)
+        tokens, _ = plans._prep_queries(raw, qmask)
+        cand = _pair_candidates(rng, case, 20, 23, 37).to(dev)
+        args = (flat, offs, lens, tokens, qmask, cand, max_len, scales)
+        k2 = rerank_candidates(*args)
+        before = (rerank_candidates_dedup.launches, rerank_candidates_sweep.launches)
+        k3, k3_again = rerank_candidates_dedup(*args), rerank_candidates_dedup(*args)
+        k4 = rerank_candidates_sweep(*args, r_step=r_step)
+        k4_again = rerank_candidates_sweep(*args, r_step=r_step)
+        want3 = rerank_candidates_dedup_ref(*args)
+        want4 = rerank_candidates_sweep_ref(*args, r_step=r_step)
+        torch.cuda.synchronize()
+        atol = INT8_ATOL if dtype == torch.int8 else ATOL[dtype]
+        torch.testing.assert_close(k3, want3, rtol=0, atol=atol)
+        torch.testing.assert_close(k4, want4, rtol=0, atol=atol)
+        assert torch.equal(k3, k3_again) and torch.equal(k4, k4_again)
+        # the same row dots, maxima and fold as K2: the same bits
+        assert torch.equal(k3, k2), float((k3 - k2).abs().max())
+        assert torch.equal(k4, k2), float((k4 - k2).abs().max())
+        assert (k3[cand < 0] == -1e30).all() and (k3[:, 0] == -1e30).all()
+        assert (rerank_candidates_dedup.launches, rerank_candidates_sweep.launches) == (
+            before[0] + 2, before[1] + 2)
+
+
+def test_pair_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    flat, offs, lens, max_len = _store(torch.float32, dev)
+    tokens = torch.zeros((2, 8, DIM), device=dev)
+    qmask = torch.ones((2, 8), device=dev)
+    cand = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    long_q = torch.zeros((2, 1000, DIM), device=dev)
+    for fn in (rerank_candidates_dedup, rerank_candidates_sweep):
+        with pytest.raises(ValueError, match="int32"):
+            fn(flat, offs.long(), lens, tokens, qmask, cand, max_len)
+        with pytest.raises(ValueError, match="store dtype"):
+            fn(flat.double(), offs, lens, tokens, qmask, cand, max_len)
+        with pytest.raises(ValueError, match="qmask"):
+            fn(flat, offs, lens, tokens, qmask[:, :4], cand, max_len)
+        with pytest.raises(ValueError, match="does not"):
+            fn(flat, offs, lens, long_q, torch.ones((2, 1000), device=dev), cand, max_len)
+        with pytest.raises(ValueError, match="is on cpu"):
+            fn(flat, offs, lens, tokens, qmask, cand.cpu(), max_len)
+
+
+@pytest.mark.parametrize("impl", ["dedup", "sweep"])
+@pytest.mark.parametrize("query_wire", ["padded", "packed"])
+def test_engine_dedup_and_sweep_on_card_match_cpu(dev, impl, query_wire):
+    idx = synthetic_index(150, min_tokens=20, max_tokens=300, pooled_rows=6,
+                          storage_dtype="float32", seed=5, device="cpu")
+    qs = _queries(np.random.default_rng(6), 70, 8, 24)
+    card, cpu = (RetrievalEngine(i, query_wire=query_wire, rerank_impl=impl)
+                 for i in (idx.to(dev), idx))
+    before = getattr({"dedup": rerank_candidates_dedup,
+                      "sweep": rerank_candidates_sweep}[impl], "launches")
+    for mode in ("two_stage", "three_stage"):
+        kw = dict(mode=mode, top_k=10, prefetch_k=60, stage1_k=80, stage2_k=40,
+                  with_payload=False)
+        for a, c in zip(card.search_embedded_batch(qs, **kw),
+                        cpu.search_embedded_batch(qs, **kw)):
+            assert strict_rank_equal([dict(h, score=h["score_final"]) for h in c], a,
+                                     score_tol=1e-4)
+    assert getattr({"dedup": rerank_candidates_dedup,
+                    "sweep": rerank_candidates_sweep}[impl], "launches") == before + 2

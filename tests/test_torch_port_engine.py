@@ -179,9 +179,10 @@ def test_empty_index_and_empty_batch(indexes, queries):
 
 
 def test_refusals(indexes, queries):
-    """What the port still refuses: unknown modes, explicit dedup/sweep
-    reranks, scan on the padded wire, int8 codes without their scales, an
-    unknown storage dtype. Each raises."""
+    """What the port still refuses: unknown modes and reranks, scan on the
+    padded wire, int8 codes without their scales, an unknown storage dtype.
+    Each raises. (Explicit dedup/sweep reranks are served: on the CPU
+    through their plain versions.)"""
     _, p = indexes
     pe = RetrievalEngine(p)
     with pytest.raises(ValueError, match="Unknown mode"):
@@ -192,9 +193,15 @@ def test_refusals(indexes, queries):
         pe.search_embedded_batch(queries[:2], stage1_mode="nope")
     with pytest.raises(ValueError, match="with_payload"):
         pe.search_embedded_batch(queries[:2], return_arrays=True)
+    kw = dict(top_k=5, prefetch_k=40, with_payload=False)
+    plain = RetrievalEngine(p, rerank_impl="plain").search_embedded_batch(queries[:2], **kw)
     for impl in ("dedup", "sweep"):
-        with pytest.raises(NotImplementedError, match=impl):
-            RetrievalEngine(p, rerank_impl=impl)
+        got = RetrievalEngine(p, rerank_impl=impl).search_embedded_batch(queries[:2], **kw)
+        for g, w in zip(got, plain):
+            assert strict_rank_equal([dict(h, score=h["score_final"]) for h in w], g,
+                                     score_tol=TOL)
+    with pytest.raises(ValueError, match="rerank_impl"):
+        RetrievalEngine(p, rerank_impl="nope")
     # an explicit scan on the padded wire raises (no silent fallback)
     with pytest.raises(ValueError, match="packed query wire"):
         RetrievalEngine(p, rerank_impl="scan").search_embedded_batch(queries[:2])
@@ -329,7 +336,7 @@ def test_policies(indexes):
     assert RetrievalEngine(p, query_wire="packed")._use_packed(1)
     assert pe._rerank_impl(64, 10, packed=True) == "scan"  # 640 >= 4 * 100
     assert pe._rerank_impl(32, 10, packed=True) == "plain"
-    assert pe._rerank_impl(256, 200, packed=False) == "plain"
+    assert pe._rerank_impl(256, 200, packed=False) == "sweep"  # coverage 256*200*96/6400
     qs, n_real, b = RetrievalEngine._bucket_batch(list(range(33)))
     assert (n_real, b, len(qs)) == (33, 64, 64)
     assert RetrievalEngine._bucket_batch(list(range(300)))[2] == 512

@@ -1,8 +1,10 @@
-// Shared device code of the MaxSim kernels (maxsim_rerank.cu, maxsim_scan.cu).
+// Shared device code of the MaxSim kernels (maxsim_rerank.cu, maxsim_scan.cu,
+// and through maxsim_pairs.cuh maxsim_dedup.cu and maxsim_sweep.cu).
 //
-// Both kernels reduce to one step: for a tile of TQ query rows held in
-// shared memory (f32) and ONE doc's token rows [0, len) in device memory,
-// compute rowmax[t] = max_r dot(q[t], doc[r]). tile_rowmax() does that step.
+// They reduce to one step: for a tile of TQ query rows held in shared
+// memory (f32) and ONE doc's token rows [0, len), compute rowmax[t] =
+// max_r dot(q[t], doc[r]). tile_rowmax() does that step over rows in device
+// memory; the pair kernels run row_dots() over rows staged in shared memory.
 //
 // Numerics: store values (f32, bf16, f16 or int8 codes) and queries (cast
 // by the wrapper to the store dtype, or to bf16 for int8 codes) are widened
@@ -88,9 +90,10 @@ __device__ __forceinline__ void load8(const int8_t* p, float v[8]) {
 }
 
 // Reduce each thread's running maxima m[t] over the block: rowmax_s[t] =
-// max over threads, for t < TQ. Every thread of the block must call this;
-// it ends with __syncthreads(), after which rowmax_s is valid.
-template <int TQ>
+// max over threads, for t < TQ (RUNNING: rowmax_s[t] = max(rowmax_s[t],
+// that), a running max across calls). Every thread of the block must call
+// this; it ends with __syncthreads(), after which rowmax_s is valid.
+template <int TQ, bool RUNNING = false>
 __device__ __forceinline__ void block_rowmax(const float (&m)[TQ], float* red_s,
                                              float* rowmax_s) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -106,9 +109,36 @@ __device__ __forceinline__ void block_rowmax(const float (&m)[TQ], float* red_s,
     float x = red_s[threadIdx.x];
 #pragma unroll
     for (int w = 1; w < NWARPS; ++w) x = fmaxf(x, red_s[w * TQ + threadIdx.x]);
-    rowmax_s[threadIdx.x] = x;
+    rowmax_s[threadIdx.x] = RUNNING ? fmaxf(rowmax_s[threadIdx.x], x) : x;
   }
   __syncthreads();
+}
+
+// acc[t] = dot(q_s[t, :], row[:]) for t < TQ: the store row (device or
+// shared memory, 16-byte aligned) read 8 elements at a time, the query
+// values from shared memory (f32), each dot one fmaf chain in dim order.
+// Every MaxSim kernel over float or bf16-query rows scores through this, so
+// two kernels that see the same row and query give the same bits.
+template <typename T, int TQ>
+__device__ __forceinline__ void row_dots(const float* __restrict__ q_s, int dim,
+                                         const T* __restrict__ row, float (&acc)[TQ]) {
+#pragma unroll
+  for (int t = 0; t < TQ; ++t) acc[t] = 0.f;
+  for (int c = 0; c < dim; c += 8) {
+    float v[8];
+    load8(row + c, v);
+#pragma unroll
+    for (int t = 0; t < TQ; ++t) {
+      const float4 qa = *reinterpret_cast<const float4*>(q_s + t * dim + c);
+      const float4 qb = *reinterpret_cast<const float4*>(q_s + t * dim + c + 4);
+      float a = acc[t];
+      a = fmaf(qa.x, v[0], a); a = fmaf(qa.y, v[1], a);
+      a = fmaf(qa.z, v[2], a); a = fmaf(qa.w, v[3], a);
+      a = fmaf(qb.x, v[4], a); a = fmaf(qb.y, v[5], a);
+      a = fmaf(qb.z, v[6], a); a = fmaf(qb.w, v[7], a);
+      acc[t] = a;
+    }
+  }
 }
 
 // rowmax_s[t] = max over r < len of dot(q_s[t, :], doc[r, :]) for t < TQ.
@@ -129,25 +159,8 @@ __device__ __forceinline__ void tile_rowmax(const float* __restrict__ q_s, int d
 #pragma unroll
   for (int t = 0; t < TQ; ++t) m[t] = -CUDART_INF_F;
   for (int r = threadIdx.x; r < len; r += THREADS) {
-    const T* row = doc + static_cast<size_t>(r) * dim;
     float acc[TQ];
-#pragma unroll
-    for (int t = 0; t < TQ; ++t) acc[t] = 0.f;
-    for (int c = 0; c < dim; c += 8) {
-      float v[8];
-      load8(row + c, v);
-#pragma unroll
-      for (int t = 0; t < TQ; ++t) {
-        const float4 qa = *reinterpret_cast<const float4*>(q_s + t * dim + c);
-        const float4 qb = *reinterpret_cast<const float4*>(q_s + t * dim + c + 4);
-        float a = acc[t];
-        a = fmaf(qa.x, v[0], a); a = fmaf(qa.y, v[1], a);
-        a = fmaf(qa.z, v[2], a); a = fmaf(qa.w, v[3], a);
-        a = fmaf(qb.x, v[4], a); a = fmaf(qb.y, v[5], a);
-        a = fmaf(qb.z, v[6], a); a = fmaf(qb.w, v[7], a);
-        acc[t] = a;
-      }
-    }
+    row_dots<T, TQ>(q_s, dim, doc + static_cast<size_t>(r) * dim, acc);
 #pragma unroll
     for (int t = 0; t < TQ; ++t) m[t] = fmaxf(m[t], acc[t]);
   }

@@ -56,8 +56,8 @@ rerank_kernel(const T* __restrict__ flat, const int* __restrict__ offsets,
   float score = 0.f;
   for (int t0 = 0; t0 < nq_pad; t0 += TQ) {
     tile_rowmax<T, TQ>(q_s + t0 * dim, dim, doc, len, red_s, rowmax_s);
-    if (threadIdx.x == 0)
-      for (int t = 0; t < TQ && t0 + t < nq; ++t) score += qm[t0 + t] * rowmax_s[t];
+    if (threadIdx.x == 0)  // the fold of maxsim_pairs.cuh, so K3/K4 give K2's bits
+      for (int t = 0; t < TQ && t0 + t < nq; ++t) score = fmaf(qm[t0 + t], rowmax_s[t], score);
   }
   if (threadIdx.x == 0) out[o] = score * (doc_scales ? doc_scales[c] : 1.f);
 }

@@ -61,6 +61,12 @@ def _declare(lib):
     lib.vrt_rerank_candidates.argtypes = [
         i32, vp, i32, vp, vp, vp, i32, i32, i32, vp, i32, vp, i32, i64, vp, vp, vp]
     lib.vrt_rerank_candidates.restype = i32
+    lib.vrt_rerank_candidates_dedup.argtypes = [
+        i32, vp, i32, vp, vp, vp, i64, vp, i32, vp, i32, i32, i32, i32, vp, vp, vp, i32, vp, vp]
+    lib.vrt_rerank_candidates_dedup.restype = i32
+    lib.vrt_rerank_candidates_sweep.argtypes = [
+        i32, vp, i32, vp, i32, vp, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp]
+    lib.vrt_rerank_candidates_sweep.restype = i32
     lib.vrt_exhaustive_scores_packed.argtypes = [
         i32, vp, i32, vp, vp, i32, vp, vp, i32, vp, i32, i32, i32, i32, vp, vp, vp]
     lib.vrt_exhaustive_scores_packed.restype = i32

@@ -5,20 +5,24 @@ five stage-1 modes and their deprecated aliases, and payload filters, over
 float, int8 and int8_refined stores, through ``search_embedded_batch[es]``,
 the per-query ``search_embedded`` (a batch of one through the same plans)
 and the ``_dispatch_batch`` / ``_finish_batch`` split that the serving layer
-uses (``serving/server.py:195-236`` of the JAX package). What stays refused
-raises: ``dedup`` and ``sweep`` reranks, naming the ROADMAP item that ports
-them, and ``scan`` on the padded wire.
+uses (``serving/server.py:195-236`` of the JAX package). ``scan`` on the
+padded wire raises.
 
 Policies, as the JAX engine's except where noted:
 
 - wire: ``query_wire="auto"`` is the packed wire at B >= 32 on CUDA and the
   padded wire on the CPU (``engine.py:637-639``). The wire is always f32;
   the JAX engine's automatic f16 wire is not inherited (ROADMAP C6).
-- rerank: ``scan`` when the wire is packed and B*K >= 4*D
-  (``engine.py:178``), else the ``plain`` rerank kernel, for ``two_stage``
-  on ``prefetch_k`` and for ``three_stage`` on ``stage2_k``
-  (``engine.py:700-706``). ``scan`` on the padded wire raises (the JAX
-  engine falls back there with a warning).
+- rerank (``EngineCommon._rerank_impl``, ``engine.py:149-193``): ``plain``
+  (K2) below a batch of ``DEDUP_MIN_BATCH``; else ``scan`` (K1) when the
+  wire is packed and B*K >= 4*D; else ``sweep`` (K4) when the candidates'
+  coverage B*K*ceil32(max_len)/rows reaches ``SWEEP_MIN_COV`` and the
+  sweep kernel takes the shape; else ``dedup`` (K3). K = ``prefetch_k``
+  for ``two_stage`` and ``stage2_k`` for ``three_stage`` (``engine.py:685,
+  705``). Where JAX asks its TPU kernels' VMEM and SMEM budgets
+  (``sweep_supported``, ``scan_kernel_fits``), the port asks its CUDA
+  kernels' envelope (ROADMAP, declared differences). ``scan`` on the padded
+  wire raises (the JAX engine falls back there with a warning).
 - stage-1 cut: always exact (the JAX engine's ``approx_max_k`` at >= 65536
   docs is a declared difference, ROADMAP).
 - filters: one device mask per (filter signature, manifest version),
@@ -39,6 +43,7 @@ from visual_rag_tpu_torch.index.store import (
     SealedIndex,
     SingleVectors,
 )
+from visual_rag_tpu_torch.ops.kernels.maxsim_sweep import _ceil32, sweep_supported
 from visual_rag_tpu_torch.retrieval import plans, wire
 from visual_rag_tpu_torch.retrieval.local import NEG_INF
 
@@ -99,6 +104,8 @@ class BatchResultArrays:
 class RetrievalEngine:
     """Batched query planner over one sealed collection, on its device."""
 
+    DEDUP_MIN_BATCH = 64  # the JAX engine's thresholds (engine.py:126-132)
+    SWEEP_MIN_COV = 6.0
     SCAN_MIN_CAND_RATIO = 4.0  # scan when B*K >= this * D
     PACKED_MIN_BATCH = 32  # auto wire: packed from this batch bucket (CUDA)
     BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
@@ -113,12 +120,9 @@ class RetrievalEngine:
         rerank_impl: str = "auto",
         query_wire: str = "auto",
     ):
-        if rerank_impl in ("dedup", "sweep"):
-            raise NotImplementedError(
-                f"rerank_impl={rerank_impl!r} is not ported yet (ROADMAP B: K3 "
-                "dedup and K4 sweep); use 'auto', 'plain' or 'scan'")
-        if rerank_impl not in ("auto", "plain", "scan"):
-            raise ValueError(f"rerank_impl must be auto|plain|scan, got {rerank_impl!r}")
+        if rerank_impl not in ("auto", "plain", "dedup", "sweep", "scan"):
+            raise ValueError(
+                f"rerank_impl must be auto|plain|dedup|sweep|scan, got {rerank_impl!r}")
         if query_wire not in ("auto", "padded", "packed"):
             raise ValueError(f"query_wire must be auto|padded|packed, got {query_wire!r}")
         self.index = index
@@ -161,9 +165,23 @@ class RetrievalEngine:
                 "goes on the padded wire")
         if self.rerank_impl != "auto":
             return self.rerank_impl
+        if b < self.DEDUP_MIN_BATCH:
+            return "plain"
+        rows, max_len, nq, dim, itemsize = self._ragged_geom()
         if packed and b * k >= self.SCAN_MIN_CAND_RATIO * self.index.num_docs:
             return "scan"
-        return "plain"
+        cov = b * k * _ceil32(max_len) / max(1, rows)
+        if cov >= self.SWEEP_MIN_COV and sweep_supported(rows, max_len, b, k, nq, dim,
+                                                         itemsize):
+            return "sweep"
+        return "dedup"
+
+    def _ragged_geom(self):
+        """(rows, max_len, nq_hint, dim, itemsize) of the full token store
+        (JAX ``engine.py:446-450``; 32 query tokens as its hint)."""
+        st = self.index.store(self.full_vector_name)
+        return (int(st.flat.shape[0]), int(st.max_len), 32, int(st.dim),
+                st.flat.element_size())
 
     def _fused_stage1(self, stage1_mode: str):
         m = _STAGE1_ALIASES.get(stage1_mode, stage1_mode)

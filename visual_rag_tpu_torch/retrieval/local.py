@@ -7,10 +7,11 @@ Port of the shard-local bodies in ``visual_rag_tpu/parallel/sharded.py``
   plain product over the P-leading pooled store. XLA computed it outside
   any kernel, so here it is a ``torch.matmul``, one per pooled row with a
   running max, which bounds the transient to one [B, D] tile.
-- :func:`local_rerank` <- ``_local_rerank`` (``:425-530``), branches
-  ``plain`` and ``scan``. The ``lax.map`` chunking at B*K > 64k
-  (``:508-524``) worked around the TPU's scalar memory; one CUDA launch
-  takes any B*K, so it is gone.
+- :func:`local_rerank` <- ``_local_rerank`` (``:425-530``), every branch:
+  ``plain`` (K2), ``dedup`` (K3), ``sweep`` (K4) and ``scan`` (K1). The
+  ``lax.map`` query chunking of all three reranks and the 56k-entry and
+  4 MB guards of ``dedup`` (``:458-524``) worked around the TPU's scalar
+  and vector memories; one CUDA launch takes any B*K, so they are gone.
 - :func:`local_tokens_padded` <- ``_local_tokens_padded`` (``:308-338``) and
   :func:`local_tokens_padded_packed` <- ``_local_tokens_padded_packed``
   (``:533-573``): the tokens-vs-pooled stage-1 through the K5/K6/K7 kernel
@@ -47,8 +48,17 @@ from typing import Dict, Optional
 import torch
 
 from visual_rag_tpu_torch.ops.kernels._checks import compute_dtype
-from visual_rag_tpu_torch.ops.kernels.maxsim_rerank import rerank_candidates
+from visual_rag_tpu_torch.ops.kernels.maxsim_rerank import (
+    pair_kernels_fit,
+    rerank_candidates,
+    rerank_candidates_dedup,
+)
 from visual_rag_tpu_torch.ops.kernels.maxsim_scan import exhaustive_scores_packed
+from visual_rag_tpu_torch.ops.kernels.maxsim_sweep import (
+    SWEEP_R_STEP,
+    rerank_candidates_sweep,
+    sweep_supported,
+)
 from visual_rag_tpu_torch.ops.kernels.prefetch_topk import (
     pooled_maxsim_scores,
     pooled_maxsim_scores_packed,
@@ -165,21 +175,32 @@ def local_tokens_ragged(ragged: Dict, tokens: torch.Tensor, qmask: torch.Tensor,
 
 def local_rerank(ragged: Dict, tokens: torch.Tensor, qmask: torch.Tensor,
                  cand: torch.Tensor, impl: str, packed: Optional[Dict], b: int):
-    """[B, K] exact MaxSim of each query's candidates.
+    """[B, K] exact MaxSim of each query's candidates; every impl gives K2's
+    scores (``sharded.py:425-530``).
 
-    ``plain``: the rerank kernel reads each candidate's rows. ``scan``: one
-    exhaustive pass over the whole store, then a gather at the candidates;
-    it needs the packed wire (the engine's policy picks it when B*K
-    candidate windows outnumber the docs severalfold).
+    ``plain``: K2 reads each candidate's rows. ``dedup``: K3, pairs sorted
+    by doc, each doc read once a run; a batch of one goes to K2 (``:477``).
+    ``sweep``: K4, pairs sorted by row range; outside its envelope it runs
+    ``dedup`` (``:476``). ``scan``: one exhaustive pass over the whole
+    store, then a gather at the candidates; it needs the packed wire.
     """
     if impl == "scan":
         scores = local_tokens_ragged(ragged, tokens, qmask, packed, b)
         out = scores.gather(1, cand.clamp(min=0).long())
         return torch.where(cand >= 0, out, NEG_INF)
-    if impl != "plain":
+    if impl not in ("plain", "dedup", "sweep"):
         raise ValueError(f"unknown rerank impl {impl!r}")
-    return rerank_candidates(ragged["flat"], ragged["offsets"], ragged["lengths"],
-                             tokens, qmask, cand, ragged["max_len"], ragged.get("scales"))
+    flat = ragged["flat"]
+    args = (flat, ragged["offsets"], ragged["lengths"], tokens, qmask, cand,
+            ragged["max_len"], ragged.get("scales"))
+    (nb, k), (nq, dim), itemsize = cand.shape, tokens.shape[1:], flat.element_size()
+    if impl == "sweep":
+        if sweep_supported(flat.shape[0], ragged["max_len"], nb, k, nq, dim, itemsize):
+            return rerank_candidates_sweep(*args, r_step=SWEEP_R_STEP)
+        impl = "dedup"  # outside the sweep kernel's envelope
+    if impl == "dedup" and nb > 1 and pair_kernels_fit(itemsize, dim, nq):
+        return rerank_candidates_dedup(*args)
+    return rerank_candidates(*args)
 
 
 def local_stage1(kind: str, s1: Dict, ragged: Dict, tokens, qmask, pooled,
