@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's query path once on one GPU and check it.
+"""Drive the PyTorch/CUDA port's query and embedding paths once on one GPU.
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
 
@@ -67,7 +67,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    the strict oracle on the padded 3k engine (64 queries, ``prefetch_k`` =
    corpus: K4 against ``single_full``'s K1), logged at tolerance 0 and
    required at 1e-4.
+11. The ColSmol-500M embedding path. First, not counted: K10 (flash
+   attention) against its plain version at the path's shapes -- vision, one
+   page of 17 tiles (T 17408, 12 heads, per-tile segments); page text, 4
+   pages of 13 tiles (T 896, 15 / 5 heads, causal, pads); 64 queries (T 30,
+   causal) -- in bf16 (atol 2e-2) and f32 (atol 1e-4), two calls bit-equal,
+   with the CUDA-event ms of K10, of the plain version and of SDPA with the
+   same boolean mask; and K10's time on a batch that pads a 5-tile page to
+   17 tiles. Then, counts at 0, the main path: full-width ColSmol-500M in
+   bf16 with random weights from seed 0 embeds 32 pages (8 each of 5, 9, 13
+   and 17 tiles, a batch per geometry) and 64 queries (pages/s, queries/s
+   after a warm batch; K10 launched layers x batches times), the pages go
+   through ``page_vectors`` and ``IndexBuilder.seal`` (bf16) into the
+   engine, which answers ``two_stage`` (prefetch_k 200, top_k 10) with the
+   embedded queries at bs 64 and 16 with both stage-1 modes, and the strict
+   oracle holds at tolerance 0; K2, the scan and a tokens stage-1 kernel
+   must each have launched. Then, not counted: the same weights with
+   ``use_flash=False`` (dense attention) on 2 pages and 16 queries, per-token
+   cosine >= 0.99; and the full-width model in f32 on the card and on the
+   CPU, 4 queries, atol 1e-3.
 
+Every kernel entry carries ``bound_ms`` (the larger of its bytes over 3.35
+TB/s and its operations over the peak rate of their type: 989 TFLOP/s bf16,
+67 TFLOP/s f32, 1979 TOP/s int8), ``bound_by``, and ``library_ms`` (SDPA for
+K10; null for the MaxSim kernels, which no single PyTorch call computes).
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary. Without a CUDA device the script raises at once.
 """
@@ -121,6 +144,58 @@ def cuda_ms(fn, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# the H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+
+
+def bound(nbytes: float, ops: float, peak: str):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the bytes over the memory rate and the operations over the peak rate
+    of their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[peak]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _nb(t) -> int:
+    return 0 if t is None else t.numel() * t.element_size()
+
+
+def maxsim_bound(kind: str, args, qdot: bool = False):
+    """``bound_ms`` and ``bound_by`` of a MaxSim kernel call on these
+    inputs (no single PyTorch call computes MaxSim, so ``library_ms`` is
+    null beside it): each input read
+    once (the rows of the docs the call scores, the queries, the masks and
+    candidates), each output written once; 2 * dim operations per (valid
+    query row, scored doc row) pair, at the bf16 rate (f32 for an f32
+    store, int8 for the qdot body)."""
+    if kind == "rerank":  # flat, offsets, lengths, tokens [B, NQ, dim], qmask, cand [B, K]
+        flat, offsets, lengths, tokens, qmask, cand = args[:6]
+        valid = cand >= 0
+        lens = lengths.long()[cand.long().clamp(min=0)] * valid
+        ops = 2 * flat.shape[1] * float(((qmask > 0).sum(1, keepdim=True) * lens).sum())
+        rows = int(lengths.long()[cand[valid].long().unique()].sum())
+        nbytes = (rows * flat.shape[1] * flat.element_size() + _nb(tokens) + _nb(qmask)
+                  + 2 * _nb(cand) + cand.numel() * 4)
+    elif kind == "scan":  # flat, offsets, lengths, q [M, dim], qid [M], max_len, B
+        flat, offsets, lengths, q, qid = args[:5]
+        rows = int(lengths.long().sum())
+        ops = 2 * flat.shape[1] * float((qid >= 0).sum()) * rows
+        nbytes = (rows * flat.shape[1] * flat.element_size() + _nb(q) + _nb(qid)
+                  + int(args[6]) * offsets.shape[0] * 4)
+    else:  # pooled: vals_t [P, D, dim], mask_t [P, D], then (q, qid) packed or (tokens, qmask)
+        vals, mask, q, qid = args[:4]
+        q_rows = float((qid >= 0).sum()) if kind == "pooled_packed" else float((qid > 0).sum())
+        n_q = int(args[4]) if kind == "pooled_packed" else q.shape[0]
+        ops = 2 * vals.shape[2] * q_rows * float(mask.sum())
+        nbytes = _nb(vals) + _nb(mask) + _nb(q) + _nb(qid) + n_q * vals.shape[1] * 4
+    import torch
+
+    peak = "int8" if qdot else ("f32" if args[0].dtype == torch.float32 else "bf16")
+    ms, by = bound(nbytes, ops, peak)
+    return {"bound_ms": ms, "bound_by": by}
 
 
 def check_results(res, bs: int, what: str):
@@ -226,7 +301,8 @@ def main() -> None:
     kernels.append({"name": "rerank_candidates", "route": "cuda",
                     "source": "visual_rag_tpu_torch/csrc/maxsim_rerank.cu",
                     "replaces": "visual_rag_tpu/ops/kernels/maxsim_rerank.py:163",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                    **maxsim_bound("rerank", rr_args)})
 
     (p, pos, qid), nq, _ = wire.pack_queries_grouped(queries(12, 64), 128)
     p, pos, qid = wire.to_device((p, pos, qid), dev)
@@ -247,7 +323,8 @@ def main() -> None:
     kernels.append({"name": "exhaustive_scores_packed", "route": "cuda",
                     "source": "visual_rag_tpu_torch/csrc/maxsim_scan.cu",
                     "replaces": "visual_rag_tpu/ops/kernels/maxsim_scan.py:240",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                    **maxsim_bound("scan", sc_args)})
 
     # K5, K6, K7: one kernel behind three entry points, on the 3k pooled store
     # (P = 10) and on a P = 76 store with mask holes and two docs with no row
@@ -292,7 +369,9 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda",
                         "source": "visual_rag_tpu_torch/csrc/pooled_maxsim.cu",
                         "replaces": f"visual_rag_tpu/ops/kernels/prefetch_topk.py:{line}",
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                        **maxsim_bound("pooled_packed" if line == 212 else "pooled_padded",
+                                       args)})
 
     # float32: queries normalised on the card and on the CPU differ in the last
     # f32 bit, which a cast to a 2-byte store dtype can turn into a whole ulp
@@ -408,7 +487,8 @@ def main() -> None:
     if not torch.allclose(got, want, rtol=0, atol=ATOL):
         raise AssertionError(f"pooled_maxsim_scores_packed disagrees at 100k: {err}")
     k5 = next(k for k in kernels if k["name"] == "pooled_maxsim_scores_packed")
-    k5.update(max_abs_err=max(k5["max_abs_err"], err), ms_100k=ms, plain_ms_100k=plain_ms)
+    k5.update(max_abs_err=max(k5["max_abs_err"], err), ms_100k=ms, plain_ms_100k=plain_ms,
+              bound_ms_100k=maxsim_bound("pooled_packed", args)["bound_ms"])
     del got, want
 
     entry_points = (rerank_candidates, exhaustive_scores_packed, pooled_maxsim_scores_packed,
@@ -469,6 +549,12 @@ def main() -> None:
 
     # -- 10. K3 and K4 -------------------------------------------------------------------
     kernels += pair_rerank_phase(dev, card, idx3k, qs, entry_points)
+    del eng3k, idx3k, ragged, pooled3k, v76, m76
+    torch.cuda.empty_cache()
+
+    # -- 11. the ColSmol-500M embedding path ------------------------------------------------
+    kernels.append(embedding_phase(dev, card, (rerank_candidates, rerank_candidates_dedup,
+                                               rerank_candidates_sweep), entry_points[1:]))
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "visual_rag_tpu"))
     if leaked:
         raise AssertionError(f"the JAX package or jax was imported: {leaked[:5]}")
@@ -544,7 +630,12 @@ def int8_phase(dev, card, idx3k, eng3k, qs, entry_points):
         if e is None:  # times at the first (main) shape
             ms = cuda_ms(lambda: fn(*args, **kw))
             plain_ms = cuda_ms(lambda: ref(*args, **kw), iters=3)
-            entries[key] = e = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            kind = {"rerank_candidates": "rerank", "exhaustive_scores_packed": "scan",
+                    "pooled_maxsim_scores_packed": "pooled_packed"}.get(key.split("[")[0],
+                                                                        "pooled_padded")
+            entries[key] = e = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                "library_ms": None,
+                                **maxsim_bound(kind, args, kw.get("qdot_int8", False))}
             log(f"{key} [{shape}]: max_abs_err {err:.3g} kernel {ms:.4f} ms "
                 f"plain {plain_ms:.4f} ms{' (per-row qdot maxima bit-equal)' if exact_rows else ''}")
         else:
@@ -699,7 +790,8 @@ def int8_phase(dev, card, idx3k, eng3k, qs, entry_points):
                         *args, qdot_int8=qdot), iters=1)
                     ent = entries[f"pooled_maxsim_scores_packed[{body}]"]
                     ent.update(max_abs_err=max(ent["max_abs_err"], err), ms_100k=ms,
-                               plain_ms_100k=plain_ms)
+                               plain_ms_100k=plain_ms, bound_ms_100k=maxsim_bound(
+                                   "pooled_packed", args, qdot)["bound_ms"])
                     log(f"pooled_maxsim_scores_packed[{body}] [1024 packed queries "
                         f"({pk['q'].shape[0]} rows) x 100000 docs, P 12]: max_abs_err {err:.3g} "
                         f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
@@ -811,7 +903,8 @@ def pair_rerank_phase(dev, card, idx3k, qs, entry_points):
             s["max_abs_err"] = max(s["max_abs_err"], err)
             s["max_abs_diff_k2"] = max(s["max_abs_diff_k2"], diff)
             s["shapes"][shape] = {"ms": times[name], "plain_ms": plain_ms, "k2_ms": times["K2"],
-                                  "max_abs_err": err, "max_abs_diff_k2": diff}
+                                  "max_abs_err": err, "max_abs_diff_k2": diff,
+                                  **maxsim_bound("rerank", args)}
             notes.append(f"{name} max_abs_err {err:.3g}, "
                          + ("bit-equal to K2" if diff == 0 else f"max |K2 diff| {diff:.3g}"))
             del want, got, again
@@ -893,9 +986,302 @@ def pair_rerank_phase(dev, card, idx3k, qs, entry_points):
         out.append(dict(name=fn_name, route="cuda", source=f"visual_rag_tpu_torch/csrc/{cu}",
                         replaces=f"visual_rag_tpu/ops/kernels/{tpu}", launches=counts[name],
                         max_abs_err=s["max_abs_err"], ms=at["ms"], plain_ms=at["plain_ms"],
+                        library_ms=None, bound_ms=at["bound_ms"], bound_by=at["bound_by"],
                         k2_ms=at["k2_ms"], max_abs_diff_k2=s["max_abs_diff_k2"],
                         shapes=s["shapes"]))
     return out
+
+
+def allowed_pair_count(seg, causal: bool) -> int:
+    """Pairs (query i, key j) K10 computes on these segment ids: j in i's
+    segment, and j <= i under causal (n(n + 1) / 2 for a segment of n)."""
+    import torch
+
+    total = 0
+    for row in seg:
+        n = torch.unique(row, return_counts=True)[1].long()
+        total += int((n * (n + 1) // 2).sum() if causal else (n * n).sum())
+    return total
+
+
+def k10_shape(dev, card, name, dtype, b, t, hq, hkv, seg, causal, iters):
+    """K10 against its plain version at one shape (module docstring, 11a):
+    max_abs_err, two calls bit-equal, and the CUDA-event ms of K10, of the
+    plain version and of SDPA with the same boolean mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from visual_rag_tpu_torch.ops.kernels.flash_attention import (
+        allowed_pairs,
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(t + hq)
+    q, k, v = (torch.randn((b, t, h, 64), generator=gen, device=dev).to(dtype)
+               for h in (hq, hkv, hkv))
+    got, again = (flash_attention(q, k, v, seg, causal=causal) for _ in range(2))
+    want = flash_attention_plain(q, k, v, seg, causal=causal)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    atol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    if not err <= atol:
+        raise AssertionError(f"K10 {name} {dtype}: max_abs_err {err} > {atol}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"K10 {name} {dtype} is not deterministic")
+    del want, again
+    ms = cuda_ms(lambda: flash_attention(q, k, v, seg, causal=causal), iters)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, seg, causal=causal), 1)
+    rep = hq // hkv  # SDPA reads repeated kv heads and a [B, 1, T, T] mask, built untimed
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k.repeat_interleave(rep, 2),
+                                              v.repeat_interleave(rep, 2)))
+    mask = torch.stack([allowed_pairs(s, causal) for s in seg])[:, None]
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+                         iters)
+    del qt, kt, vt, mask
+    pairs = allowed_pair_count(seg, causal)
+    nbytes = sum(_nb(x) for x in (q, k, v, got, seg))
+    bound_ms, bound_by = bound(nbytes, 4 * 64 * pairs * hq,
+                               "bf16" if dtype == torch.bfloat16 else "f32")
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    log(f"K10 {name} {dt} [B {b}, T {t}, heads {hq}/{hkv}, {'causal' if causal else 'segments'}, "
+        f"{pairs} allowed pairs a head]: max_abs_err {err:.3g} (atol {atol}), bit-equal twice; "
+        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms SDPA {library_ms:.4f} ms "
+        f"bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "pairs_per_head": pairs,
+            "shape": [b, t, hq, hkv, 64], "causal": causal}
+
+
+def synthetic_pages(n_pages: int, tiles: int, seed: int):
+    """n_pages random RGB pages (f32 in [0, 1]) 2048 px wide whose ColSmol
+    tile grid gives ``tiles`` tiles: 4 columns of 512 px, (tiles - 1) / 4
+    rows, plus the global tile."""
+    rng = np.random.default_rng(seed)
+    height = (tiles - 1) // 4 * 512
+    return [rng.random((height, 2048, 3), dtype=np.float32) for _ in range(n_pages)]
+
+
+def synthetic_queries(n: int, seed: int):
+    words = ("revenue chart table figure page report annual growth market share cost "
+             "region sales total quarter profit summary").split()
+    rng = np.random.default_rng(seed)
+    return [" ".join(rng.choice(words, int(rng.integers(4, 26)))) for _ in range(n)]
+
+
+def embedding_phase(dev, card, rerank_fns, search_fns):
+    """Phase 11: the ColSmol-500M embedding path (module docstring).
+    ``rerank_fns`` are K2, K3 and K4, ``search_fns`` the scan and the
+    tokens stage-1 entry points. Returns K10's kernel summary entry."""
+    import torch
+
+    from visual_rag_tpu_torch import CollectionSchema, IndexBuilder, RetrievalEngine
+    from visual_rag_tpu_torch.models.convert import build_model
+    from visual_rag_tpu_torch.models.embedder import VisualEmbedder
+    from visual_rag_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from visual_rag_tpu_torch.pipeline.vectors import page_vectors
+    from visual_rag_tpu_torch.retrieval.oracle import run_strict_oracle
+
+    t_phase = time.perf_counter()
+    log("bf16 GEMMs: torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = "
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}; allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+
+    # 11a. K10 against its plain version at the path's three shapes (not counted)
+    def tile_seg(b, n_tiles, t):
+        seg = torch.zeros((b, t), dtype=torch.int32, device=dev)
+        seg[:, :n_tiles * 1024] = torch.arange(n_tiles * 1024, device=dev) // 1024 + 1
+        return seg
+
+    def prefix_seg(lengths, t):
+        return (torch.arange(t, device=dev)[None] < torch.tensor(lengths, device=dev)[:, None]
+                ).to(torch.int32)
+
+    rng = np.random.default_rng(11)
+    q_lens = [int(x) for x in rng.integers(5, 31, 64)]
+    shapes = {"vision 17 tiles": (1, 17408, 12, 12, tile_seg(1, 17, 17408), False, 5),
+              "page text 13 tiles": (4, 896, 15, 5, prefix_seg([836] * 4, 896), True, 10),
+              "queries": (64, 30, 15, 5, prefix_seg(q_lens, 30), True, 10)}
+    k10 = {}
+    for name, (b, t, hq, hkv, seg, causal, iters) in shapes.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            k10[f"{name} {'bf16' if dtype == torch.bfloat16 else 'f32'}"] = k10_shape(
+                dev, card, name, dtype, b, t, hq, hkv, seg, causal, iters)
+            torch.cuda.empty_cache()
+    # the pad cost of mixing page sizes in one batch (not counted)
+    mixed = tile_seg(2, 17, 17408)
+    mixed[1, 5 * 1024:] = 0  # a 5-tile page padded to 17 tiles: one pad segment
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    q = torch.randn((2, 17408, 12, 64), generator=gen, device=dev).to(torch.bfloat16)
+    mixed_ms = cuda_ms(lambda: flash_attention(q, q, q, mixed, causal=False), 5)
+    alone_ms = cuda_ms(lambda: flash_attention(q[1:, :5120], q[1:, :5120], q[1:, :5120],
+                                               mixed[1:, :5120], causal=False), 5)
+    log(f"K10 pad cost: a 17-tile page and a 5-tile page padded to 17 tiles in one batch "
+        f"{mixed_ms:.4f} ms ({allowed_pair_count(mixed, False)} pairs a head), the 5-tile "
+        f"page alone {alone_ms:.4f} ms ({allowed_pair_count(mixed[1:, :5120], False)} pairs a "
+        f"head) [{card}]")
+    del q, mixed
+    flash_attention.launches = 0
+
+    # 11b. full-width ColSmol-500M in bf16, random weights from seed 0
+    t0 = time.perf_counter()
+    emb = VisualEmbedder("vidore/colSmol-500M", batch_size=8, seed=0, device=dev)
+    cfg = emb.cfg
+    n_params = sum(p.numel() for p in emb.model.parameters())
+    torch.cuda.synchronize()
+    log(f"ColSmol-500M (vision {cfg.vision.layers} x {cfg.vision.hidden}, text "
+        f"{cfg.text.layers} x {cfg.text.hidden}, {n_params} parameters, {cfg.dtype}) on the "
+        f"card in {time.perf_counter() - t0:.2f} s")
+    groups = {tiles: synthetic_pages(8, tiles, seed=100 + tiles) for tiles in (5, 9, 13, 17)}
+    texts = synthetic_queries(64, seed=12)
+    emb.embed_images(groups[5][:2])  # warm batch, not counted
+    emb.embed_queries(texts[:4])
+    torch.cuda.synchronize()
+    counters = (flash_attention,) + tuple(rerank_fns) + tuple(search_fns)
+    for fn in counters:
+        fn.launches = 0
+
+    # -- the main path: embed pages and queries, pool, seal, search --
+    t0 = time.perf_counter()
+    pages, infos = [], []
+    for tiles, imgs in groups.items():
+        e, i = emb.embed_images(imgs, return_token_info=True)
+        pages += e
+        infos += i
+    torch.cuda.synchronize()
+    t_pages = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    emb.processor.process_images(groups[17])
+    t_host17 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qs = emb.embed_queries(texts, batch_size=64)
+    torch.cuda.synchronize()
+    t_queries = time.perf_counter() - t0
+    k10_launches = flash_attention.launches
+    want = 4 * (cfg.vision.layers + cfg.text.layers) + cfg.text.layers
+    log(f"embedded 32 pages (8 each of 5, 9, 13, 17 tiles; batches of one geometry) in "
+        f"{t_pages:.3f} s = {32 / t_pages:.2f} pages/s, 64 queries in one batch in "
+        f"{t_queries:.3f} s = {64 / t_queries:.1f} queries/s; K10 launched {k10_launches} "
+        f"times (4 page batches x {cfg.vision.layers + cfg.text.layers} + 1 query batch x "
+        f"{cfg.text.layers} = {want}); the host processor alone takes {t_host17:.3f} s for "
+        f"the batch of 8 17-tile pages [{card}]")
+    if k10_launches != want:
+        raise AssertionError(f"K10 launched {k10_launches} times on the main path, not {want}")
+    for e, info in zip(pages, infos):
+        if e.shape != (info["num_visual_tokens"] + 4, 128) or not np.isfinite(e).all():
+            raise AssertionError(f"a page embedding is {e.shape} or not finite")
+        norms = np.linalg.norm(e, axis=1)
+        if not np.allclose(norms, 1.0, atol=1e-3):
+            raise AssertionError("page token embeddings are not unit vectors")
+    if not all(np.isfinite(x).all() and x.shape[1] == 128 and x.shape[0] > 0 for x in qs):
+        raise AssertionError("a query embedding is not finite or has the wrong shape")
+
+    t0 = time.perf_counter()
+    builder = IndexBuilder(CollectionSchema.standard())
+    for i, (e, info) in enumerate(zip(pages, infos)):
+        vectors, payload = page_vectors(emb, e, info)
+        builder.add(f"page{i}", vectors, dict(payload, tiles=info["num_tiles"]))
+    index = builder.seal(device=dev)
+    engine = RetrievalEngine(index)
+    torch.cuda.synchronize()
+    t_seal = time.perf_counter() - t0
+    kw = dict(mode="two_stage", top_k=10, prefetch_k=200, with_payload=False)
+    t0 = time.perf_counter()
+    hits = engine.search_embedded_batch(qs, **kw)
+    torch.cuda.synchronize()
+    t_search = time.perf_counter() - t0
+    # bs 64 on 32 docs reranks by the scan (K1, the policy's pick when the
+    # candidates cover the corpus); bs 16 by K2; the tokens stage-1 by K5 / K6
+    hits += engine.search_embedded_batch(qs, **kw, stage1_mode=TOKENS)
+    for stage1 in ("pooled_query_vs_standard_pooling", TOKENS):
+        hits += engine.search_embedded_batch(qs[:16], **kw, stage1_mode=stage1)
+    if not all(len(h) == 10 and all(np.isfinite(x["score_final"]) for x in h) for h in hits):
+        raise AssertionError("a search over the embedded pages did not answer 10 hits")
+    oracle = run_strict_oracle(engine, qs, index.num_docs, score_tol=0.0)
+    counts = {fn.__name__: fn.launches for fn in counters}
+    log(f"ingest: 32 pages -> page_vectors -> IndexBuilder.seal (bf16, {index.nbytes()} bytes) "
+        f"in {t_seal:.3f} s; two_stage (prefetch_k 200, top_k 10) of the 64 embedded queries "
+        f"in {t_search:.4f} s; then with the tokens stage-1, and both at bs 16; strict oracle "
+        f"(prefetch_k = corpus vs single_full, tol 0): {oracle}; launches over the main path: "
+        f"{counts} [{card}]")
+    if not oracle:
+        raise AssertionError("strict oracle failed on the embedded corpus")
+    for what, fns in (("K2", rerank_fns[:1]), ("the scan", search_fns[:1]),
+                      ("a tokens stage-1 kernel", search_fns[1:])):
+        if sum(fn.launches for fn in fns) <= 0:
+            raise AssertionError(f"the search over the embedded pages never launched {what}")
+
+    # where a page batch's time goes: one profiled batch of 8 17-tile pages
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        emb.embed_images(groups[17])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_ms = {}  # device kernels and copies only: a CPU op's device time repeats its kernels'
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0) or getattr(ev, "self_cuda_time_total", 0)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            dev_ms[ev.key] = dev_ms.get(ev.key, 0.0) + us / 1e3
+    total = sum(dev_ms.values())
+    k10_dev = sum(v for k, v in dev_ms.items() if "flash_fwd" in k)
+    top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:6]
+    log(f"profile, one batch of 8 17-tile pages: wall {wall * 1e3:.1f} ms (profiled), device "
+        f"{total:.1f} ms (busy {total / (wall * 1e3):.2f}), K10 {k10_dev:.1f} ms; top device "
+        "items: " + "; ".join(f"{k[:60]} {v:.1f} ms" for k, v in top) + f" [{card}]")
+
+    # 11c. the whole-model yardstick: the same weights with the dense attention
+    dense = VisualEmbedder("vidore/colSmol-500M", batch_size=8, params=emb.params, device=dev)
+    dense.model.use_flash = False
+    for what, a, b in (("2 pages of 5 tiles", emb.embed_images(groups[5][:2]),
+                        dense.embed_images(groups[5][:2])),
+                       ("16 queries", emb.embed_queries(texts[:16], batch_size=16),
+                        dense.embed_queries(texts[:16], batch_size=16))):
+        cos = min(float((x * y).sum(axis=1).min()) for x, y in zip(a, b))
+        diff = max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+        log(f"yardstick ({what}): K10 path vs use_flash=False (dense), the same bf16 weights: "
+            f"min per-token cosine {cos:.6f}, max abs diff {diff:.3g}")
+        if cos < 0.99:
+            raise AssertionError(f"K10 path and dense attention disagree on {what}: {cos}")
+    del dense
+
+    # 11d. card against CPU: the full-width model in f32 on both devices
+    import dataclasses
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    sd32 = {k: v.float().cpu() for k, v in emb.params.items()}
+    short = texts[:4]
+    ids, mask = emb.processor.process_queries(short)
+    outs = {}
+    for where in ("card", "cpu"):
+        d = dev if where == "card" else torch.device("cpu")
+        model = build_model(cfg32, sd32, d)
+        with torch.inference_mode():
+            outs[where] = model.embed_queries(torch.from_numpy(ids).to(d),
+                                              torch.from_numpy(mask).to(d)).cpu()
+        del model
+    err32 = float((outs["card"] - outs["cpu"]).abs().max())
+    log(f"card vs CPU, full-width ColSmol-500M in f32, 4 queries: max abs diff {err32:.3g} "
+        f"(atol 1e-3)")
+    if err32 > 1e-3:
+        raise AssertionError(f"the f32 model on the card and on the CPU differ by {err32}")
+    del emb, sd32, outs
+    torch.cuda.empty_cache()
+    log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+
+    main = k10["vision 17 tiles bf16"]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "visual_rag_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
+            "launches": k10_launches,
+            "max_abs_err": max(v["max_abs_err"] for k, v in k10.items() if "bf16" in k),
+            "max_abs_err_f32": max(v["max_abs_err"] for k, v in k10.items() if "f32" in k),
+            **{key: main[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                          "bound_by")},
+            "shapes": k10}
 
 
 if __name__ == "__main__":

@@ -27,6 +27,14 @@ sharing (runs cut at 16 pairs of one doc, ranges of many pairs), -1 and
 0-token candidates, one range and many ranges, queries of 3 to 130 tokens;
 two calls bit-equal; launch counts; the inputs the wrappers refuse; the
 engine with each on the card against the CPU.
+
+K10 (flash attention): against its plain version in f32 and bf16, causal and
+not, per-tile segments with pads, grouped kv heads, T not a multiple of 64,
+strided q/k/v views, and rows whose only allowed key is themselves (output
+= v exactly); two calls bit-equal; launch counts; ``mha`` on CUDA tensors
+raises when the kernel refuses a shape instead of running the plain
+version; a small ColSmol-shaped model (head dim 64) on the card against the
+CPU, with one K10 launch per attention layer.
 """
 
 import numpy as np
@@ -46,6 +54,10 @@ from visual_rag_tpu_torch.ops.kernels.maxsim_scan import (
     exhaustive_scores_packed_ref,
 )
 from visual_rag_tpu_torch.ops.kernels import prefetch_topk as pt
+from visual_rag_tpu_torch.ops.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_plain,
+)
 from visual_rag_tpu_torch.ops.kernels.maxsim_sweep import (
     rerank_candidates_sweep,
     rerank_candidates_sweep_ref,
@@ -450,3 +462,99 @@ def test_engine_dedup_and_sweep_on_card_match_cpu(dev, impl, query_wire):
                                      score_tol=1e-4)
     assert getattr({"dedup": rerank_candidates_dedup,
                     "sweep": rerank_candidates_sweep}[impl], "launches") == before + 2
+
+
+# -- K10: flash attention ---------------------------------------------------------------
+
+FA_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # bf16: ~2 ulps at |o| ~ 2
+
+
+def _fa_inputs(dev, dtype, b, t, hq, hkv, seed, tile=None):
+    """q, k, v as strided views of one fused [B, T, Hq + 2 Hkv, 64] tensor,
+    and seg: per-tile segments (tile rows each) or two segments, then pads."""
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.standard_normal((b, t, hq + 2 * hkv, 64)).astype(np.float32))
+    qkv = qkv.to(dev, dtype)
+    q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
+    seg = np.zeros((b, t), np.int32)
+    for i in range(b):
+        n = t - int(rng.integers(0, t // 3))  # valid rows, then pads (segment 0)
+        seg[i, :n] = (np.arange(n) // tile + 1) if tile else 1 + (np.arange(n) >= n // 2)
+    return q, k, v, torch.from_numpy(seg).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t,hq,hkv,tile", [(256, 4, 4, 64), (200, 6, 2, None),
+                                           (1100, 3, 1, 96), (37, 2, 2, None)])
+def test_flash_attention_matches_plain(dev, dtype, causal, t, hq, hkv, tile):
+    q, k, v, seg = _fa_inputs(dev, dtype, 2, t, hq, hkv, seed=t + hq, tile=tile)
+    before = flash_attention.launches
+    got, again = (flash_attention(q, k, v, seg, causal=causal) for _ in range(2))
+    want = flash_attention_plain(q, k, v, seg, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (2, t, hq, 64)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=FA_ATOL[dtype])
+    assert torch.equal(got, again)
+    assert flash_attention.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_row_with_only_itself(dev, dtype, causal):
+    """Every row its own segment: softmax over one key, the output is v."""
+    q, k, v, _ = _fa_inputs(dev, dtype, 1, 130, 4, 2, seed=3)
+    seg = torch.arange(130, dtype=torch.int32, device=dev)[None]
+    got = flash_attention(q, k, v, seg, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(got, v.repeat_interleave(2, dim=2))
+
+
+def test_mha_on_cuda_raises_when_the_kernel_refuses(dev):
+    from visual_rag_tpu_torch.models.attention import mha
+
+    mask = torch.ones((1, 64), dtype=torch.bool, device=dev)
+    x32 = torch.zeros((1, 64, 2, 32), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        mha(x32, x32, x32, mask, causal=True, dtype=torch.float32)
+    x16 = torch.zeros((1, 64, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        mha(x16, x16, x16, mask, causal=False, dtype=torch.float16)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="one device"):
+        flash_attention(x16, x16, x16, mask.int().cpu(), causal=False)
+    assert flash_attention.launches == before
+
+
+def test_colsmol_shaped_model_on_card_matches_cpu(dev):
+    """Head dim 64 in both towers, so every attention runs K10 on the card."""
+    import dataclasses
+
+    from visual_rag_tpu_torch.models.colvlm import ColVLMConfig
+    from visual_rag_tpu_torch.models.convert import build_model, init_params
+
+    tiny = ColVLMConfig.tiny()
+    cfg = dataclasses.replace(
+        tiny, dtype="float32", proj_bias=True, connector_bias=False,
+        vision=dataclasses.replace(tiny.vision, hidden=128, heads=2, pixel_shuffle=2,
+                                   max_patches=2048, attn_bias=True),
+        text=dataclasses.replace(tiny.text, hidden=128, heads=2, kv_heads=1))
+    sd = init_params(cfg, seed=1, device="cpu")
+    card, cpu = build_model(cfg, sd, dev), build_model(cfg, sd, "cpu")
+    rng = np.random.default_rng(2)
+    n = 3 * 256
+    patches = torch.from_numpy(rng.random((2, n, 48), dtype=np.float32))
+    pmask = torch.ones((2, n), dtype=torch.bool)
+    pmask[1, 512:] = False  # the second page has two tiles, then pads
+    wids = torch.from_numpy(np.repeat(np.arange(3, dtype=np.int32), 256)[None].repeat(2, 0))
+    ids = torch.full((2, 200), 7, dtype=torch.int32)
+    ids[0, :192], ids[1, :128] = cfg.image_token_id, cfg.image_token_id
+    amask = torch.ones((2, 200), dtype=torch.bool)
+    amask[1, 140:] = False
+    before = flash_attention.launches
+    with torch.inference_mode():
+        got = card.embed_pages(*(x.to(dev) for x in (ids, amask, patches, pmask, wids)))
+        want = cpu.embed_pages(ids, amask, patches, pmask, wids)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.vision.layers + cfg.text.layers
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-3)

@@ -1,6 +1,7 @@
 """Port (visual_rag_tpu_torch) vs the JAX package: imports, query wire, stores.
 
-- Importing every port module loads no jax (checked in a fresh process).
+- Importing every port module (the embedding path's included) loads no jax
+  (checked in a fresh process).
 - The port's numpy query wire is byte-identical to retrieval/batch.py's.
 - ``sealed_from_numpy`` of a sealed JAX index holds the same bytes, in f32
   and bf16; the port's ``synthetic_index`` has the JAX one's layout.
@@ -54,7 +55,11 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(mods) >= 15
+    assert len(mods) >= 38
+    assert {"visual_rag_tpu_torch.models.embedder", "visual_rag_tpu_torch.models.colvlm",
+            "visual_rag_tpu_torch.ops.kernels.flash_attention", "visual_rag_tpu_torch.ops.pooling",
+            "visual_rag_tpu_torch.index.builder",
+            "visual_rag_tpu_torch.pipeline.vectors"} <= set(mods)
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -12,6 +12,14 @@ blocks start on 32-row boundaries, and ``flat`` ends with a tail pad of
 ``ceil32(max_len)`` rows. The port's kernels read only the rows ``< len`` of
 each doc, so they need neither; the layout is kept so that a store carried
 across from the JAX package (``index/convert.py``) is the same bytes.
+
+The ``build`` classmethods (``store.py:148-176, 249-297, 332-344``) seal
+float stores from host matrices: rows are cosine-normalized on the host in
+numpy as ``native.pack_aligned``'s numpy fallback and ``_normalize_rows`` do
+it (``max(norm, 1e-12)``), cast to the storage dtype (bf16 and f16 rounded
+to nearest even) and moved to the device. int8 stores are made from a float
+one by ``index/quantize.py::quantize_index``, as ``IndexBuilder.seal`` does.
+The streaming seal (``index/stream.py``) is not ported.
 """
 
 from __future__ import annotations
@@ -19,9 +27,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
+from visual_rag_tpu_torch.device import resolve_device
 from visual_rag_tpu_torch.index.manifest import Manifest
+
+DEFAULT_DIM = 128
+FLOAT_STORAGE = ("float32", "bfloat16", "float16")
 
 
 def _storage_name(t: torch.Tensor) -> str:
@@ -30,6 +43,44 @@ def _storage_name(t: torch.Tensor) -> str:
 
 def _nbytes(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.numel() * t.element_size()
+
+
+def _normalize_rows(x: np.ndarray, eps: float = 1e-12) -> np.ndarray:
+    norms = np.linalg.norm(x, axis=-1, keepdims=True)
+    return (x / np.maximum(norms, eps)).astype(np.float32)
+
+
+def _ceil32(n: int) -> int:
+    return (int(n) + 31) // 32 * 32
+
+
+def pack_aligned(src: np.ndarray, lengths: np.ndarray, tail_pad_rows: int):
+    """(flat [aligned_total + tail_pad_rows, dim] f32, offsets int64 [D]):
+    each doc's rows normalized and placed at a 32-row-aligned offset, zeros
+    elsewhere; the numpy fallback of ``visual_rag_tpu/native.py:114-162``."""
+    dim = src.shape[1]
+    aligned = (lengths.astype(np.int64) + 31) // 32 * 32
+    flat = np.zeros((max(int(aligned.sum()), 1) + tail_pad_rows, dim), dtype=np.float32)
+    offsets = np.zeros((len(lengths),), dtype=np.int64)
+    if len(lengths):
+        offsets[1:] = np.cumsum(aligned)[:-1]
+    pos = 0
+    for i, ln in enumerate(lengths.tolist()):
+        if ln:
+            block = src[pos : pos + ln]
+            norms = np.linalg.norm(block, axis=1, keepdims=True)
+            flat[offsets[i] : offsets[i] + ln] = block / np.maximum(norms, 1e-12)
+        pos += ln
+    return flat, offsets
+
+
+def _to_storage(x: np.ndarray, storage_dtype: str, device) -> torch.Tensor:
+    """Normalized f32 host rows -> a tensor of the storage dtype on ``device``."""
+    if storage_dtype not in FLOAT_STORAGE:
+        raise ValueError(f"build seals float stores {FLOAT_STORAGE}; make {storage_dtype!r} "
+                         "from one with index/quantize.py::quantize_index")
+    t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+    return t.to(getattr(torch, storage_dtype)).to(resolve_device(device))
 
 
 @dataclasses.dataclass
@@ -62,6 +113,26 @@ class PaddedMultiVectors:
         if self.scales is not None:
             return (self.values.float() * self.scales[..., None]).to(compute_dtype)
         return self.values.to(compute_dtype)
+
+    @classmethod
+    def build(cls, mats, storage_dtype: str = "bfloat16", max_rows: Optional[int] = None,
+              dim: Optional[int] = None, device="cuda") -> "PaddedMultiVectors":
+        """Stack host matrices [n_i, dim] into a padded store on ``device``,
+        rows past ``max_rows`` cut."""
+        mats = [np.asarray(m, dtype=np.float32) for m in mats]
+        dim = mats[0].shape[1] if mats else (dim or DEFAULT_DIM)
+        if max_rows is None:
+            max_rows = max((m.shape[0] for m in mats), default=1)
+        max_rows = max(1, int(max_rows))
+        out = np.zeros((len(mats), max_rows, dim), dtype=np.float32)
+        mask = np.zeros((len(mats), max_rows), dtype=bool)
+        for i, m in enumerate(mats):
+            t = min(m.shape[0], max_rows)
+            if t:
+                out[i, :t] = _normalize_rows(m[:t])
+                mask[i, :t] = True
+        return cls(values=_to_storage(out, storage_dtype, device),
+                   mask=torch.from_numpy(mask).to(resolve_device(device)))
 
 
 @dataclasses.dataclass
@@ -118,6 +189,23 @@ class RaggedMultiVectors:
             flat = flat + unpack_int4(self.res4).float() * self.res_scales.float()[:, None]
         return flat
 
+    @classmethod
+    def build(cls, mats, storage_dtype: str = "bfloat16", dim: Optional[int] = None,
+              device="cuda") -> "RaggedMultiVectors":
+        """Pack host matrices [n_i, dim] into a ragged store on ``device``:
+        32-row-aligned doc blocks and a tail pad of ``ceil32(max_len)``
+        rows, as the JAX seal lays them out (``store.py:264-276``)."""
+        mats = [np.asarray(m, dtype=np.float32) for m in mats]
+        dim = mats[0].shape[1] if mats else (dim or DEFAULT_DIM)
+        lengths = np.array([m.shape[0] for m in mats], dtype=np.int32)
+        max_len = int(lengths.max()) if len(mats) else 1
+        src = np.concatenate(mats, axis=0) if mats else np.zeros((0, dim), dtype=np.float32)
+        flat, offsets = pack_aligned(src, lengths, tail_pad_rows=_ceil32(max_len))
+        dev = resolve_device(device)
+        return cls(flat=_to_storage(flat, storage_dtype, dev),
+                   offsets=torch.from_numpy(offsets.astype(np.int32)).to(dev),
+                   lengths=torch.from_numpy(lengths).to(dev), max_len=max_len)
+
 
 def row_docs(offsets: torch.Tensor, lengths: torch.Tensor, n_rows: int) -> torch.Tensor:
     """int64 [n_rows]: the doc each row of a ragged store belongs to, -1 on
@@ -169,6 +257,18 @@ class SingleVectors:
         if self.scales is not None:
             return (self.values.float() * self.scales[:, None]).to(compute_dtype)
         return self.values.to(compute_dtype)
+
+    @classmethod
+    def build(cls, vecs, storage_dtype: str = "bfloat16", dim: Optional[int] = None,
+              device="cuda") -> "SingleVectors":
+        """[D, dim] single vectors from host vectors, normalized, on ``device``."""
+        if len(vecs) == 0:
+            arr = np.zeros((0, dim or DEFAULT_DIM), dtype=np.float32)
+        else:
+            arr = np.asarray(vecs, dtype=np.float32)
+        if arr.ndim != 2:
+            arr = arr.reshape(len(vecs), -1)
+        return cls(values=_to_storage(_normalize_rows(arr), storage_dtype, device))
 
 
 @dataclasses.dataclass
