@@ -86,11 +86,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``use_flash=False`` (dense attention) on 2 pages and 16 queries, per-token
    cosine >= 0.99; and the full-width model in f32 on the card and on the
    CPU, 4 queries, atol 1e-3.
+12. The ColPali-v1.3 embedding path (PaliGemma-3B: SigLIP-So400m, 27 x 1152
+   with 16 heads of 72; Gemma-2B, 18 x 2048 with 8 heads of 256 on one kv
+   head, bidirectional). First, not counted: K10 against its plain version
+   at the path's shapes -- vision, one page (T 1024, 16 heads of 72, no
+   pads); page text, 4 pages (T 1088 of which 1028 valid, 8 / 1 heads of
+   256); 64 queries of 6-30 tokens (T 32) -- in bf16 (atol 2e-2) and f32
+   (atol 1e-4), two calls bit-equal, with the CUDA-event ms of K10, the
+   plain version and SDPA. Then, counts at 0, the main path: full-width
+   ColPali-v1.3 in bf16, random weights from seed 0 drawn on the card, embeds
+   32 pages of four aspect ratios in batches of 8 and 64 queries (pages/s,
+   queries/s after a warm batch; K10 launched 4 x (27 + 18) + 18 times),
+   ``page_vectors`` -> ``IndexBuilder(CollectionSchema.standard(
+   experimental_names=plan["names"]))`` -> seal (bf16) ->
+   ``RetrievalEngine(index, stage1_cut="exact")``, ``two_stage``
+   (prefetch_k 200, top_k 10) with both stage-1 modes at bs 64 and 16, the
+   strict oracle at tolerance 0, rerank and stage-1 launches > 0; one
+   profiled batch of 8 pages. Then, not counted: the dense-attention
+   yardstick on 2 pages and 16 queries (cosine >= 0.99), and the card
+   against the CPU in f32 at full width, the depth cut to 2 vision and 2
+   text layers (a full f32 ColPali is 11.8 GB on each side), 4 queries and
+   1 page, atol 1e-3.
 
+The build's log gives each kernel's registers and spills (``-Xptxas=-v``).
 Every kernel entry carries ``bound_ms`` (the larger of its bytes over 3.35
 TB/s and its operations over the peak rate of their type: 989 TFLOP/s bf16,
 67 TFLOP/s f32, 1979 TOP/s int8), ``bound_by``, and ``library_ms`` (SDPA for
 K10; null for the MaxSim kernels, which no single PyTorch call computes).
+K10's one entry holds every shape of phases 11 and 12 under ``shapes``, the
+head dims it ran (64, 72, 256) and its launches on each path.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary. Without a CUDA device the script raises at once.
 """
@@ -265,10 +289,13 @@ def main() -> None:
     log(f"kernels: {_build.library_path().name} ready in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s)")
     build_log = _build.library_path().with_suffix(".log")
-    if build_log.exists():
+    if build_log.exists():  # registers and spills of each kernel, by its (mangled) name
+        entry = ""
         for line in build_log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log("  ptxas:", line.strip())
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {entry}: {line.split(':', 1)[-1].strip()}")
 
     # -- 2. kernels against their plain versions -----------------------------------
     t0 = time.perf_counter()
@@ -553,8 +580,19 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 11. the ColSmol-500M embedding path ------------------------------------------------
-    kernels.append(embedding_phase(dev, card, (rerank_candidates, rerank_candidates_dedup,
-                                               rerank_candidates_sweep), entry_points[1:]))
+    rerank_fns = (rerank_candidates, rerank_candidates_dedup, rerank_candidates_sweep)
+    k10 = embedding_phase(dev, card, rerank_fns, entry_points[1:])
+
+    # -- 12. the ColPali-v1.3 embedding path ------------------------------------------------
+    colpali = colpali_phase(dev, card, rerank_fns, entry_points[1:])
+    k10["launches_by_path"] = {"colsmol": k10["launches"], "colpali": colpali["launches"]}
+    k10["launches"] += colpali["launches"]
+    k10["shapes"].update(colpali["shapes"])
+    k10["head_dims"] = sorted({v["shape"][4] for v in k10["shapes"].values()})
+    k10["max_abs_err"] = max(v["max_abs_err"] for k, v in k10["shapes"].items() if "bf16" in k)
+    k10["max_abs_err_f32"] = max(v["max_abs_err"] for k, v in k10["shapes"].items()
+                                 if "f32" in k)
+    kernels.append(k10)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "visual_rag_tpu"))
     if leaked:
         raise AssertionError(f"the JAX package or jax was imported: {leaked[:5]}")
@@ -1004,8 +1042,8 @@ def allowed_pair_count(seg, causal: bool) -> int:
     return total
 
 
-def k10_shape(dev, card, name, dtype, b, t, hq, hkv, seg, causal, iters):
-    """K10 against its plain version at one shape (module docstring, 11a):
+def k10_shape(dev, card, name, dtype, b, t, hq, hkv, dh, seg, causal, iters):
+    """K10 against its plain version at one shape (module docstring, 11a, 12a):
     max_abs_err, two calls bit-equal, and the CUDA-event ms of K10, of the
     plain version and of SDPA with the same boolean mask."""
     import torch
@@ -1019,7 +1057,7 @@ def k10_shape(dev, card, name, dtype, b, t, hq, hkv, seg, causal, iters):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(t + hq)
-    q, k, v = (torch.randn((b, t, h, 64), generator=gen, device=dev).to(dtype)
+    q, k, v = (torch.randn((b, t, h, dh), generator=gen, device=dev).to(dtype)
                for h in (hq, hkv, hkv))
     got, again = (flash_attention(q, k, v, seg, causal=causal) for _ in range(2))
     want = flash_attention_plain(q, k, v, seg, causal=causal)
@@ -1042,16 +1080,65 @@ def k10_shape(dev, card, name, dtype, b, t, hq, hkv, seg, causal, iters):
     del qt, kt, vt, mask
     pairs = allowed_pair_count(seg, causal)
     nbytes = sum(_nb(x) for x in (q, k, v, got, seg))
-    bound_ms, bound_by = bound(nbytes, 4 * 64 * pairs * hq,
+    bound_ms, bound_by = bound(nbytes, 4 * dh * pairs * hq,
                                "bf16" if dtype == torch.bfloat16 else "f32")
     dt = "bf16" if dtype == torch.bfloat16 else "f32"
-    log(f"K10 {name} {dt} [B {b}, T {t}, heads {hq}/{hkv}, {'causal' if causal else 'segments'}, "
+    log(f"K10 {name} {dt} [B {b}, T {t}, heads {hq}/{hkv}, Dh {dh}, "
+        f"{'causal' if causal else 'segments'}, "
         f"{pairs} allowed pairs a head]: max_abs_err {err:.3g} (atol {atol}), bit-equal twice; "
         f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms SDPA {library_ms:.4f} ms "
         f"bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "pairs_per_head": pairs,
-            "shape": [b, t, hq, hkv, 64], "causal": causal}
+            "shape": [b, t, hq, hkv, dh], "causal": causal}
+
+
+def prefix_seg(dev, lengths, t):
+    """int32 [B, T] segment ids: 1 for the first lengths[b] rows, then pads (0)."""
+    import torch
+
+    return (torch.arange(t, device=dev)[None] < torch.tensor(lengths, device=dev)[:, None]
+            ).to(torch.int32)
+
+
+def k10_shapes(dev, card, shapes):
+    """K10 against its plain version at each (b, t, hq, hkv, dh, seg,
+    causal, iters) of ``shapes``, in bf16 and in f32."""
+    import torch
+
+    out = {}
+    for name, (b, t, hq, hkv, dh, seg, causal, iters) in shapes.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            out[f"{name} {'bf16' if dtype == torch.bfloat16 else 'f32'}"] = k10_shape(
+                dev, card, name, dtype, b, t, hq, hkv, dh, seg, causal, iters)
+            torch.cuda.empty_cache()
+    return out
+
+
+def profile_batch(fn, what: str, card: str) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` and log its wall time,
+    device time (device kernels and copies only: a CPU op's device time
+    repeats its kernels'), busy share, K10's device time and the top items."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_ms = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0) or getattr(ev, "self_cuda_time_total", 0)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            dev_ms[ev.key] = dev_ms.get(ev.key, 0.0) + us / 1e3
+    total = sum(dev_ms.values())
+    k10_dev = sum(v for k, v in dev_ms.items() if "flash_fwd" in k)
+    top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:6]
+    log(f"profile, {what}: wall {wall * 1e3:.1f} ms (profiled), device "
+        f"{total:.1f} ms (busy {total / (wall * 1e3):.2f}), K10 {k10_dev:.1f} ms; top device "
+        "items: " + "; ".join(f"{k[:60]} {v:.1f} ms" for k, v in top) + f" [{card}]")
+    return {"wall_ms": wall * 1e3, "device_ms": total, "k10_ms": k10_dev}
 
 
 def synthetic_pages(n_pages: int, tiles: int, seed: int):
@@ -1094,21 +1181,13 @@ def embedding_phase(dev, card, rerank_fns, search_fns):
         seg[:, :n_tiles * 1024] = torch.arange(n_tiles * 1024, device=dev) // 1024 + 1
         return seg
 
-    def prefix_seg(lengths, t):
-        return (torch.arange(t, device=dev)[None] < torch.tensor(lengths, device=dev)[:, None]
-                ).to(torch.int32)
-
     rng = np.random.default_rng(11)
     q_lens = [int(x) for x in rng.integers(5, 31, 64)]
-    shapes = {"vision 17 tiles": (1, 17408, 12, 12, tile_seg(1, 17, 17408), False, 5),
-              "page text 13 tiles": (4, 896, 15, 5, prefix_seg([836] * 4, 896), True, 10),
-              "queries": (64, 30, 15, 5, prefix_seg(q_lens, 30), True, 10)}
-    k10 = {}
-    for name, (b, t, hq, hkv, seg, causal, iters) in shapes.items():
-        for dtype in (torch.bfloat16, torch.float32):
-            k10[f"{name} {'bf16' if dtype == torch.bfloat16 else 'f32'}"] = k10_shape(
-                dev, card, name, dtype, b, t, hq, hkv, seg, causal, iters)
-            torch.cuda.empty_cache()
+    shapes = {"vision 17 tiles": (1, 17408, 12, 12, 64, tile_seg(1, 17, 17408), False, 5),
+              "page text 13 tiles": (4, 896, 15, 5, 64, prefix_seg(dev, [836] * 4, 896), True,
+                                     10),
+              "queries": (64, 30, 15, 5, 64, prefix_seg(dev, q_lens, 30), True, 10)}
+    k10 = k10_shapes(dev, card, shapes)
     # the pad cost of mixing page sizes in one batch (not counted)
     mixed = tile_seg(2, 17, 17408)
     mixed[1, 5 * 1024:] = 0  # a 5-tile page padded to 17 tiles: one pad segment
@@ -1214,24 +1293,7 @@ def embedding_phase(dev, card, rerank_fns, search_fns):
             raise AssertionError(f"the search over the embedded pages never launched {what}")
 
     # where a page batch's time goes: one profiled batch of 8 17-tile pages
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        emb.embed_images(groups[17])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev_ms = {}  # device kernels and copies only: a CPU op's device time repeats its kernels'
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0) or getattr(ev, "self_cuda_time_total", 0)
-        if ev.device_type == torch.autograd.DeviceType.CUDA and us > 0:
-            dev_ms[ev.key] = dev_ms.get(ev.key, 0.0) + us / 1e3
-    total = sum(dev_ms.values())
-    k10_dev = sum(v for k, v in dev_ms.items() if "flash_fwd" in k)
-    top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:6]
-    log(f"profile, one batch of 8 17-tile pages: wall {wall * 1e3:.1f} ms (profiled), device "
-        f"{total:.1f} ms (busy {total / (wall * 1e3):.2f}), K10 {k10_dev:.1f} ms; top device "
-        "items: " + "; ".join(f"{k[:60]} {v:.1f} ms" for k, v in top) + f" [{card}]")
+    profile_batch(lambda: emb.embed_images(groups[17]), "one batch of 8 17-tile pages", card)
 
     # 11c. the whole-model yardstick: the same weights with the dense attention
     dense = VisualEmbedder("vidore/colSmol-500M", batch_size=8, params=emb.params, device=dev)
@@ -1282,6 +1344,176 @@ def embedding_phase(dev, card, rerank_fns, search_fns):
             **{key: main[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                           "bound_by")},
             "shapes": k10}
+
+
+def colpali_pages(n_pages: int, seed: int):
+    """n_pages random RGB pages (f32 in [0, 1]) in four aspect ratios: A4
+    and letter portrait, letter landscape, a square scan (ColPali resizes
+    each to its 32 x 32 patch grid)."""
+    rng = np.random.default_rng(seed)
+    sizes = ((1170, 827), (1100, 850), (850, 1100), (900, 900))
+    return [rng.random(sizes[i % 4] + (3,), dtype=np.float32) for i in range(n_pages)]
+
+
+def colpali_phase(dev, card, rerank_fns, search_fns):
+    """Phase 12: the ColPali-v1.3 embedding path (module docstring).
+    ``rerank_fns`` are K2, K3 and K4, ``search_fns`` the scan and the
+    tokens stage-1 entry points. Returns K10's shapes and launches here."""
+    import dataclasses
+
+    import torch
+
+    from visual_rag_tpu_torch import CollectionSchema, IndexBuilder, RetrievalEngine
+    from visual_rag_tpu_torch.models.colvlm import ColVLM
+    from visual_rag_tpu_torch.models.convert import build_model
+    from visual_rag_tpu_torch.models.embedder import VisualEmbedder
+    from visual_rag_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from visual_rag_tpu_torch.pipeline.vectors import experimental_vector_plan, page_vectors
+    from visual_rag_tpu_torch.retrieval.oracle import run_strict_oracle
+
+    t_phase = time.perf_counter()
+    # 12a. K10 against its plain version at the path's three shapes (not counted):
+    # a page's 32 x 32 patches through SigLIP (16 heads of 72, no pads); 4 pages'
+    # text, 1024 image tokens + a 4-token prompt in T = 1088 (8 heads of 256 on
+    # one kv head, bidirectional); 64 queries of 6-30 tokens
+    rng = np.random.default_rng(12)
+    q_lens = [int(x) for x in rng.integers(6, 31, 64)]
+    shapes = {
+        "colpali vision 1 page": (1, 1024, 16, 16, 72, prefix_seg(dev, [1024], 1024), False,
+                                  10),
+        "colpali page text 4 pages": (4, 1088, 8, 1, 256, prefix_seg(dev, [1028] * 4, 1088),
+                                      False, 10),
+        "colpali queries": (64, 32, 8, 1, 256, prefix_seg(dev, q_lens, 32), False, 10)}
+    k10 = k10_shapes(dev, card, shapes)
+
+    # 12b. full-width ColPali-v1.3 in bf16, random weights from seed 0 drawn on the card
+    t0 = time.perf_counter()
+    emb = VisualEmbedder("vidore/colpali-v1.3", batch_size=8, seed=0, device=dev)
+    cfg = emb.cfg
+    n_params = sum(p.numel() for p in emb.model.parameters())
+    torch.cuda.synchronize()
+    log(f"ColPali-v1.3 (vision {cfg.vision.layers} x {cfg.vision.hidden}, heads of "
+        f"{cfg.vision.hidden // cfg.vision.heads}; text {cfg.text.layers} x {cfg.text.hidden}, "
+        f"{cfg.text.heads} heads of {cfg.text.hidden // cfg.text.heads} on {cfg.text.kv_heads} "
+        f"kv head; {n_params} parameters, {cfg.dtype}) on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if n_params != 2943532928:
+        raise AssertionError(f"ColPali-v1.3 has {n_params} parameters, not 2943532928")
+    pages = colpali_pages(32, seed=200)
+    texts = synthetic_queries(64, seed=13)
+    emb.embed_images(pages[:8])  # warm batch, not counted
+    emb.embed_queries(texts[:8], batch_size=64)
+    torch.cuda.synchronize()
+    counters = (flash_attention,) + tuple(rerank_fns) + tuple(search_fns)
+    for fn in counters:
+        fn.launches = 0
+
+    # -- the main path: embed pages and queries, pool, seal, search --
+    t0 = time.perf_counter()
+    embs, infos = emb.embed_images(pages, batch_size=8, return_token_info=True)
+    torch.cuda.synchronize()
+    t_pages = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qs = emb.embed_queries(texts, batch_size=64)
+    torch.cuda.synchronize()
+    t_queries = time.perf_counter() - t0
+    k10_launches = flash_attention.launches
+    t0 = time.perf_counter()
+    emb.processor.process_images(pages[:8])
+    t_host = time.perf_counter() - t0
+    want = 4 * (cfg.vision.layers + cfg.text.layers) + cfg.text.layers
+    log(f"embedded 32 pages (4 aspect ratios, batches of 8) in {t_pages:.3f} s = "
+        f"{32 / t_pages:.2f} pages/s, 64 queries in one batch in {t_queries:.3f} s = "
+        f"{64 / t_queries:.1f} queries/s; K10 launched {k10_launches} times (4 page batches x "
+        f"{cfg.vision.layers + cfg.text.layers} + 1 query batch x {cfg.text.layers} = {want}); "
+        f"the host processor alone takes {t_host:.3f} s for a batch of 8 pages [{card}]")
+    if k10_launches != want:
+        raise AssertionError(f"K10 launched {k10_launches} times on ColPali's path, not {want}")
+    for e, info in zip(embs, infos):
+        if e.shape != (info["num_visual_tokens"] + 4, 128) or not np.isfinite(e).all():
+            raise AssertionError(f"a ColPali page embedding is {e.shape} or not finite")
+        if not np.allclose(np.linalg.norm(e, axis=1), 1.0, atol=1e-3):
+            raise AssertionError("ColPali page token embeddings are not unit vectors")
+    if not all(np.isfinite(x).all() and x.shape[1] == 128 and x.shape[0] > 0 for x in qs):
+        raise AssertionError("a ColPali query embedding is not finite or has the wrong shape")
+
+    t0 = time.perf_counter()
+    plan = experimental_vector_plan(emb.backend)
+    builder = IndexBuilder(CollectionSchema.standard(experimental_names=plan["names"]))
+    for i, (e, info) in enumerate(zip(embs, infos)):
+        builder.add(f"page{i}", *page_vectors(emb, e, info))
+    index = builder.seal(device=dev)
+    engine = RetrievalEngine(index, stage1_cut="exact")
+    torch.cuda.synchronize()
+    t_seal = time.perf_counter() - t0
+    rows = {n: tuple(index.store(n).values.shape[:2]) for n in plan["names"]}
+    kw = dict(mode="two_stage", top_k=10, prefetch_k=200, with_payload=False)
+    hits = []
+    for stage1 in ("pooled_query_vs_standard_pooling", TOKENS):
+        hits += engine.search_embedded_batch(qs, **kw, stage1_mode=stage1)  # bs 64: the scan
+        hits += engine.search_embedded_batch(qs[:16], **kw, stage1_mode=stage1)  # bs 16: K2
+    if not all(len(h) == 10 and all(np.isfinite(x["score_final"]) for x in h) for h in hits):
+        raise AssertionError("a search over the ColPali pages did not answer 10 hits")
+    oracle = run_strict_oracle(engine, qs, index.num_docs, score_tol=0.0)
+    counts = {fn.__name__: fn.launches for fn in counters}
+    log(f"ingest: 32 ColPali pages -> page_vectors ({plan['names']}, {rows}) -> "
+        f"IndexBuilder.seal (bf16, {index.nbytes()} bytes) in {t_seal:.3f} s; "
+        f"RetrievalEngine(stage1_cut='exact'): two_stage (prefetch_k 200, top_k 10), pooled "
+        f"and tokens stage-1, bs 64 and 16; strict oracle (prefetch_k = corpus vs single_full, "
+        f"tol 0): {oracle}; launches over the main path: {counts} [{card}]")
+    if not oracle:
+        raise AssertionError("strict oracle failed on the ColPali corpus")
+    for what, fns in (("a rerank kernel", tuple(rerank_fns) + search_fns[:1]),
+                      ("a tokens stage-1 kernel", search_fns[1:])):
+        if sum(fn.launches for fn in fns) <= 0:
+            raise AssertionError(f"the search over the ColPali pages never launched {what}")
+    prof = profile_batch(lambda: emb.embed_images(pages[:8]), "one batch of 8 ColPali pages",
+                         card)
+
+    # 12c. the whole-model yardstick: the same weights with the dense attention
+    dense = VisualEmbedder("vidore/colpali-v1.3", batch_size=8, params=emb.params, device=dev)
+    dense.model.use_flash = False
+    for what, a, b in (("2 pages", emb.embed_images(pages[:2]), dense.embed_images(pages[:2])),
+                       ("16 queries", emb.embed_queries(texts[:16], batch_size=16),
+                        dense.embed_queries(texts[:16], batch_size=16))):
+        cos = min(float((x * y).sum(axis=1).min()) for x, y in zip(a, b))
+        diff = max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+        log(f"ColPali yardstick ({what}): K10 path vs use_flash=False (dense), the same bf16 "
+            f"weights: min per-token cosine {cos:.6f}, max abs diff {diff:.3g}")
+        if cos < 0.99:
+            raise AssertionError(f"K10 path and dense attention disagree on ColPali {what}: {cos}")
+    del dense
+
+    # 12d. card against CPU in f32, at full width and a depth cut to 2 + 2 layers
+    # (a full f32 ColPali is 11.8 GB on each side)
+    cut = dataclasses.replace(cfg, dtype="float32",
+                              vision=dataclasses.replace(cfg.vision, layers=2),
+                              text=dataclasses.replace(cfg.text, layers=2))
+    keep = set(ColVLM(cut, device="meta").state_dict())
+    sd32 = {k: v.float().cpu() for k, v in emb.params.items() if k in keep}
+    ids, mask = emb.processor.process_queries(texts[:4])
+    proc = emb.processor.process_images(pages[:1])
+    outs = {}
+    for where in ("card", "cpu"):
+        d = dev if where == "card" else torch.device("cpu")
+        model = build_model(cut, sd32, d)
+        with torch.inference_mode():
+            outs[where] = (
+                model.embed_queries(torch.from_numpy(ids).to(d), torch.from_numpy(mask).to(d)),
+                model.embed_pages(*(torch.from_numpy(x).to(d) for x in (
+                    proc.input_ids, proc.attn_mask, proc.patches, proc.patch_mask))))
+            outs[where] = tuple(x.cpu() for x in outs[where])
+        del model
+    err32 = max(float((a - b).abs().max()) for a, b in zip(outs["card"], outs["cpu"]))
+    log(f"card vs CPU, ColPali-v1.3 in f32 at full width cut to 2 vision + 2 text layers, 4 "
+        f"queries and 1 page: max abs diff {err32:.3g} (atol 1e-3)")
+    if err32 > 1e-3:
+        raise AssertionError(f"the f32 ColPali on the card and on the CPU differ by {err32}")
+    del emb, sd32, outs, engine, index
+    torch.cuda.empty_cache()
+    log(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return {"shapes": k10, "launches": k10_launches, "pages_per_s": 32 / t_pages,
+            "queries_per_s": 64 / t_queries, "profile": prof}
 
 
 if __name__ == "__main__":

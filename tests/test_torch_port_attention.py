@@ -5,8 +5,10 @@
   ids (two or three segments, then pads), causal and not, f32 (atol 1e-5,
   every row, pads included) and bf16 (atol 2e-2: the TPU kernel rounds its
   softmax weights to bf16 before the product with v, the plain version
-  keeps them in f32; ~2 bf16 ulps at |o| ~ 2). Grouped kv heads (Hq 4, Hkv
-  2) against ``jnp.repeat`` followed by the library kernel.
+  keeps them in f32; ~2 bf16 ulps at |o| ~ 2), at head dim 64 (ColSmol) and
+  at ColPali's 72 (vision) and 256 (text). Grouped kv heads against
+  ``jnp.repeat`` followed by the library kernel: Hq 4 on Hkv 2 at Dh 64,
+  and Gemma's 8 on 1 at Dh 256.
 - The port's ``mha`` against the JAX ``mha`` on the CPU, whose dense
   fallback runs there: with ``use_flash=True`` (K10's semantics) on the
   valid rows, and with ``use_flash=False`` (the dense fallback's own) on
@@ -34,13 +36,13 @@ torch.set_num_threads(1)  # tier-1 runs several test workers at once
 DH = 64
 
 
-def _inputs(seed, b, t, hq, hkv, n_segments):
-    """q [B, T, Hq, 64], k and v [B, T, Hkv, 64] N(0, 1); seg [B, T] int32:
+def _inputs(seed, b, t, hq, hkv, n_segments, dh=DH):
+    """q [B, T, Hq, Dh], k and v [B, T, Hkv, Dh] N(0, 1); seg [B, T] int32:
     n_segments runs of valid tokens (ids 1..n), then pads (0)."""
     rng = np.random.default_rng(seed)
-    q = rng.standard_normal((b, t, hq, DH)).astype(np.float32)
-    k = rng.standard_normal((b, t, hkv, DH)).astype(np.float32)
-    v = rng.standard_normal((b, t, hkv, DH)).astype(np.float32)
+    q = rng.standard_normal((b, t, hq, dh)).astype(np.float32)
+    k = rng.standard_normal((b, t, hkv, dh)).astype(np.float32)
+    v = rng.standard_normal((b, t, hkv, dh)).astype(np.float32)
     seg = np.zeros((b, t), np.int32)
     for i in range(b):
         n = t - int(rng.integers(1, t // 4))
@@ -55,7 +57,7 @@ def _tpu_kernel(q, k, v, seg, causal, dtype):
     with pltpu.force_tpu_interpret_mode():
         out = tpu_flash(to(q), to(k), to(v),
                         segment_ids=SegmentIds(q=jnp.asarray(seg), kv=jnp.asarray(seg)),
-                        causal=causal, sm_scale=DH ** -0.5)
+                        causal=causal, sm_scale=q.shape[-1] ** -0.5)
     return np.asarray(jnp.moveaxis(out, 1, 2).astype(jnp.float32))
 
 
@@ -81,6 +83,35 @@ def test_plain_matches_the_tpu_kernel(t, h, n_segments, causal, dtype, atol):
         q, k, v = (np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32)) for x in (q, k, v))
     got = _port(q, k, v, seg, causal, dtype)
     np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dh,t,h,n_segments,causal,dtype,atol", [
+    (72, 128, 2, 2, False, torch.float32, 1e-5),
+    (72, 256, 2, 3, True, torch.float32, 1e-5),
+    (72, 128, 2, 2, False, torch.bfloat16, 2e-2),
+    (256, 128, 2, 2, False, torch.float32, 1e-5),
+    (256, 256, 2, 3, True, torch.float32, 1e-5),
+    (256, 128, 2, 2, True, torch.bfloat16, 2e-2),
+])
+def test_plain_matches_the_tpu_kernel_at_colpali_head_dims(dh, t, h, n_segments, causal, dtype,
+                                                           atol):
+    """ColPali's vision tower (Dh 72) and Gemma text model (Dh 256)."""
+    q, k, v, seg = _inputs(t + dh, 2, t, h, h, n_segments, dh=dh)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = _tpu_kernel(q, k, v, seg, causal, jdt)
+    if dtype == torch.bfloat16:
+        q, k, v = (np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32)) for x in (q, k, v))
+    np.testing.assert_allclose(_port(q, k, v, seg, causal, dtype), want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_gemma_grouped_heads_match_repeat_then_the_tpu_kernel(causal):
+    """8 query heads on one kv head at Dh 256, as ColPali's text model."""
+    q, k, v, seg = _inputs(9, 1, 128, 8, 1, 2, dh=256)
+    want = _tpu_kernel(q, np.repeat(k, 8, axis=2), np.repeat(v, 8, axis=2), seg, causal,
+                       jnp.float32)
+    np.testing.assert_allclose(_port(q, k, v, seg, causal, torch.float32), want,
+                               rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -15,7 +15,18 @@ hidden) is initialized in JAX and its parameters carried to the port with
   bf16 by per-token cosine >= 0.999 (0.99994 on these inputs: the two
   frameworks round bf16 at different places, XLA fusing some steps).
 - tiles stay isolated through the tower; the configs the port does not run
-  yet are refused by name; ``init_params`` draws flax's distributions.
+  yet (ColQwen2.5's fields) are refused by name; ``init_params`` draws
+  flax's distributions, with zeros for Gemma's offset norm scales.
+
+ColPali: a ColPali-shaped tiny config that keeps both real head dims (vision
+hidden 144, 2 heads: Dh 72; Gemma text hidden 512, 2 heads on 1 kv head: Dh
+256; 2 layers each; ``rms_offset``, ``embed_scale``, GeGLU, ``causal=False``,
+biased connector and projection) against the flax model the same way:
+``RMSNorm(offset=True)``, the GeGLU MLP, a Gemma ``DecoderBlock`` and the
+vision tower without the shuffle (learned ``pos[:n]``, no windows, pads) in
+f32 at 1e-5; pages (with pad rows) and queries in f32 at 1e-4, and in bf16
+by per-token cosine >= 0.999 (0.99992 on these inputs; the embedding scale
+rounds its factor to bf16 on both sides).
 """
 
 import dataclasses
@@ -200,8 +211,18 @@ def test_tile_position_ids_have_the_bucketing_quirk():
     assert torch.equal(ids[:1024], ids[1024:])
 
 
+def _colqwen_field(**kw):
+    """ColPali-v1.3 with one of ColQwen2.5's fields set."""
+    cfg = P.ColVLMConfig.colpali_v13()
+    if "vision" in kw:
+        return lambda: dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision,
+                                                                           **kw["vision"]))
+    return lambda: dataclasses.replace(cfg, **kw)
+
+
 @pytest.mark.parametrize("make,field", [
-    (P.ColVLMConfig.colpali_v13, "text.rms_offset"),
+    (_colqwen_field(vision=dict(rope_2d=True)), "vision.rope_2d"),
+    (_colqwen_field(spatial_merge=2), "spatial_merge"),
     (P.ColVLMConfig.colqwen25_v02, "text.mrope_section"),
     (lambda: dataclasses.replace(P.ColVLMConfig.tiny(), remat=True), "remat"),
     (lambda: dataclasses.replace(P.ColVLMConfig.tiny(), text=dataclasses.replace(
@@ -241,3 +262,152 @@ def test_init_params_draws_flax_distributions():
     full = P.ColVLM(P.ColVLMConfig.colsmol_500m(), device="meta")
     assert full.vision.pos_embed.shape == (1024, 768)  # the per-tile table of 32 x 32 patches
     assert sum(p.numel() for p in full.parameters()) == 460296512
+
+
+def test_init_params_zeros_gemmas_offset_norm_scales():
+    sd = init_params(_colpali_cfg(P.ColVLMConfig, "bfloat16"), seed=1, device="cpu")
+    offset = [k for k in sd if k.startswith("layers.") and ".ln" in k] + ["final_norm.scale"]
+    assert len(offset) == 5 and all((sd[k] == 0).all() for k in offset)
+    assert (sd["vision.blocks.0.ln1.scale"] == 1).all()  # SigLIP's LayerNorms start at ones
+    assert sd["connector.bias"].abs().max() == 0
+    # the full ColPali-v1.3 (PaliGemma-3B): jax.eval_shape of the flax init counts the same
+    full = P.ColVLM(P.ColVLMConfig.colpali_v13(), device="meta")
+    assert sum(p.numel() for p in full.parameters()) == 2943532928
+    assert sum(p.numel() for p in full.vision.parameters()) == 432246528
+    assert full.tok_embed.weight.numel() == 526778368
+    assert full.vision.pos_embed.shape == (1024, 1152)
+
+
+# -- ColPali ------------------------------------------------------------------
+
+CP_PATCHES = 256  # a 16 x 16 patch page of the tiny ColPali config
+
+
+def _colpali_cfg(cls, dtype="float32"):
+    """ColPali-v1.3's shape at tiny widths, keeping both of its head dims."""
+    tiny = cls.tiny()
+    return dataclasses.replace(
+        tiny, dtype=dtype, proj_bias=True, connector_bias=True, hf_layout="paligemma",
+        vision=dataclasses.replace(tiny.vision, hidden=144, heads=2, max_patches=CP_PATCHES,
+                                   attn_bias=True),
+        text=dataclasses.replace(tiny.text, hidden=512, heads=2, kv_heads=1, mlp_hidden=1024,
+                                 rope_theta=10000.0, mlp_act="gelu_tanh", rms_offset=True,
+                                 embed_scale=True, causal=False, max_seq=512))
+
+
+def _colpali_page_inputs(cfg, seed=0):
+    """Two pages in one batch: 256 and 200 patches (then pads), as many
+    image slots, a 4-token prompt, then pad ids."""
+    rng = np.random.default_rng(seed)
+    patches = rng.random((2, CP_PATCHES, cfg.vision.patch_pixels), dtype=np.float32)
+    pmask = np.ones((2, CP_PATCHES), bool)
+    pmask[1, 200:] = False
+    patches[1, 200:] = 0.0
+    ids = rng.integers(4, cfg.text.vocab - 20, (2, 320)).astype(np.int32)
+    ids[0, :CP_PATCHES], ids[1, :200] = cfg.image_token_id, cfg.image_token_id
+    amask = np.zeros((2, 320), bool)
+    amask[0, :260], amask[1, :204] = True, True
+    return ids, amask, patches, pmask
+
+
+@pytest.fixture(scope="module")
+def colpali_models():
+    """(JAX ColPali-shaped model, its params, the port's f32 model with them)."""
+    model = J.ColVLM(_colpali_cfg(J.ColVLMConfig))
+    params = jax.jit(model.init)(jax.random.PRNGKey(1), jnp.ones((1, 8), jnp.int32),
+                                 jnp.ones((1, 8), bool), jnp.ones((1, CP_PATCHES, 48)),
+                                 jnp.ones((1, CP_PATCHES), bool))
+    params = jax.tree.map(np.asarray, params)
+    # flax starts the offset norms at 0 and the biases at 0: move them, so
+    # that the scale's offset and every bias are exercised
+    rng = np.random.default_rng(9)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, x: x + rng.normal(0, 0.1, x.shape).astype(x.dtype)
+        if path[-1].key in ("scale", "bias") else x, params)
+    cfg_p = _colpali_cfg(P.ColVLMConfig)
+    return model, params, build_model(cfg_p, params_from_flax(params, cfg_p), "cpu")
+
+
+def test_offset_rmsnorm_matches():
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 5, 512)).astype(np.float32)
+    scale = rng.standard_normal(512).astype(np.float32)
+    want = J.RMSNorm(offset=True).apply({"params": {"scale": jnp.asarray(scale)}},
+                                        jnp.asarray(x))
+    norm = P.RMSNorm(512, offset=True)
+    norm.load_state_dict({"scale": _t(scale)})
+    np.testing.assert_allclose(norm(_t(x)).detach().numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+
+
+def test_geglu_mlp_matches(colpali_models):
+    _, params, port = colpali_models
+    x = np.random.default_rng(12).standard_normal((2, 7, 512)).astype(np.float32)
+    want = J.SwiGLU(1024, dtype=jnp.float32, act="gelu_tanh").apply(
+        {"params": params["params"]["layer_1"]["mlp"]}, jnp.asarray(x))
+    np.testing.assert_allclose(port.layers[1].mlp(_t(x)).detach().numpy(), np.asarray(want),
+                               rtol=0, atol=1e-5)
+
+
+def test_gemma_decoder_block_matches(colpali_models):
+    _, params, port = colpali_models
+    cfg = _colpali_cfg(J.ColVLMConfig).text
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((2, 70, 512)).astype(np.float32)
+    mask = np.ones((2, 70), bool)
+    mask[1, 51:] = False
+    pos = np.maximum(np.cumsum(mask, axis=1) - 1, 0).astype(np.int32)
+    want = np.asarray(jax.jit(J.DecoderBlock(cfg, dtype=jnp.float32).apply)(
+        {"params": params["params"]["layer_0"]}, jnp.asarray(x), jnp.asarray(mask),
+        jnp.asarray(pos)))
+    got = port.layers[0](_t(x), _t(mask), _t(pos)).detach().numpy()
+    np.testing.assert_allclose(got[mask], want[mask], rtol=0, atol=1e-5)
+
+
+def test_colpali_vision_tower_and_connector_match(colpali_models):
+    model, params, port = colpali_models
+    _, _, patches, pmask = _colpali_page_inputs(model.cfg, seed=14)
+    x = np.random.default_rng(15).standard_normal((2, CP_PATCHES, 144)).astype(np.float32)
+    block = J.ViTBlock(model.cfg.vision, dtype=jnp.float32)
+    want = np.asarray(jax.jit(block.apply)({"params": params["params"]["vision"]["block_1"]},
+                                           jnp.asarray(x), jnp.asarray(pmask)))
+    got = port.vision.blocks[1](_t(x), _t(pmask)).detach().numpy()
+    np.testing.assert_allclose(got[pmask], want[pmask], rtol=0, atol=1e-5)
+    encode = jax.jit(lambda p, *a: model.apply(p, *a, method=J.ColVLM.encode_images))
+    want = np.asarray(encode(params, jnp.asarray(patches), jnp.asarray(pmask)))
+    got = port.encode_images(_t(patches), _t(pmask)).detach().numpy()
+    assert got.shape == want.shape == (2, CP_PATCHES, 512)
+    np.testing.assert_allclose(got[pmask], want[pmask], rtol=0, atol=1e-5)
+
+
+def test_colpali_whole_model_matches_in_f32(colpali_models):
+    model, params, port = colpali_models
+    ids, amask, patches, pmask = _colpali_page_inputs(model.cfg, seed=16)
+    apply = jax.jit(model.apply)
+    want = np.asarray(apply(params, *(jnp.asarray(x) for x in (ids, amask, patches, pmask))))
+    with torch.inference_mode():
+        got = port.embed_pages(*(_t(x) for x in (ids, amask, patches, pmask))).numpy()
+    assert got.shape == want.shape == (2, 320, 128)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    q_ids = ids[:, 260:284].copy()
+    q_mask = np.ones_like(q_ids, bool)
+    q_mask[0, 9:] = False
+    want_q = np.asarray(apply(params, jnp.asarray(q_ids), jnp.asarray(q_mask)))
+    with torch.inference_mode():
+        got_q = port.embed_queries(_t(q_ids), _t(q_mask)).numpy()
+    np.testing.assert_allclose(got_q, want_q, rtol=0, atol=1e-4)
+
+
+def test_colpali_whole_model_in_bf16_by_cosine(colpali_models):
+    _, params, _ = colpali_models
+    cfg_j, cfg_p = _colpali_cfg(J.ColVLMConfig, "bfloat16"), _colpali_cfg(P.ColVLMConfig,
+                                                                         "bfloat16")
+    ids, amask, patches, pmask = _colpali_page_inputs(cfg_j, seed=17)
+    patches = patches.astype(np.float16)
+    want = np.asarray(jax.jit(J.ColVLM(cfg_j).apply)(params, *(jnp.asarray(x) for x in (
+        ids, amask, patches, pmask))))
+    port = build_model(cfg_p, params_from_flax(params, cfg_p), "cpu")
+    with torch.inference_mode():
+        got = port.embed_pages(_t(ids), _t(amask), _t(patches), _t(pmask)).numpy()
+    cos = (got * want).sum(-1)[amask]  # both sides L2-normalized
+    assert cos.min() >= 0.999, cos.min()

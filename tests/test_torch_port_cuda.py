@@ -28,12 +28,13 @@ sharing (runs cut at 16 pairs of one doc, ranges of many pairs), -1 and
 two calls bit-equal; launch counts; the inputs the wrappers refuse; the
 engine with each on the card against the CPU.
 
-K10 (flash attention): against its plain version in f32 and bf16, causal and
-not, per-tile segments with pads, grouped kv heads, T not a multiple of 64,
-strided q/k/v views, and rows whose only allowed key is themselves (output
-= v exactly); two calls bit-equal; launch counts; ``mha`` on CUDA tensors
-raises when the kernel refuses a shape instead of running the plain
-version; a small ColSmol-shaped model (head dim 64) on the card against the
+K10 (flash attention), at head dims 64, 72 and 256: against its plain
+version in f32 and bf16, causal and not, per-tile segments with pads,
+grouped kv heads (8 on 1 at Dh 256), T not a multiple of 64, strided q/k/v
+views, and rows whose only allowed key is themselves (output = v exactly);
+two calls bit-equal; launch counts; ``mha`` on CUDA tensors raises when the
+kernel refuses a shape (Dh 80 among them) instead of running the plain
+version; small ColSmol- and ColPali-shaped models on the card against the
 CPU, with one K10 launch per attention layer.
 """
 
@@ -469,11 +470,11 @@ def test_engine_dedup_and_sweep_on_card_match_cpu(dev, impl, query_wire):
 FA_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # bf16: ~2 ulps at |o| ~ 2
 
 
-def _fa_inputs(dev, dtype, b, t, hq, hkv, seed, tile=None):
-    """q, k, v as strided views of one fused [B, T, Hq + 2 Hkv, 64] tensor,
+def _fa_inputs(dev, dtype, b, t, hq, hkv, seed, tile=None, dh=64):
+    """q, k, v as strided views of one fused [B, T, Hq + 2 Hkv, Dh] tensor,
     and seg: per-tile segments (tile rows each) or two segments, then pads."""
     rng = np.random.default_rng(seed)
-    qkv = torch.from_numpy(rng.standard_normal((b, t, hq + 2 * hkv, 64)).astype(np.float32))
+    qkv = torch.from_numpy(rng.standard_normal((b, t, hq + 2 * hkv, dh)).astype(np.float32))
     qkv = qkv.to(dev, dtype)
     q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
     seg = np.zeros((b, t), np.int32)
@@ -485,15 +486,18 @@ def _fa_inputs(dev, dtype, b, t, hq, hkv, seed, tile=None):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("t,hq,hkv,tile", [(256, 4, 4, 64), (200, 6, 2, None),
-                                           (1100, 3, 1, 96), (37, 2, 2, None)])
-def test_flash_attention_matches_plain(dev, dtype, causal, t, hq, hkv, tile):
-    q, k, v, seg = _fa_inputs(dev, dtype, 2, t, hq, hkv, seed=t + hq, tile=tile)
+@pytest.mark.parametrize("t,hq,hkv,tile,dh", [
+    (256, 4, 4, 64, 64), (200, 6, 2, None, 64), (1100, 3, 1, 96, 64), (37, 2, 2, None, 64),
+    # ColPali's vision tower (Dh 72) and Gemma text model (Dh 256, 8 heads on 1 kv head)
+    (256, 4, 4, None, 72), (300, 2, 2, 96, 72), (37, 2, 2, None, 72),
+    (200, 8, 1, None, 256), (1100, 8, 1, 96, 256), (37, 2, 1, None, 256)])
+def test_flash_attention_matches_plain(dev, dtype, causal, t, hq, hkv, tile, dh):
+    q, k, v, seg = _fa_inputs(dev, dtype, 2, t, hq, hkv, seed=t + hq, tile=tile, dh=dh)
     before = flash_attention.launches
     got, again = (flash_attention(q, k, v, seg, causal=causal) for _ in range(2))
     want = flash_attention_plain(q, k, v, seg, causal=causal)
     torch.cuda.synchronize()
-    assert got.dtype == dtype and got.shape == (2, t, hq, 64)
+    assert got.dtype == dtype and got.shape == (2, t, hq, dh)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=FA_ATOL[dtype])
     assert torch.equal(got, again)
     assert flash_attention.launches == before + 2
@@ -501,13 +505,30 @@ def test_flash_attention_matches_plain(dev, dtype, causal, t, hq, hkv, tile):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_attention_row_with_only_itself(dev, dtype, causal):
+@pytest.mark.parametrize("dh,hq,hkv", [(64, 4, 2), (72, 4, 2), (256, 8, 1)])
+def test_flash_attention_row_with_only_itself(dev, dtype, causal, dh, hq, hkv):
     """Every row its own segment: softmax over one key, the output is v."""
-    q, k, v, _ = _fa_inputs(dev, dtype, 1, 130, 4, 2, seed=3)
+    q, k, v, _ = _fa_inputs(dev, dtype, 1, 130, hq, hkv, seed=3, dh=dh)
     seg = torch.arange(130, dtype=torch.int32, device=dev)[None]
     got = flash_attention(q, k, v, seg, causal=causal)
     torch.cuda.synchronize()
-    assert torch.equal(got, v.repeat_interleave(2, dim=2))
+    assert torch.equal(got, v.repeat_interleave(hq // hkv, dim=2))
+
+
+def test_flash_attention_refuses_other_head_dims_on_cuda(dev, monkeypatch):
+    """Dh 80 (ColQwen2.5's vision tower) is not an instance yet: a CUDA call
+    raises by name and never falls back to the plain version."""
+    import visual_rag_tpu_torch.ops.kernels.flash_attention as fa
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(fa, "flash_attention_plain", no_plain)
+    q, k, v, seg = _fa_inputs(dev, torch.bfloat16, 1, 64, 2, 2, seed=4, dh=80)
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match=r"head dims \(64, 72, 256\), got 80"):
+        fa.flash_attention(q, k, v, seg, causal=False)
+    assert fa.flash_attention.launches == before
 
 
 def test_mha_on_cuda_raises_when_the_kernel_refuses(dev):
@@ -558,3 +579,45 @@ def test_colsmol_shaped_model_on_card_matches_cpu(dev):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + cfg.vision.layers + cfg.text.layers
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-3)
+
+
+def test_colpali_shaped_model_on_card_matches_cpu(dev):
+    """ColPali's head dims (vision 72, Gemma text 256 on one kv head), Gemma's
+    offset norms, GeGLU and embedding scale: every attention runs K10."""
+    import dataclasses
+
+    from visual_rag_tpu_torch.models.colvlm import ColVLMConfig
+    from visual_rag_tpu_torch.models.convert import build_model, init_params
+
+    tiny = ColVLMConfig.tiny()
+    cfg = dataclasses.replace(
+        tiny, dtype="float32", proj_bias=True, connector_bias=True, hf_layout="paligemma",
+        vision=dataclasses.replace(tiny.vision, hidden=144, heads=2, max_patches=256,
+                                   attn_bias=True),
+        text=dataclasses.replace(tiny.text, hidden=512, heads=2, kv_heads=1, mlp_hidden=512,
+                                 mlp_act="gelu_tanh", rms_offset=True, embed_scale=True,
+                                 causal=False))
+    sd = init_params(cfg, seed=1, device="cpu")
+    sd = {k: v + 0.1 * torch.randn_like(v) if k.endswith(("scale", "bias")) else v
+          for k, v in sd.items()}  # move the zero-initialized offsets and biases
+    card, cpu = build_model(cfg, sd, dev), build_model(cfg, sd, "cpu")
+    rng = np.random.default_rng(3)
+    patches = torch.from_numpy(rng.random((2, 256, 48), dtype=np.float32))
+    pmask = torch.ones((2, 256), dtype=torch.bool)
+    pmask[1, 200:] = False
+    ids = torch.full((2, 300), 7, dtype=torch.int32)
+    ids[0, :256], ids[1, :200] = cfg.image_token_id, cfg.image_token_id
+    amask = torch.zeros((2, 300), dtype=torch.bool)
+    amask[0, :260], amask[1, :204] = True, True
+    before = flash_attention.launches
+    with torch.inference_mode():
+        got = card.embed_pages(*(x.to(dev) for x in (ids, amask, patches, pmask)))
+        want = cpu.embed_pages(ids, amask, patches, pmask)
+        q_ids = torch.from_numpy(rng.integers(4, 400, (2, 24)).astype(np.int32))
+        q_mask = torch.arange(24)[None] < torch.tensor([[24], [11]])
+        got_q = card.embed_queries(q_ids.to(dev), q_mask.to(dev))
+        want_q = cpu.embed_queries(q_ids, q_mask)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.vision.layers + 2 * cfg.text.layers
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-3)
+    torch.testing.assert_close(got_q.cpu(), want_q, rtol=0, atol=1e-3)

@@ -3,8 +3,10 @@
 - Processor and tokenizer: the port's copies give byte-identical patches,
   masks, ids, segment ids and positions, and equal token infos, for the
   ColSmol, ColPali and ColQwen geometries, and the same query ids.
-- Poolings: the ColSmol poolings equal ``visual_rag_tpu.ops.pooling`` at
-  1e-6 (numpy on both sides); the experimental-vector plans are equal.
+- Poolings: the ColSmol and the five ColPali poolings equal
+  ``visual_rag_tpu.ops.pooling`` at 1e-6 (numpy on both sides; square and
+  non-square grids, windows 1, 3 and 5, the three smoothing kernels); the
+  experimental-vector plans are equal.
 - ``page_vectors``: the named vectors and token-info payload fields equal
   those the JAX ``ProcessingPipeline._process_single_page`` queues, byte for
   byte, on the same page embedding.
@@ -25,6 +27,13 @@
   (the JAX engine at ``stage1_cut="exact"``): the same ids and scores
   within 1e-5, both when the two engines search the same embeddings and
   when each side searches its own model's.
+- ColPali: the same embedder, ``page_vectors`` (``initial``,
+  ``mean_pooling``, ``global_pooling``, ``experimental_pooling_3`` and its
+  ``experimental_pooling`` alias, sealed under the plan's names) and end-to-end
+  checks with a ColPali-shaped tiny config that keeps both real head dims
+  (vision Dh 72, Gemma text Dh 256 on one kv head) and ColPali's 32 x 32
+  patch grid, parameters carried from the JAX ``VisualEmbedder("vidore/
+  colpali-v1.3")``.
 """
 
 import dataclasses
@@ -73,14 +82,37 @@ def _cfg(cls):
                                    attn_bias=True))
 
 
+def _colpali_cfg(cls):
+    """ColPali-v1.3's shape at tiny widths: both real head dims (vision 144 /
+    2 heads = 72; text 512 / 2 heads = 256, one kv head), Gemma's pieces,
+    a biased connector, and room for ColPali's 32 x 32 patch grid."""
+    tiny = cls.tiny()
+    return dataclasses.replace(
+        tiny, dtype="float32", proj_bias=True, connector_bias=True, hf_layout="paligemma",
+        vision=dataclasses.replace(tiny.vision, hidden=144, heads=2, max_patches=1024,
+                                   attn_bias=True),
+        text=dataclasses.replace(tiny.text, hidden=512, heads=2, kv_heads=1, mlp_hidden=512,
+                                 rope_theta=10000.0, mlp_act="gelu_tanh", rms_offset=True,
+                                 embed_scale=True, causal=False, max_seq=2048))
+
+
+def _embedder_pair(model_name, cfg_j, cfg_p):
+    jax_emb = JaxEmbedder(model_name, config=cfg_j, batch_size=6)
+    params = jax.tree.map(np.asarray, jax_emb.params)
+    port = VisualEmbedder(model_name, config=cfg_p, batch_size=6,
+                          params=params_from_flax(params, cfg_p), device="cpu")
+    return jax_emb, port
+
+
 @pytest.fixture(scope="module")
 def embedders():
-    jax_emb = JaxEmbedder("vidore/colSmol-500M", config=_cfg(J.ColVLMConfig), batch_size=6)
-    params = jax.tree.map(np.asarray, jax_emb.params)
-    cfg = _cfg(P.ColVLMConfig)
-    port = VisualEmbedder("vidore/colSmol-500M", config=cfg, batch_size=6,
-                          params=params_from_flax(params, cfg), device="cpu")
-    return jax_emb, port
+    return _embedder_pair("vidore/colSmol-500M", _cfg(J.ColVLMConfig), _cfg(P.ColVLMConfig))
+
+
+@pytest.fixture(scope="module")
+def colpali_embedders():
+    return _embedder_pair("vidore/colpali-v1.3", _colpali_cfg(J.ColVLMConfig),
+                          _colpali_cfg(P.ColVLMConfig))
 
 
 @pytest.mark.parametrize("backend,patch_pixels,shuffle", [
@@ -119,6 +151,42 @@ def test_poolings_match():
     for backend in ("colsmol", "colpali", "colqwen2.5"):
         assert experimental_vector_plan(backend, colsmol_2d=True) == jax_plan(
             backend, colsmol_2d=True)
+
+
+def _close(got, want):
+    want = np.asarray(want)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("gh,gw", [(32, 32), (7, 7), (12, 20), (40, 9), (1, 6)])
+def test_colpali_poolings_match(gh, gw):
+    rng = np.random.default_rng(gh * 100 + gw)
+    x = rng.standard_normal((gh * gw, 128)).astype(np.float32)
+    if gh == gw:
+        _close(pooling.colpali_row_mean_pooling(x, grid_size=gh),
+               jax_pool.colpali_row_mean_pooling(x, grid_size=gh))
+    for target in (32, gh, 5):
+        kw = dict(grid_h=gh, grid_w=gw, target_rows=target)
+        _close(pooling.adaptive_row_mean_pooling_from_grid(x, **kw),
+               jax_pool.adaptive_row_mean_pooling_from_grid(x, **kw))
+        _close(pooling.sequence_chunk_mean_pooling(x, target_rows=target),
+               jax_pool.sequence_chunk_mean_pooling(x, target_rows=target))
+    rows = pooling.adaptive_row_mean_pooling_from_grid(x, grid_h=gh, grid_w=gw, target_rows=gh)
+    for window in (1, 3, 5):
+        got = pooling.colpali_experimental_pooling_from_rows(rows, window_size=window)
+        _close(got, jax_pool.colpali_experimental_pooling_from_rows(rows, window_size=window))
+        if gh > 2:
+            assert got.shape[0] == gh + 2 * (window // 2)  # 32 rows -> 34 at window 3
+        for kernel in ("gaussian", "triangular", "uniform"):
+            _close(pooling.weighted_row_smoothing_same_length(rows, window_size=window,
+                                                              kernel=kernel),
+                   jax_pool.weighted_row_smoothing_same_length(rows, window_size=window,
+                                                               kernel=kernel))
+    _close(pooling.sequence_chunk_mean_pooling(x.astype(np.float16), 4),  # f16 stays f16
+           jax_pool.sequence_chunk_mean_pooling(x.astype(np.float16), 4))
+    with pytest.raises(ValueError, match="odd"):
+        pooling.colpali_experimental_pooling_from_rows(rows, window_size=4)
 
 
 def test_embedder_matches(embedders):
@@ -161,8 +229,8 @@ def test_page_vectors_match_the_jax_pipeline(embedders):
 
 
 def test_embedder_refuses_other_backends():
-    with pytest.raises(NotImplementedError, match="colpali"):
-        VisualEmbedder("vidore/colpali-v1.3", device="cpu")
+    with pytest.raises(NotImplementedError, match="colqwen2.5"):
+        VisualEmbedder("vidore/colqwen2.5-v0.2", device="cpu")
     with pytest.raises(NotImplementedError, match="checkpoint"):
         VisualEmbedder(checkpoint="some/dir", device="cpu")
     with pytest.raises(ValueError, match="device"):
@@ -281,5 +349,81 @@ def test_slice_end_to_end_matches(embedders):
         # each side's own model, builder and engine
         for a, b in zip(port_eng.search_embedded_batch(sides["port"][2], **kw),
                         jax_eng.search_embedded_batch(sides["jax"][2], **kw)):
+            assert [h["id"] for h in a] == [h["id"] for h in b]
+            assert strict_rank_equal([dict(h, score=h[key]) for h in b], a, score_tol=1e-5)
+
+
+# -- ColPali ------------------------------------------------------------------
+
+
+def test_colpali_embedder_matches(colpali_embedders):
+    jax_emb, port = colpali_embedders
+    assert port.backend == "colpali" and port.cfg.text.rms_offset
+    for got, want in zip(port.embed_queries(QUERIES, batch_size=3),
+                         jax_emb.embed_queries(QUERIES, batch_size=3)):
+        assert got.shape == want.shape and got.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    imgs = _images(13, 3)
+    got, infos = port.embed_images(imgs, batch_size=2, return_token_info=True)
+    want, infos_j = jax_emb.embed_images(imgs, batch_size=2, return_token_info=True)
+    assert infos == infos_j
+    for g, w, info in zip(got, want, infos):
+        assert info["num_visual_tokens"] == 1024 and g.shape == w.shape == (1028, 128)
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
+        visual = port.extract_visual_embedding(g, info)
+        mean = port.mean_pool_visual_embedding(visual, info)
+        assert mean.shape == (32, 128)
+        np.testing.assert_allclose(mean, jax_emb.mean_pool_visual_embedding(visual, info),
+                                   rtol=0, atol=1e-6)
+        for kw in ({}, dict(kernel="gaussian"), dict(kernel="triangular", window_size=5),
+                   dict(kernel="legacy", window_size=5)):
+            np.testing.assert_allclose(
+                port.experimental_pool_visual_embedding(visual, info, **kw),
+                jax_emb.experimental_pool_visual_embedding(visual, info, **kw), rtol=0,
+                atol=1e-6)
+
+
+def test_colpali_page_vectors_match_the_jax_pipeline(colpali_embedders):
+    from visual_rag_tpu.pipeline.pipeline import PipelineStats, ProcessingPipeline
+
+    jax_emb, port = colpali_embedders
+    plan = experimental_vector_plan(port.backend)
+    assert plan["names"] == ["experimental_pooling_3", "experimental_pooling"]
+    embs, infos = port.embed_images(_images(16, 2), return_token_info=True)
+    pipe = ProcessingPipeline(jax_emb, JaxBuilder(JaxSchema.standard(
+        experimental_names=plan["names"])))
+    for i, (e, info) in enumerate(zip(embs, infos)):
+        pipe._process_single_page({"page_number": i + 1}, e, info, None, "doc.pdf", {},
+                                  PipelineStats())
+        want = pipe._queue[-1]
+        vectors, payload = page_vectors(port, e, info)
+        assert sorted(vectors) == sorted(want["vectors"]) == sorted(
+            ["initial", "mean_pooling", "global_pooling"] + plan["names"])
+        for name, v in vectors.items():
+            assert v.dtype == np.float32 and v.tobytes() == want["vectors"][name].tobytes(), name
+        assert vectors["experimental_pooling_3"].shape == (34, 128)
+        assert payload == {k: want["payload"][k] for k in payload}
+
+
+def test_colpali_slice_end_to_end_matches(colpali_embedders):
+    jax_emb, port = colpali_embedders
+    imgs = _images(15, 6)
+    names = experimental_vector_plan("colpali")["names"]
+    engines = {}
+    for side, emb in (("port", port), ("jax", jax_emb)):
+        embs, infos = emb.embed_images(imgs, return_token_info=True)
+        builder = (IndexBuilder(CollectionSchema.standard(names, storage_dtype="float32"))
+                   if side == "port" else
+                   JaxBuilder(JaxSchema.standard(names, storage_dtype="float32")))
+        for i, (e, info) in enumerate(zip(embs, infos)):
+            builder.add(f"page{i}", *page_vectors(port, e, info))
+        engines[side] = ((RetrievalEngine(builder.seal(device="cpu"), stage1_cut="exact")
+                          if side == "port" else JaxEngine(builder.seal(), stage1_cut="exact")),
+                         emb.embed_queries(QUERIES))
+    for mode, key in (("two_stage", "score_final"), ("single_full", "score"),
+                      ("single_experimental_pooled", "score")):
+        kw = dict(mode=mode, top_k=4, prefetch_k=5, with_payload=False)
+        (pe, pq), (je, jq) = engines["port"], engines["jax"]
+        for a, b in zip(pe.search_embedded_batch(pq, **kw), je.search_embedded_batch(jq, **kw)):
             assert [h["id"] for h in a] == [h["id"] for h in b]
             assert strict_rank_equal([dict(h, score=h[key]) for h in b], a, score_tol=1e-5)

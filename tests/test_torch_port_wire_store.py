@@ -58,7 +58,8 @@ def test_port_imports_no_jax():
     assert len(mods) >= 38
     assert {"visual_rag_tpu_torch.models.embedder", "visual_rag_tpu_torch.models.colvlm",
             "visual_rag_tpu_torch.ops.kernels.flash_attention", "visual_rag_tpu_torch.ops.pooling",
-            "visual_rag_tpu_torch.index.builder",
+            "visual_rag_tpu_torch.index.builder", "visual_rag_tpu_torch.models.convert",
+            "visual_rag_tpu_torch.models.attention", "visual_rag_tpu_torch.retrieval.engine",
             "visual_rag_tpu_torch.pipeline.vectors"} <= set(mods)
 
 

@@ -1,5 +1,5 @@
 // K10: flash-attention forward with segment ids, an optional causal mask and
-// grouped kv heads.
+// grouped kv heads, at head dims 64, 72 and 256.
 //
 // Replaces the TPU kernel that visual_rag_tpu/models/attention.py::mha calls
 // (:61-73): the library's jax/experimental/pallas/ops/tpu/flash_attention.py,
@@ -14,31 +14,56 @@
 // no allowed key would write zeros. Logits, maxima and sums are f32; the
 // output is in the input dtype (f32 or bf16).
 //
-// What bounds it on the H100: arithmetic. A page's vision attention does 4 *
-// Dh flops per allowed pair and head over ~1e7 pairs a head, against ~1e8
-// bytes of q, k, v and o. This kernel does its products as f32 FMAs on the
-// CUDA cores (inputs widened to f32 in shared memory), so it runs against the
-// 67 TFLOP/s f32 rate, not the 989 TFLOP/s of the bf16 tensor cores; mma /
-// wgmma tiles are later work.
+// Head dims: 64 (both towers of ColSmol-500M), 72 (ColPali's SigLIP vision
+// tower, 1152 / 16) and 256 (ColPali's Gemma text model, 2048 / 8, one kv
+// head). Each is an explicit instance of the templated kernel.
 //
-// Design: one block per (64-row query tile, head, batch row) walks the 64-key
-// kv tiles with an online softmax (running max m, sum l and output
-// accumulator in registers), as the TPU kernel walks its kv blocks. A tile
-// is skipped, exactly, when it lies wholly above the diagonal under causal
-// (the TPU kernel's below_or_on_diag, :325) or when the segment-id ranges of
-// the query tile and the kv tile do not meet (then no pair in it is
-// allowed). The ranges come from seg_tile_range_kernel, launched first. Both
-// skips drop only tiles whose every logit is masked, which add exactly 0 once
-// a row has seen one allowed key (as DEFAULT_MASK_VALUE does in the TPU
-// kernel). With per-tile segments of a 17-tile page, a query tile visits 16
-// of its 272 kv tiles.
+// What bounds it on the H100: arithmetic. A page's attention does 4 * Dh
+// flops per allowed pair and head over ~1e6-1e7 pairs a head, against
+// ~1e7-1e8 bytes of q, k, v and o. This kernel does its products as f32 FMAs
+// on the CUDA cores (inputs widened to f32 in shared memory), so it runs
+// against the 67 TFLOP/s f32 rate, not the 989 TFLOP/s of the bf16 tensor
+// cores; mma / wgmma tiles are later work.
 //
-// 256 threads as 16 x 16: thread (ty, tx) owns rows 4ty..4ty+3 and columns
-// 4tx..4tx+3 of the 64 x 64 logit tile and of the 64 x 64 output tile. Q, K^T,
-// V and P sit in shared memory as f32 (64 KB in all); every inner-loop read
-// is a 16-byte load that is either a broadcast (Q, P) or 8 consecutive
-// float4s (K^T, V). Each dot product is one fmaf chain in a fixed order, so a
+// Design: one block per (64-row query tile, head, batch row) walks the kv
+// tiles (BK keys each) with an online softmax (running max m, sum l and
+// output accumulator in registers), as the TPU kernel walks its kv blocks. A
+// kv tile is skipped, exactly, when it lies wholly above the diagonal under
+// causal (the TPU kernel's below_or_on_diag, :325) or when its segment-id
+// range does not meet the query tile's (then no pair in it is allowed). The
+// ranges of every BK-key tile come from seg_tile_range_kernel, launched
+// first; a query tile's range is the union of the ranges of the kv tiles
+// that cover its rows. Both skips drop only tiles whose every logit is
+// masked, which add exactly 0 once a row has seen one allowed key (as
+// DEFAULT_MASK_VALUE does in the TPU kernel).
+//
+// 256 threads as 16 x 16. Thread (ty, tx) owns rows 4ty..4ty+3 of the query
+// tile; of the 64 x BK logit tile it owns columns tx*SC..tx*SC+SC-1 (SC =
+// BK / 16), and of the 64 x Dh output tile the columns c*64 + 4tx..+3 for
+// each full 64-column chunk c, plus column 64*(Dh/64) + tx where Dh is not a
+// multiple of 64 (Dh 72: 4 + 1 columns a thread, the fifth stored only for
+// tx < 8). Q, K^T, V and P sit in shared memory as f32, the head dim
+// zero-padded to DHP (a multiple of 16): the padded columns of Q and rows of
+// K^T are zeros, so they add exactly 0 to each logit, and the padded output
+// columns are never stored. Each dot product is one fmaf chain in a fixed
+// order (head dim ascending for a logit, keys ascending for an output), so a
 // call's result does not depend on scheduling.
+//
+// The walk over the kv tiles reads one byte a tile from shared memory (the
+// block sets those flags together from the ranges first): at T 17408 a query
+// tile skips 256 of 272 tiles, and a serial walk over the ranges in device
+// memory cost 11% of the call at Dh 64 (measured against this walk).
+//
+// Shared memory, f32 (Q [64][DHP], K^T [DHP][BK], V [BK][DHP], P [64][BK]),
+// plus a byte a kv tile (at most 32 KB, at T 1,048,576 and BK 32):
+//   Dh  64: DHP  64, BK 64:  64 KB (three blocks an SM);
+//   Dh  72: DHP  80, BK 64:  76 KB (two blocks an SM);
+//   Dh 256: DHP 256, BK 32: 136 KB (one block an SM). At BK 64 it would be
+//     208 KB, within 4% of the 227 KB a block may have, so the kv tile is
+//     halved instead: the logit tile, its softmax and P shrink with it, and
+//     the 64 x 256 output accumulator (64 f32 registers a thread) is not
+//     touched. Keeping K and V as bf16 would have saved as much for bf16
+//     inputs only, not for f32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -46,11 +71,26 @@
 
 namespace vrt_fa {
 
-constexpr int DH = 64;        // head dim: both towers of ColSmol-500M
-constexpr int BQ = 64;        // query rows a block
-constexpr int BK = 64;        // keys a kv tile (== BQ: q tile i and kv tile i share ranges)
-constexpr int THREADS = 256;  // 16 x 16, a 4 x 4 patch each
-constexpr int MAX_TILES = 16384;  // T <= 1,048,576: the tile ranges fit shared memory
+constexpr int BQ = 64;            // query rows a block
+constexpr int THREADS = 256;      // 16 x 16, a 4-row patch each
+constexpr int MAX_TILES = 16384;  // T <= 1,048,576 (in 64-row tiles): int offsets stay in range
+
+template <int DH>
+struct Cfg {
+  static constexpr int DHP = (DH + 15) / 16 * 16;  // padded head dim
+  static constexpr int BK = DH > 128 ? 32 : 64;    // keys a kv tile
+  static constexpr int SC = BK / 16;               // logit columns a thread
+  static constexpr int FULL = DH / 64;             // full 64-column output chunks (float4 a thread)
+  static constexpr int REST = DHP / 16 - 4 * FULL; // further output columns a thread, 16 apart
+  static constexpr int NC = 4 * FULL + REST;       // output columns a thread
+  static_assert(DH % 8 == 0, "a bf16 row is whole 16-byte vectors");
+  static_assert(REST <= 1, "one column a thread past the full chunks");
+  static constexpr int PV_UNROLL = NC > 8 ? 2 : 4;  // kk steps unrolled in O += P V
+  // f32 tiles and segment ids; the live-tile flags (a byte a kv tile) follow
+  static constexpr size_t SMEM =
+      sizeof(float) * (BQ * DHP + DHP * BK + BK * DHP + BQ * BK) + sizeof(int) * (BQ + BK);
+  static size_t smem_bytes(int n_kt) { return SMEM + (n_kt + 15) / 16 * 16; }
+};
 
 template <typename T>
 struct Vec;
@@ -65,6 +105,7 @@ struct Vec<float> {
   __device__ static void store4(float* p, float a, float b, float c, float d) {
     *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
   }
+  __device__ static void store1(float* p, float a) { *p = a; }
 };
 
 template <>
@@ -87,16 +128,39 @@ struct Vec<__nv_bfloat16> {
     u.y = *reinterpret_cast<uint32_t*>(&hi);
     *reinterpret_cast<uint2*>(p) = u;
   }
+  __device__ static void store1(__nv_bfloat16* p, float a) { *p = __float2bfloat16_rn(a); }
 };
 
-// [min, max] of the segment ids of each 64-row tile: one thread a (b, tile).
+// SC consecutive floats of shared memory (SC 2 or 4, 8- or 16-byte aligned)
+template <int SC>
+__device__ __forceinline__ void load_cols(const float* p, float* out) {
+  if constexpr (SC == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  } else {
+    static_assert(SC == 2, "two or four logit columns a thread");
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    out[0] = a.x; out[1] = a.y;
+  }
+}
+
+template <int SC>
+__device__ __forceinline__ void store_cols(float* p, const float* x) {
+  if constexpr (SC == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  }
+}
+
+// [min, max] of the segment ids of each tile of `tile` rows: one thread a (b, tile).
 __global__ void seg_tile_range_kernel(const int* __restrict__ seg, int t_len, int n_tiles,
-                                      int batch, int2* __restrict__ out) {
+                                      int tile, int batch, int2* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= batch * n_tiles) return;
   const int b = i / n_tiles, j = i - b * n_tiles;
-  const int* s = seg + static_cast<size_t>(b) * t_len + j * BK;
-  const int n = min(BK, t_len - j * BK);
+  const int* s = seg + static_cast<size_t>(b) * t_len + j * tile;
+  const int n = min(tile, t_len - j * tile);
   int lo = s[0], hi = s[0];
   for (int e = 1; e < n; ++e) {
     lo = min(lo, s[e]);
@@ -109,20 +173,22 @@ struct Strides {
   long long b, t, h;  // in elements; the head dim is contiguous
 };
 
-// Rows [row0, row0 + 64) of one head, 64 values each, into dst as f32:
-// row-major dst[r * DH + d] (TRANSPOSE false) or dst[d * 64 + r] (true).
-// Rows at or past t_len are zeros.
-template <typename T, bool TRANSPOSE>
+// Rows [row0, row0 + ROWS) of one head, DH values each, into dst as f32:
+// row-major dst[r * DHP + d] (TRANSPOSE false) or dst[d * ROWS + r] (true).
+// Rows at or past t_len are zeros; the padded columns DH..DHP are not
+// written (zero_pad sets them once).
+template <typename T, bool TRANSPOSE, int ROWS, int DH, int DHP>
 __device__ __forceinline__ void load_tile(const T* __restrict__ base, Strides st, int row0,
                                           int t_len, float* __restrict__ dst) {
-  constexpr int N = Vec<T>::N, PER_ROW = DH / N;
+  constexpr int N = Vec<T>::N, PER_ROW = DH / N, TOTAL = ROWS * PER_ROW;
 #pragma unroll
-  for (int it = 0; it < 64 * PER_ROW / THREADS; ++it) {
+  for (int it = 0; it < (TOTAL + THREADS - 1) / THREADS; ++it) {
     const int v = threadIdx.x + it * THREADS;
+    if (TOTAL % THREADS != 0 && v >= TOTAL) break;
     // TRANSPOSE: a warp takes 32 consecutive rows of one column group, so its
     // scalar stores into a column of dst hit 32 banks
-    const int r = TRANSPOSE ? v % 64 : v / PER_ROW;
-    const int g = TRANSPOSE ? v / 64 : v % PER_ROW;
+    const int r = TRANSPOSE ? v % ROWS : v / PER_ROW;
+    const int g = TRANSPOSE ? v / ROWS : v % PER_ROW;
     float x[N];
     if (row0 + r < t_len) {
       Vec<T>::load(base + (row0 + r) * st.t + g * N, x);
@@ -132,30 +198,43 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ base, Strides st
     }
     if (TRANSPOSE) {
 #pragma unroll
-      for (int e = 0; e < N; ++e) dst[(g * N + e) * 64 + r] = x[e];
+      for (int e = 0; e < N; ++e) dst[(g * N + e) * ROWS + r] = x[e];
     } else {
 #pragma unroll
       for (int e = 0; e < N; e += 4)
-        *reinterpret_cast<float4*>(dst + r * DH + g * N + e) =
+        *reinterpret_cast<float4*>(dst + r * DHP + g * N + e) =
             make_float4(x[e], x[e + 1], x[e + 2], x[e + 3]);
     }
   }
 }
 
-template <typename T>
+// Zeros in the padded head-dim columns DH..DHP of Q [BQ][DHP], K^T [DHP][BK]
+// and V [BK][DHP]; the tile loads never write them.
+template <int DH, int DHP, int BK>
+__device__ __forceinline__ void zero_pad(float* q_s, float* kt_s, float* v_s) {
+  constexpr int W = DHP - DH;
+  if (W == 0) return;
+  for (int i = threadIdx.x; i < BQ * W; i += THREADS) q_s[(i / W) * DHP + DH + i % W] = 0.f;
+  for (int i = threadIdx.x; i < W * BK; i += THREADS) kt_s[DH * BK + i] = 0.f;
+  for (int i = threadIdx.x; i < BK * W; i += THREADS) v_s[(i / W) * DHP + DH + i % W] = 0.f;
+}
+
+template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const int* __restrict__ seg, const int2* __restrict__ tile_range,
-                 T* __restrict__ o, int t_len, int n_tiles, int hq, int group, Strides qs_,
+                 T* __restrict__ o, int t_len, int n_kt, int hq, int group, Strides qs_,
                  Strides ks_, Strides vs_, int causal, float sm_scale) {
+  using C = Cfg<DH>;
+  constexpr int DHP = C::DHP, BK = C::BK, SC = C::SC, FULL = C::FULL, NC = C::NC;
   extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;             // [BQ][DH]
-  float* kt_s = q_s + BQ * DH;   // [DH][BK]: K transposed
-  float* v_s = kt_s + DH * BK;   // [BK][DH]
-  float* p_s = v_s + BK * DH;    // [BQ][BK]
+  float* q_s = smem;             // [BQ][DHP]
+  float* kt_s = q_s + BQ * DHP;  // [DHP][BK]: K transposed
+  float* v_s = kt_s + DHP * BK;  // [BK][DHP]
+  float* p_s = v_s + BK * DHP;   // [BQ][BK]
   int* qseg_s = reinterpret_cast<int*>(p_s + BQ * BK);  // [BQ]
   int* kseg_s = qseg_s + BQ;                             // [BK]
-  int2* range_s = reinterpret_cast<int2*>(kseg_s + BK);  // [n_tiles]
+  unsigned char* live_s = reinterpret_cast<unsigned char*>(kseg_s + BK);  // [n_kt]
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / group, q0 = qt * BQ;
@@ -164,16 +243,29 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* kb = k + b * ks_.b + kvh * ks_.h;
   const T* vb = v + b * vs_.b + kvh * vs_.h;
   const int* segb = seg + static_cast<size_t>(b) * t_len;
-  const int2* rb = tile_range + static_cast<size_t>(b) * n_tiles;
+  const int2* rb = tile_range + static_cast<size_t>(b) * n_kt;
 
-  for (int i = tid; i < n_tiles; i += THREADS) range_s[i] = rb[i];
+  // the query tile's segment range: the union of its kv tiles' (block-uniform)
+  const int q_last = min(n_kt - 1, (q0 + BQ - 1) / BK);
+  int2 qr = rb[q0 / BK];
+  for (int j = q0 / BK + 1; j <= q_last; ++j) {
+    const int2 r = rb[j];
+    qr = make_int2(min(qr.x, r.x), max(qr.y, r.y));
+  }
+  // a flag a kv tile: does its segment range meet the query tile's? Set by
+  // the whole block at once, so that the walk below reads shared memory
+  const int last = causal ? q_last + 1 : n_kt;  // tiles past it: above the diagonal
+  for (int j = tid; j < last; j += THREADS) {
+    const int2 r = rb[j];
+    live_s[j] = !(r.y < qr.x || r.x > qr.y);
+  }
+  zero_pad<DH, DHP, BK>(q_s, kt_s, v_s);
   if (tid < BQ) qseg_s[tid] = q0 + tid < t_len ? segb[q0 + tid] : 0;
-  load_tile<T, false>(qb, qs_, q0, t_len, q_s);
+  load_tile<T, false, BQ, DH, DHP>(qb, qs_, q0, t_len, q_s);
   __syncthreads();
 
-  const int2 qr = range_s[qt];
   int my_seg[4], my_pos[4];
-  float m[4], l[4], acc[4][4];
+  float m[4], l[4], acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     my_seg[i] = qseg_s[ty * 4 + i];
@@ -181,43 +273,40 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     m[i] = -CUDART_INF_F;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
   }
 
-  const int last = causal ? min(n_tiles, qt + 1) : n_tiles;  // tiles past qt: above the diagonal
   for (int jt = 0; jt < last; ++jt) {
-    const int2 kr = range_s[jt];
-    if (kr.y < qr.x || kr.x > qr.y) continue;  // no segment id in common (uniform over the block)
+    if (!live_s[jt]) continue;  // no segment id in common (uniform over the block)
     const int k0 = jt * BK;
-    load_tile<T, true>(kb, ks_, k0, t_len, kt_s);
-    load_tile<T, false>(vb, vs_, k0, t_len, v_s);
+    load_tile<T, true, BK, DH, DHP>(kb, ks_, k0, t_len, kt_s);
+    load_tile<T, false, BK, DH, DHP>(vb, vs_, k0, t_len, v_s);
     if (tid < BK) kseg_s[tid] = k0 + tid < t_len ? segb[k0 + tid] : 0;
     __syncthreads();
 
-    // S = Q K^T for this thread's 4 x 4 patch
-    float s[4][4];
+    // S = Q K^T for this thread's 4 x SC patch, head dim ascending
+    float s[4][SC];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < SC; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      float4 a[4], c[4];
+    for (int d = 0; d < DHP; d += 4) {
+      float4 a[4];
+      float c[4][SC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(q_s + (ty * 4 + i) * DH + d);
+      for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(q_s + (ty * 4 + i) * DHP + d);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) c[e] = *reinterpret_cast<const float4*>(kt_s + (d + e) * BK + tx * 4);
+      for (int e = 0; e < 4; ++e) load_cols<SC>(kt_s + (d + e) * BK + tx * SC, c[e]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i][0] = fmaf(a[i].x, c[0].x, s[i][0]); s[i][0] = fmaf(a[i].y, c[1].x, s[i][0]);
-        s[i][0] = fmaf(a[i].z, c[2].x, s[i][0]); s[i][0] = fmaf(a[i].w, c[3].x, s[i][0]);
-        s[i][1] = fmaf(a[i].x, c[0].y, s[i][1]); s[i][1] = fmaf(a[i].y, c[1].y, s[i][1]);
-        s[i][1] = fmaf(a[i].z, c[2].y, s[i][1]); s[i][1] = fmaf(a[i].w, c[3].y, s[i][1]);
-        s[i][2] = fmaf(a[i].x, c[0].z, s[i][2]); s[i][2] = fmaf(a[i].y, c[1].z, s[i][2]);
-        s[i][2] = fmaf(a[i].z, c[2].z, s[i][2]); s[i][2] = fmaf(a[i].w, c[3].z, s[i][2]);
-        s[i][3] = fmaf(a[i].x, c[0].w, s[i][3]); s[i][3] = fmaf(a[i].y, c[1].w, s[i][3]);
-        s[i][3] = fmaf(a[i].z, c[2].w, s[i][3]); s[i][3] = fmaf(a[i].w, c[3].w, s[i][3]);
-      }
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < SC; ++j) {
+          s[i][j] = fmaf(a[i].x, c[0][j], s[i][j]);
+          s[i][j] = fmaf(a[i].y, c[1][j], s[i][j]);
+          s[i][j] = fmaf(a[i].z, c[2][j], s[i][j]);
+          s[i][j] = fmaf(a[i].w, c[3][j], s[i][j]);
+        }
     }
 
     // mask, online softmax; the 16 threads of a row are lanes of one half-warp
@@ -225,8 +314,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int i = 0; i < 4; ++i) {
       float mx = -CUDART_INF_F;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx * 4 + j, kp = k0 + c;
+      for (int j = 0; j < SC; ++j) {
+        const int c = tx * SC + j, kp = k0 + c;
         const bool ok = kp < t_len && kseg_s[c] == my_seg[i] && (!causal || kp <= my_pos[i]);
         s[i][j] = ok ? s[i][j] * sm_scale : -CUDART_INF_F;
         mx = fmaxf(mx, s[i][j]);
@@ -238,7 +327,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const float alpha = expf(m[i] - m_use);                     // 0 while m[i] is -inf
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < SC; ++j) {
         s[i][j] = expf(s[i][j] - m_use);  // masked: exp(-inf) = 0
         sum += s[i][j];
       }
@@ -247,30 +336,34 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       l[i] = l[i] * alpha + sum;
       m[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
-      *reinterpret_cast<float4*>(p_s + (ty * 4 + i) * BK + tx * 4) =
-          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+      for (int j = 0; j < NC; ++j) acc[i][j] *= alpha;
+      store_cols<SC>(p_s + (ty * 4 + i) * BK + tx * SC, s[i]);
     }
     __syncthreads();
 
-    // O += P V
-#pragma unroll 4
+    // O += P V, keys ascending
+#pragma unroll C::PV_UNROLL
     for (int kk = 0; kk < BK; kk += 4) {
-      float4 p[4], w[4];
+      float4 p[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) p[i] = *reinterpret_cast<const float4*>(p_s + (ty * 4 + i) * BK + kk);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) w[e] = *reinterpret_cast<const float4*>(v_s + (kk + e) * DH + tx * 4);
+      for (int e = 0; e < 4; ++e) {
+        const float* vrow = v_s + (kk + e) * DHP;
+        float w[NC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][0] = fmaf(p[i].x, w[0].x, acc[i][0]); acc[i][0] = fmaf(p[i].y, w[1].x, acc[i][0]);
-        acc[i][0] = fmaf(p[i].z, w[2].x, acc[i][0]); acc[i][0] = fmaf(p[i].w, w[3].x, acc[i][0]);
-        acc[i][1] = fmaf(p[i].x, w[0].y, acc[i][1]); acc[i][1] = fmaf(p[i].y, w[1].y, acc[i][1]);
-        acc[i][1] = fmaf(p[i].z, w[2].y, acc[i][1]); acc[i][1] = fmaf(p[i].w, w[3].y, acc[i][1]);
-        acc[i][2] = fmaf(p[i].x, w[0].z, acc[i][2]); acc[i][2] = fmaf(p[i].y, w[1].z, acc[i][2]);
-        acc[i][2] = fmaf(p[i].z, w[2].z, acc[i][2]); acc[i][2] = fmaf(p[i].w, w[3].z, acc[i][2]);
-        acc[i][3] = fmaf(p[i].x, w[0].w, acc[i][3]); acc[i][3] = fmaf(p[i].y, w[1].w, acc[i][3]);
-        acc[i][3] = fmaf(p[i].z, w[2].w, acc[i][3]); acc[i][3] = fmaf(p[i].w, w[3].w, acc[i][3]);
+        for (int c = 0; c < FULL; ++c) {
+          const float4 x = *reinterpret_cast<const float4*>(vrow + c * 64 + tx * 4);
+          w[4 * c] = x.x; w[4 * c + 1] = x.y; w[4 * c + 2] = x.z; w[4 * c + 3] = x.w;
+        }
+#pragma unroll
+        for (int j = 4 * FULL; j < NC; ++j) w[j] = vrow[64 * FULL + (j - 4 * FULL) * 16 + tx];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pe = e == 0 ? p[i].x : e == 1 ? p[i].y : e == 2 ? p[i].z : p[i].w;
+#pragma unroll
+          for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(pe, w[j], acc[i][j]);
+        }
       }
     }
     __syncthreads();  // the next tile overwrites K^T, V, P and the key segments
@@ -281,36 +374,59 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int i = 0; i < 4; ++i) {
     if (my_pos[i] >= t_len) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    T* dst = o + ((static_cast<size_t>(b) * t_len + my_pos[i]) * hq + h) * DH + tx * 4;
-    Vec<T>::store4(dst, acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv, acc[i][3] * inv);
+    T* dst = o + ((static_cast<size_t>(b) * t_len + my_pos[i]) * hq + h) * DH;
+#pragma unroll
+    for (int c = 0; c < FULL; ++c)
+      Vec<T>::store4(dst + c * 64 + tx * 4, acc[i][4 * c] * inv, acc[i][4 * c + 1] * inv,
+                     acc[i][4 * c + 2] * inv, acc[i][4 * c + 3] * inv);
+#pragma unroll
+    for (int j = 4 * FULL; j < NC; ++j) {
+      const int col = 64 * FULL + (j - 4 * FULL) * 16 + tx;
+      if (col < DH) Vec<T>::store1(dst + col, acc[i][j] * inv);
+    }
   }
 }
 
-inline size_t smem_bytes(int n_tiles) {
-  return sizeof(float) * (BQ * DH + DH * BK + BK * DH + BQ * BK) + sizeof(int) * (BQ + BK) +
-         sizeof(int2) * n_tiles;
-}
-
-template <typename T>
+template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, int2* ranges,
                    void* o, int batch, int t_len, int hq, int group, Strides qs, Strides ks,
                    Strides vs, int causal, float sm_scale, cudaStream_t stream) {
-  const int n_tiles = (t_len + BQ - 1) / BQ;
-  const int cells = batch * n_tiles;
-  seg_tile_range_kernel<<<(cells + 127) / 128, 128, 0, stream>>>(seg, t_len, n_tiles, batch,
+  using C = Cfg<DH>;
+  const int n_kt = (t_len + C::BK - 1) / C::BK;
+  const int cells = batch * n_kt;
+  seg_tile_range_kernel<<<(cells + 127) / 128, 128, 0, stream>>>(seg, t_len, n_kt, C::BK, batch,
                                                                  ranges);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem = smem_bytes(n_tiles);
-  auto kernel = flash_fwd_kernel<T>;
+  auto kernel = flash_fwd_kernel<T, DH>;
+  const size_t smem = C::smem_bytes(n_kt);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(n_tiles, hq, batch);
+  const dim3 grid((t_len + BQ - 1) / BQ, hq, batch);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), seg, ranges,
-      static_cast<T*>(o), t_len, n_tiles, hq, group, qs, ks, vs, causal, sm_scale);
+      static_cast<T*>(o), t_len, n_kt, hq, group, qs, ks, vs, causal, sm_scale);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v, const int* seg,
+                      int2* ranges, void* o, int batch, int t_len, int hq, int group, Strides qs,
+                      Strides ks, Strides vs, int causal, float sm_scale, cudaStream_t stream) {
+  switch (dh) {
+    case 64:
+      return launch<T, 64>(q, k, v, seg, ranges, o, batch, t_len, hq, group, qs, ks, vs, causal,
+                           sm_scale, stream);
+    case 72:
+      return launch<T, 72>(q, k, v, seg, ranges, o, batch, t_len, hq, group, qs, ks, vs, causal,
+                           sm_scale, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, seg, ranges, o, batch, t_len, hq, group, qs, ks, vs, causal,
+                            sm_scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace vrt_fa
@@ -319,9 +435,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, 
 // 1 bf16, the same for q, k, v and o. q [batch, t_len, hq, dh] and k, v
 // [batch, t_len, hkv, dh] with the given element strides (the head dim
 // contiguous; rows 16-byte aligned); seg [batch, t_len] int32 contiguous;
-// tile_range: scratch of batch * ceil(t_len / 64) int2; o [batch, t_len, hq,
-// dh] contiguous, written in full. dh must be 64 and hq a multiple of hkv.
-// Returns the cudaError_t of the launches.
+// tile_range: scratch of batch * ceil(t_len / 32) int2; o [batch, t_len, hq,
+// dh] contiguous, written in full. dh must be 64, 72 or 256 and hq a multiple
+// of hkv. Returns the cudaError_t of the launches.
 extern "C" int vrt_flash_attention(int device, int dtype, const void* q, const void* k,
                                    const void* v, const void* seg, void* tile_range, void* o,
                                    int batch, int t_len, int hq, int hkv, int dh,
@@ -331,8 +447,8 @@ extern "C" int vrt_flash_attention(int device, int dtype, const void* q, const v
                                    float sm_scale, void* stream) {
   using namespace vrt_fa;
   if (batch == 0 || t_len == 0) return 0;
-  if (dh != DH || hkv <= 0 || hq % hkv != 0 || (t_len + BQ - 1) / BQ > MAX_TILES ||
-      hq > 65535 || batch > 65535)
+  if ((dh != 64 && dh != 72 && dh != 256) || hkv <= 0 || hq % hkv != 0 ||
+      (t_len + BQ - 1) / BQ > MAX_TILES || hq > 65535 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -343,11 +459,11 @@ extern "C" int vrt_flash_attention(int device, int dtype, const void* q, const v
   const int group = hq / hkv;
   switch (dtype) {
     case 0:
-      return static_cast<int>(launch<float>(q, k, v, s, r, o, batch, t_len, hq, group, qs, ks,
-                                            vs, causal, sm_scale, st));
+      return static_cast<int>(launch_dh<float>(dh, q, k, v, s, r, o, batch, t_len, hq, group, qs,
+                                               ks, vs, causal, sm_scale, st));
     case 1:
-      return static_cast<int>(launch<__nv_bfloat16>(q, k, v, s, r, o, batch, t_len, hq, group,
-                                                    qs, ks, vs, causal, sm_scale, st));
+      return static_cast<int>(launch_dh<__nv_bfloat16>(dh, q, k, v, s, r, o, batch, t_len, hq,
+                                                       group, qs, ks, vs, causal, sm_scale, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

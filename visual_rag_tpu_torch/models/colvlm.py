@@ -1,16 +1,19 @@
-"""ColVLM in PyTorch, for the configurations ColSmol-500M runs.
+"""ColVLM in PyTorch, for the configurations ColSmol-500M and ColPali-v1.3 run.
 
 Counterpart of ``visual_rag_tpu/models/colvlm.py``. The four config
 dataclasses and their classmethods (``:31-177``) are copied as they are, so
 that a config means the same on both sides. The modules are the ones
-ColSmol runs: ``RMSNorm`` (``:233-247``), 1-D ``_rope`` (``:180-209``),
-``GQAttention`` (``:250-295``), ``SwiGLU`` (``:298-312``), ``DecoderBlock``
-(``:387-408``), ``ViTBlock`` (``:451-477``), ``VisionTower`` (``:480-534``),
-and ``ColVLM`` with the pixel shuffle (``:604-618``), the connector, ``_lm``,
-``_project`` and the image-slot merge (``:654-709``). A config that needs
-more (MoE, scanned or rematerialized layers, the PatchMerger, M-RoPE or 2-D
-RoPE, gated or RMS-normed vision blocks, Gemma's norm offset, embedding
-scale or GeGLU) is refused with a ``NotImplementedError`` naming the field.
+ColSmol and ColPali run: ``RMSNorm`` with Gemma's optional offset
+(``:233-247``), 1-D ``_rope`` (``:180-209``), ``GQAttention``
+(``:250-295``), ``SwiGLU`` with SiLU or Gemma's GeGLU (``:298-312``),
+``DecoderBlock`` (``:387-408``), ``ViTBlock`` (``:451-477``),
+``VisionTower`` (``:480-534``; per-tile positions with the pixel shuffle,
+``pos[:n]`` without it), and ``ColVLM`` with the pixel shuffle
+(``:604-618``), the connector, ``_lm``, ``_project``, the image-slot merge
+and PaliGemma's embedding scale (``:654-709``). A config that needs more
+(MoE, scanned or rematerialized layers, the PatchMerger, M-RoPE or 2-D
+RoPE, gated or RMS-normed vision blocks: ColQwen2.5) is refused with a
+``NotImplementedError`` naming the field.
 
 Numerics follow flax's: a ``Dense`` with ``dtype`` bf16 casts its input, its
 kernel and its bias to bf16 (the port stores them in bf16); ``LayerNorm``
@@ -38,6 +41,8 @@ from torch import nn
 from visual_rag_tpu_torch.models.attention import mha
 
 DEFAULT_EMBED_DIM = 128
+# the decoder MLP's activations: SwiGLU's SiLU, Gemma's GeGLU (tanh GELU)
+MLP_ACTS = {"silu": F.silu, "gelu_tanh": functools.partial(F.gelu, approximate="tanh")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,9 +189,7 @@ _UNSUPPORTED = (
     ("text.scan_layers", lambda c: c.text.scan_layers),
     ("text.ring_axis", lambda c: c.text.ring_axis is not None),
     ("text.mrope_section", lambda c: c.text.mrope_section is not None),
-    ("text.rms_offset", lambda c: c.text.rms_offset),
-    ("text.embed_scale", lambda c: c.text.embed_scale),
-    ("text.mlp_act", lambda c: c.text.mlp_act != "silu"),
+    ("text.mlp_act", lambda c: c.text.mlp_act not in MLP_ACTS),
     ("remat", lambda c: c.remat),
     ("spatial_merge", lambda c: c.spatial_merge > 1),
     ("vision.rope_2d", lambda c: c.vision.rope_2d),
@@ -197,12 +200,12 @@ _UNSUPPORTED = (
 
 def check_supported(cfg: ColVLMConfig) -> None:
     """Raise ``NotImplementedError`` naming the first field the port's
-    ColVLM does not run (ColPali and ColQwen2.5 are later slices)."""
+    ColVLM does not run (ColQwen2.5 is a later slice)."""
     for name, needs in _UNSUPPORTED:
         if needs(cfg):
             value = functools.reduce(getattr, name.split("."), cfg)
             raise NotImplementedError(f"the port's ColVLM does not run {name} = {value!r} "
-                                      "yet (ColSmol-shaped configs only)")
+                                      "yet (ColSmol- and ColPali-shaped configs only)")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -237,18 +240,19 @@ class LayerNorm(nn.Module):
 
 
 class RMSNorm(nn.Module):
-    """``colvlm.py:233-247`` without Gemma's offset: f32 inside, output in
-    the input's dtype."""
+    """``colvlm.py:233-247``: f32 inside, output in the input's dtype. With
+    ``offset`` (Gemma) the output is ``norm * (1 + scale)``, and the scale
+    starts at zeros (``init_params``), as flax's does."""
 
-    def __init__(self, dim: int, eps: float = 1e-6, device=None):
+    def __init__(self, dim: int, eps: float = 1e-6, offset: bool = False, device=None):
         super().__init__()
-        self.eps = eps
+        self.eps, self.offset = eps, offset
         self.scale = nn.Parameter(torch.empty(dim, device=device))
 
     def forward(self, x):
         x32 = x.float()
         norm = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + self.eps)
-        return (norm * self.scale).to(x.dtype)
+        return (norm * ((1.0 + self.scale) if self.offset else self.scale)).to(x.dtype)
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -295,26 +299,30 @@ class GQAttention(nn.Module):
 
 
 class SwiGLU(nn.Module):
-    def __init__(self, hidden: int, mlp_hidden: int, dtype, device=None):
+    """Gated MLP: ``down(act(gate(x)) * up(x))``, ``act`` a key of
+    ``MLP_ACTS`` (``"gelu_tanh"``: Gemma's GeGLU)."""
+
+    def __init__(self, hidden: int, mlp_hidden: int, dtype, act: str = "silu", device=None):
         super().__init__()
         kw = dict(bias=False, dtype=dtype, device=device)
+        self.act = MLP_ACTS[act]
         self.gate = Dense(hidden, mlp_hidden, **kw)
         self.up = Dense(hidden, mlp_hidden, **kw)
         self.down = Dense(mlp_hidden, hidden, **kw)
 
     def forward(self, x):
-        return self.down(F.silu(self.gate(x)) * self.up(x))
+        return self.down(self.act(self.gate(x)) * self.up(x))
 
 
 class DecoderBlock(nn.Module):
     def __init__(self, cfg: TextConfig, dtype, device=None):
         super().__init__()
-        self.ln1 = RMSNorm(cfg.hidden, device=device)
+        self.ln1 = RMSNorm(cfg.hidden, offset=cfg.rms_offset, device=device)
         self.attn = GQAttention(cfg.hidden, cfg.heads, cfg.kv_heads, dtype,
                                 rope_theta=cfg.rope_theta, causal=cfg.causal,
                                 qkv_bias=cfg.attn_qkv_bias, device=device)
-        self.ln2 = RMSNorm(cfg.hidden, device=device)
-        self.mlp = SwiGLU(cfg.hidden, cfg.mlp_hidden, dtype, device=device)
+        self.ln2 = RMSNorm(cfg.hidden, offset=cfg.rms_offset, device=device)
+        self.mlp = SwiGLU(cfg.hidden, cfg.mlp_hidden, dtype, act=cfg.mlp_act, device=device)
 
     def forward(self, x, mask, positions):
         h = x + self.attn(self.ln1(x), mask, positions)
@@ -416,7 +424,7 @@ class ColVLM(nn.Module):
                                       device=device)
         self.layers = nn.ModuleList(DecoderBlock(cfg.text, dtype, device=device)
                                     for _ in range(cfg.text.layers))
-        self.final_norm = RMSNorm(cfg.text.hidden, device=device)
+        self.final_norm = RMSNorm(cfg.text.hidden, offset=cfg.text.rms_offset, device=device)
         self.proj = Dense(cfg.text.hidden, cfg.embed_dim, bias=cfg.proj_bias, dtype=dtype,
                           device=device)
         self._use_flash = True
@@ -452,17 +460,30 @@ class ColVLM(nn.Module):
         e = e / (torch.linalg.vector_norm(e, dim=-1, keepdim=True) + 1e-8)
         return e * mask[..., None].float()
 
+    def _scaled(self, x, power: float):
+        """``x * hidden ** power`` in x's dtype, the factor rounded to it
+        first, as JAX multiplies an array by a weak-typed python float (the
+        rounding is made on the host: no copy to the device)."""
+        return x * float(torch.tensor(self.cfg.text.hidden ** power, dtype=x.dtype))
+
     def forward(self, input_ids, attn_mask, patches=None, patch_mask=None, window_ids=None):
         """Pages (ids holding image placeholders, filled with the image
-        embeddings in order, as HF's masked_scatter does) or plain queries."""
+        embeddings in order, as HF's masked_scatter does) or plain queries.
+        With ``text.embed_scale`` (PaliGemma) the image features are divided
+        by sqrt(hidden) before the merge and the whole sequence multiplied
+        by it after (``colvlm.py:683-694``)."""
         input_ids = input_ids.long()
         x = self.tok_embed(input_ids)
         if patches is not None:
             img = self.encode_images(patches, patch_mask, window_ids)  # [B, Ni, H]
+            if self.cfg.text.embed_scale:
+                img = self._scaled(img, -0.5)
             is_img = input_ids == self.cfg.image_token_id
             slot = (torch.cumsum(is_img.to(torch.int32), dim=1) - 1).clamp(0, img.shape[1] - 1)
             gathered = torch.gather(img, 1, slot[..., None].long().expand(-1, -1, img.shape[2]))
             x = torch.where(is_img[..., None], gathered.to(x.dtype), x)
+        if self.cfg.text.embed_scale:
+            x = self._scaled(x, 0.5)
         return self._project(self._lm(x, attn_mask), attn_mask)
 
     def embed_queries(self, input_ids, attn_mask):

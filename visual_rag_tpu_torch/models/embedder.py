@@ -1,6 +1,8 @@
 """VisualEmbedder: the embedding facade on the port's ColVLM.
 
-Counterpart of ``visual_rag_tpu/models/embedder.py`` for the ColSmol backend:
+Counterpart of ``visual_rag_tpu/models/embedder.py`` for the ColSmol and
+ColPali backends (ColSmol-500M and ColPali-v1.3, ``_CONFIG_BY_BACKEND``
+``:49-54``):
 
 - ``embed_query`` / ``embed_queries`` with the optional length sort, the
   NaN/Inf guard that logs the query and recomputes it alone, and the
@@ -10,16 +12,17 @@ Counterpart of ``visual_rag_tpu/models/embedder.py`` for the ColSmol backend:
   1-deep pipeline of ``:223-266``: batch i + 1 is dispatched, its inputs
   copied from pinned host memory without blocking, before batch i's output
   is read back;
-- ``extract_visual_embedding`` and the ColSmol branches of
-  ``mean_pool_visual_embedding``, ``experimental_pool_visual_embedding`` and
-  ``global_pool_from_mean_pool`` (``:271-359``).
+- ``extract_visual_embedding``, ``mean_pool_visual_embedding``,
+  ``experimental_pool_visual_embedding`` and ``global_pool_from_mean_pool``
+  (``:271-359``), every branch (the ColQwen grid branch needs only numpy).
 
-Other backends (ColPali, ColQwen2.5) and checkpoint loading raise
-``NotImplementedError``. Weights are random from ``seed`` unless a
-``state_dict`` (``params``) is given, e.g. one carried from the JAX model by
-``models/convert.py::params_from_flax``. The model runs on ``device``
-(``"cuda"`` by default; the CPU only when asked), where every attention goes
-to the flash-attention kernel K10 (its plain version on the CPU).
+The ColQwen backends (``colqwen2.5``, ``colqwen2``) and checkpoint loading
+raise ``NotImplementedError``. Weights are random from ``seed``, drawn on
+``device``, unless a ``state_dict`` (``params``) is given, e.g. one carried
+from the JAX model by ``models/convert.py::params_from_flax`` or from an HF
+state dict by ``params_from_hf``. The model runs on ``device`` (``"cuda"``
+by default; the CPU only when asked), where every attention goes to the
+flash-attention kernel K10 (its plain version on the CPU).
 """
 
 from __future__ import annotations
@@ -53,6 +56,13 @@ MODEL_BACKENDS = {
 }
 
 
+# visual_rag_tpu/models/embedder.py:49-54, for the backends the port runs
+_CONFIG_BY_BACKEND = {
+    "colsmol": ColVLMConfig.colsmol_500m,
+    "colpali": ColVLMConfig.colpali_v13,
+}
+
+
 def detect_backend(model_name: str) -> str:
     name = (model_name or "").lower()
     for key, backend in MODEL_BACKENDS.items():
@@ -62,7 +72,7 @@ def detect_backend(model_name: str) -> str:
 
 
 class VisualEmbedder:
-    """Late-interaction embedder over the port's ColVLM (ColSmol)."""
+    """Late-interaction embedder over the port's ColVLM (ColSmol, ColPali)."""
 
     def __init__(
         self,
@@ -80,16 +90,16 @@ class VisualEmbedder:
     ):
         self.model_name = model_name
         self.backend = detect_backend(model_name)
-        if self.backend != "colsmol":
+        if self.backend not in _CONFIG_BY_BACKEND:
             raise NotImplementedError(
-                f"the port embeds with ColSmol only; {model_name!r} needs the "
+                f"the port embeds with {sorted(_CONFIG_BY_BACKEND)}; {model_name!r} needs the "
                 f"{self.backend} backend (a later slice)")
         if checkpoint is not None:
             raise NotImplementedError("loading an HF checkpoint into the port is not ported yet")
         self.device = resolve_device(device)
         self.batch_size = int(batch_size)
         self.output_dtype = np.dtype(output_dtype)
-        self.cfg = config or ColVLMConfig.colsmol_500m()
+        self.cfg = config or _CONFIG_BY_BACKEND[self.backend]()
         self._params = params
         self._seed = seed
         self._model = None
@@ -245,20 +255,50 @@ class VisualEmbedder:
         idx = np.asarray(token_info["visual_token_indices"], dtype=np.int64)
         return np.asarray(full_embedding)[idx].astype(self.output_dtype)
 
-    # -- pooling (the ColSmol branches of embedder.py:278-359) ----------------
+    # -- pooling dispatch (embedder.py:278-359) ---------------------------------
 
     def mean_pool_visual_embedding(self, visual_embedding,
                                    token_info: Optional[Dict[str, Any]] = None, *,
                                    target_vectors: Optional[int] = 32) -> np.ndarray:
-        """Per-tile means; ``target_vectors`` is the other backends' cap and
-        is not read on ColSmol."""
+        """ColSmol: per-tile means. ColQwen2.5: adaptive row means of its
+        effective grid under the ``target_vectors`` cap. Otherwise (ColPali):
+        row means of a square grid (adaptive bins where the grid is not the
+        cap), else sequence chunks."""
+        is_colqwen25 = self.backend == "colqwen2.5"
+        cap = None if target_vectors is None or int(target_vectors) <= 0 else int(target_vectors)
+        if not is_colqwen25 and cap is None:
+            cap = 32
         visual_np = np.asarray(visual_embedding, dtype=np.float32)
+        num_tokens = int(visual_np.shape[0])
         info = token_info or {}
-        n_rows, n_cols = info.get("n_rows"), info.get("n_cols")
-        num_tiles = int(n_rows) * int(n_cols) + 1 if n_rows and n_cols else 13
-        return np.asarray(pool_ops.tile_level_mean_pooling(
-            visual_np, num_tiles=num_tiles, patches_per_tile=64,
-            output_dtype=self.output_dtype))
+
+        if self.backend == "colsmol":
+            n_rows, n_cols = info.get("n_rows"), info.get("n_cols")
+            num_tiles = int(n_rows) * int(n_cols) + 1 if n_rows and n_cols else 13
+            return np.asarray(pool_ops.tile_level_mean_pooling(
+                visual_np, num_tiles=num_tiles, patches_per_tile=64,
+                output_dtype=self.output_dtype))
+
+        if is_colqwen25:
+            gh, gw = info.get("grid_h_eff"), info.get("grid_w_eff")
+            if gh and gw and int(gh) * int(gw) == num_tokens:
+                target_rows = int(gh) if cap is None else min(cap, int(gh))
+                return np.asarray(pool_ops.adaptive_row_mean_pooling_from_grid(
+                    visual_np, grid_h=int(gh), grid_w=int(gw), target_rows=target_rows,
+                    output_dtype=self.output_dtype))
+
+        grid = int(round(num_tokens ** 0.5))
+        if grid * grid == num_tokens:
+            target = grid if (is_colqwen25 and cap is None) else int(cap)
+            if grid == target:
+                return np.asarray(pool_ops.colpali_row_mean_pooling(
+                    visual_np, grid_size=target, output_dtype=self.output_dtype))
+            return np.asarray(pool_ops.adaptive_row_mean_pooling_from_grid(
+                visual_np, grid_h=grid, grid_w=grid, target_rows=target,
+                output_dtype=self.output_dtype))
+
+        return np.asarray(pool_ops.sequence_chunk_mean_pooling(
+            visual_np, target_rows=int(cap or 32), output_dtype=self.output_dtype))
 
     def global_pool_from_mean_pool(self, mean_pool: np.ndarray) -> np.ndarray:
         if mean_pool.size == 0:
@@ -271,18 +311,36 @@ class VisualEmbedder:
                                            mean_pool: Optional[np.ndarray] = None,
                                            window_size: Optional[int] = None,
                                            kernel: Optional[str] = None) -> np.ndarray:
-        """Tile means of all tiles but the last, then the last (global)
-        tile's raw tokens. ``window_size`` and ``kernel`` belong to the other
-        backends' smoothing and are not read on ColSmol."""
+        """ColSmol: tile means of all tiles but the last, then the last
+        (global) tile's raw tokens. Otherwise the mean-pooled rows smoothed:
+        the legacy clipped-window conv (ColPali's default, window 3; N rows
+        -> N + 2) or a same-length gaussian, triangular or uniform kernel
+        (ColQwen2.5's default: gaussian)."""
+        is_colqwen25 = self.backend == "colqwen2.5"
         visual_np = np.asarray(visual_embedding, dtype=np.float32)
-        if mean_pool is not None and getattr(mean_pool, "shape", None) and mean_pool.shape[0] > 0:
-            num_tiles = int(mean_pool.shape[0])
-        else:
-            info = token_info or {}
-            num_tiles = info.get("num_tiles")
-            if num_tiles is None:
-                nv = info.get("num_visual_tokens") or int(visual_np.shape[0])
-                num_tiles = -(-int(nv) // 64)
-        return np.asarray(pool_ops.colsmol_experimental_pooling(
-            visual_np, num_tiles=int(num_tiles), patches_per_tile=64,
+
+        if self.backend == "colsmol":
+            if mean_pool is not None and getattr(mean_pool, "shape", None) and mean_pool.shape[0] > 0:
+                num_tiles = int(mean_pool.shape[0])
+            else:
+                info = token_info or {}
+                num_tiles = info.get("num_tiles")
+                if num_tiles is None:
+                    nv = info.get("num_visual_tokens") or int(visual_np.shape[0])
+                    num_tiles = -(-int(nv) // 64)
+            return np.asarray(pool_ops.colsmol_experimental_pooling(
+                visual_np, num_tiles=int(num_tiles), patches_per_tile=64,
+                output_dtype=self.output_dtype))
+
+        rows = mean_pool if mean_pool is not None else self.mean_pool_visual_embedding(
+            visual_np, token_info, target_vectors=target_vectors)
+        k = (kernel or ("gaussian" if is_colqwen25 else "legacy")).lower().strip()
+        if k in ("legacy", "legacy_conv", "conv"):
+            window = int(window_size) if window_size is not None else (5 if is_colqwen25 else 3)
+            return np.asarray(pool_ops.colpali_experimental_pooling_from_rows(
+                rows, window_size=window, output_dtype=self.output_dtype))
+        window = int(window_size) if window_size is not None else 3
+        return np.asarray(pool_ops.weighted_row_smoothing_same_length(
+            rows, window_size=window,
+            kernel=k if k in ("gaussian", "triangular") else "uniform",
             output_dtype=self.output_dtype))

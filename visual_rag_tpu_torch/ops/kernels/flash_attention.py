@@ -14,8 +14,9 @@ pad query (segment 0) attends the pad keys. Logits, maxima and sums are f32,
 the output is in the input dtype, and a row with no allowed key is zeros.
 
 On a CUDA tensor :func:`flash_attention` launches ``csrc/flash_attention.cu``
-(f32 or bf16, ``Dh`` 64) or raises; on a CPU tensor it runs
-:func:`flash_attention_plain`.
+(f32 or bf16, ``Dh`` 64, 72 or 256: ColSmol-500M's two towers, ColPali's
+vision tower and its Gemma text model) or raises; on a CPU tensor it runs
+:func:`flash_attention_plain`, which takes any ``Dh``.
 """
 
 from __future__ import annotations
@@ -27,9 +28,10 @@ import torch
 from visual_rag_tpu_torch.ops.kernels import _build
 from visual_rag_tpu_torch.ops.kernels._checks import on_cpu, ptr, stream_ptr
 
-KERNEL_HEAD_DIM = 64  # csrc/flash_attention.cu DH: what ColSmol-500M's two towers need
-TILE = 64  # rows a query tile and keys a kv tile
-MAX_TILES = 16384  # csrc/flash_attention.cu MAX_TILES
+KERNEL_HEAD_DIMS = (64, 72, 256)  # the instances of csrc/flash_attention.cu
+TILE = 64  # rows a query tile
+MIN_KV_TILE = 32  # keys of the smallest kv tile (Dh 256): the tile-range scratch is sized by it
+MAX_TILES = 16384  # csrc/flash_attention.cu MAX_TILES, in query tiles
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -61,8 +63,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seg: torc
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"the flash-attention kernel takes f32 or bf16 q, k and v, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if dh != KERNEL_HEAD_DIM:
-        raise ValueError(f"the flash-attention kernel takes head dim {KERNEL_HEAD_DIM}, got {dh}")
+    if dh not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the flash-attention kernel takes head dims {KERNEL_HEAD_DIMS}, "
+                         f"got {dh}")
     vec = 16 // q.element_size()
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(3) != 1 or any(s % vec for s in x.stride()[:3]) or x.data_ptr() % 16:
@@ -75,7 +78,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seg: torc
     if b == 0 or t == 0:
         return out
     seg = seg.contiguous()
-    ranges = torch.empty((b, n_tiles, 2), dtype=torch.int32, device=q.device)
+    ranges = torch.empty((b, -(-t // MIN_KV_TILE), 2), dtype=torch.int32, device=q.device)
     lib = _build.load_library()
     err = lib.vrt_flash_attention(
         q.device.index, _DTYPE_CODES[q.dtype], ptr(q), ptr(k), ptr(v), ptr(seg), ptr(ranges),

@@ -3,12 +3,17 @@
 The vector part of the JAX ingest pipeline (``visual_rag_tpu/pipeline/
 pipeline.py``): :func:`experimental_vector_plan` (``:38-75``) copied as it
 is, and :func:`page_vectors`, the vector and token-info half of
-``ProcessingPipeline._process_single_page`` (``:281-354``) for ColSmol with
-the pipeline's defaults (strategy ``"pooling"``, no 2-D variant):
-``initial`` holds the visual tokens, then ``mean_pooling``,
-``experimental_pooling`` and ``global_pooling``. The other strategies, PDF
-rendering, cropping, page-image upload, the upload queue and the
-``colsmol_2d`` vector come with the ingest/CLI slice.
+``ProcessingPipeline._process_single_page`` and ``_produce_experimental``
+(``:281-354``) with the pipeline's defaults (strategy ``"pooling"``, window
+3, kernel ``"auto"``, no 2-D variant), for the backends the port embeds
+with: ``initial`` holds the visual tokens, then ``mean_pooling``,
+``global_pooling``, one vector per producer of the plan (ColSmol:
+``experimental_pooling``; ColPali: ``experimental_pooling_3``, the legacy
+conv) and the ``experimental_pooling`` alias column, the canonical
+producer's. A caller seals them under
+``CollectionSchema.standard(experimental_names=plan["names"])``. The other
+strategies, PDF rendering, cropping, page-image upload, the upload queue and
+the ``colsmol_2d`` vector come with the ingest/CLI slice.
 """
 
 from __future__ import annotations
@@ -61,7 +66,7 @@ def experimental_vector_plan(
 
 def page_vectors(embedder, emb: np.ndarray,
                  info: Dict[str, Any]) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
-    """(named vectors, token-info payload fields) of one embedded ColSmol page.
+    """(named vectors, token-info payload fields) of one embedded page.
 
     ``emb`` and ``info`` are one page's output of
     ``embedder.embed_images(..., return_token_info=True)``. The payload
@@ -69,14 +74,20 @@ def page_vectors(embedder, emb: np.ndarray,
     (``pipeline.py:331-346``), with the pipeline's defaults; the caller adds
     its own (file name, page number, metadata).
     """
-    if embedder.backend != "colsmol":
-        raise NotImplementedError(f"the {embedder.backend} vector plan comes with its model")
     plan = experimental_vector_plan(embedder.backend)
     visual = embedder.extract_visual_embedding(emb, info)
     mean_pool = np.asarray(embedder.mean_pool_visual_embedding(
         visual, info, target_vectors=MAX_MEAN_POOL_VECTORS))
-    experimental = {"experimental_pooling": np.asarray(
-        embedder.experimental_pool_visual_embedding(visual, info, mean_pool=mean_pool))}
+    experimental = {}
+    for name, spec in plan["producers"].items():  # pipeline.py:286-297
+        if spec["kind"] not in ("colsmol", "legacy", "smooth"):
+            raise NotImplementedError(f"the {spec['kind']} experimental vector is not ported")
+        extra = {} if spec["kind"] == "colsmol" else dict(
+            kernel=spec.get("kernel", "legacy"), window_size=spec["window"])
+        experimental[name] = np.asarray(embedder.experimental_pool_visual_embedding(
+            visual, info, mean_pool=mean_pool, **extra))
+    experimental["experimental_pooling"] = experimental.get(
+        "experimental_pooling", experimental[plan["canonical"]])
     global_pool = np.asarray(embedder.global_pool_from_mean_pool(mean_pool))
     payload = {
         "num_visual_tokens": int(info.get("num_visual_tokens") or visual.shape[0]),

@@ -10,6 +10,16 @@ padded wire raises.
 
 Policies, as the JAX engine's except where noted:
 
+- constructor: the JAX engine's arguments (``engine.py:279-338``), each with
+  the port's meaning. ``compute_dtype`` None resolves to ``"float32"``, as
+  the JAX engine's does off the TPU: the plans score in f32, and
+  ``"bfloat16"`` is refused. ``rerank_chunk`` is recorded only: K3 and K4
+  take any batch in one launch. ``stage1_cut`` ``"auto"`` and ``"exact"``
+  both cut exactly; ``"approx"`` is refused. ``wire_dtype`` ``"auto"`` and
+  ``"f32"`` give the f32 wire; ``"f16"`` is refused. ``VISUALRAG_QUERY_WIRE``
+  and ``VISUALRAG_WIRE_DTYPE`` are read only where the argument is
+  ``"auto"`` (``engine.py:314-315, 326-327``). Every refusal is a
+  ``ValueError`` naming the declared difference (ROADMAP).
 - wire: ``query_wire="auto"`` is the packed wire at B >= 32 on CUDA and the
   padded wire on the CPU (``engine.py:637-639``). The wire is always f32;
   the JAX engine's automatic f16 wire is not inherited (ROADMAP C6).
@@ -31,8 +41,10 @@ Policies, as the JAX engine's except where noted:
 
 from __future__ import annotations
 
+import os
+import time
 from collections import deque
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -117,21 +129,52 @@ class RetrievalEngine:
         pooled_vector_name: str = "mean_pooling",
         global_vector_name: str = "global_pooling",
         experimental_vector_name: str = "experimental_pooling",
+        compute_dtype: Optional[str] = None,
+        rerank_chunk: int = 256,
+        stage1_cut: str = "auto",
         rerank_impl: str = "auto",
         query_wire: str = "auto",
+        wire_dtype: str = "auto",
     ):
+        compute_dtype = "float32" if compute_dtype is None else compute_dtype
+        if compute_dtype != "float32":
+            raise ValueError(
+                f"compute_dtype must be float32 (or None), got {compute_dtype!r}: the port's "
+                "plans score in f32; the JAX engine's bf16 scoring on the TPU is a declared "
+                "difference")
+        if stage1_cut == "approx":
+            raise ValueError(
+                "stage1_cut='approx' is refused: the port's stage-1 cut is always exact "
+                "(lax.approx_max_k is a declared difference)")
+        if stage1_cut not in ("auto", "exact"):
+            raise ValueError(f"stage1_cut must be auto|exact, got {stage1_cut!r}")
         if rerank_impl not in ("auto", "plain", "dedup", "sweep", "scan"):
             raise ValueError(
                 f"rerank_impl must be auto|plain|dedup|sweep|scan, got {rerank_impl!r}")
+        # the environment refines the default only: an explicit argument wins
+        if query_wire == "auto":
+            query_wire = os.environ.get("VISUALRAG_QUERY_WIRE", query_wire)
         if query_wire not in ("auto", "padded", "packed"):
             raise ValueError(f"query_wire must be auto|padded|packed, got {query_wire!r}")
+        if wire_dtype == "auto":
+            wire_dtype = os.environ.get("VISUALRAG_WIRE_DTYPE", wire_dtype)
+        if wire_dtype == "f16":
+            raise ValueError(
+                "wire_dtype='f16' is refused: the port serves an f32 query wire only (the "
+                "JAX engine's f16 wire has no oracle; a declared difference)")
+        if wire_dtype not in ("auto", "f32"):
+            raise ValueError(f"wire_dtype must be auto|f32, got {wire_dtype!r}")
         self.index = index
         self.full_vector_name = full_vector_name
         self.pooled_vector_name = pooled_vector_name
         self.global_vector_name = global_vector_name
         self.experimental_vector_name = experimental_vector_name
+        self.compute_dtype = compute_dtype
+        self.rerank_chunk = int(rerank_chunk)  # recorded only: K3 and K4 take any batch
+        self.stage1_cut = stage1_cut
         self.rerank_impl = rerank_impl
         self.query_wire = query_wire
+        self.wire_dtype = wire_dtype
         self.device = index.device if index.stores else None
         self._arrays: Dict[str, Dict] = {}
         self._ids: Optional[np.ndarray] = None
@@ -253,6 +296,24 @@ class RetrievalEngine:
         return mask
 
     # -- public search API -------------------------------------------------------
+
+    def warmup(self, modes: Sequence[str] = ("two_stage",),
+               batch_sizes: Sequence[int] = (1, 64), n_query_tokens: int = 24,
+               **search_kwargs) -> float:
+        """Run each mode once at each batch size on random queries (JAX
+        ``engine.py:249-273``): a serving process calls it at startup, so
+        that the first real query builds no kernel and finds the store
+        layouts cached. Its dim is the full store's. Returns seconds spent."""
+        dim = int(self.index.store(self.full_vector_name).dim)
+        rng = np.random.default_rng(0)
+        t0 = time.time()
+        for mode in modes:
+            for bs in batch_sizes:
+                qs = [rng.standard_normal((n_query_tokens, dim)).astype(np.float32)
+                      for _ in range(bs)]
+                self.search_embedded_batch(qs, mode=mode, top_k=10, with_payload=False,
+                                           **search_kwargs)
+        return time.time() - t0
 
     def search_embedded(self, query_embedding, mode: str = "two_stage", top_k: int = 10,
                         prefetch_k: Optional[int] = None,
