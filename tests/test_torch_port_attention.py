@@ -5,10 +5,13 @@
   ids (two or three segments, then pads), causal and not, f32 (atol 1e-5,
   every row, pads included) and bf16 (atol 2e-2: the TPU kernel rounds its
   softmax weights to bf16 before the product with v, the plain version
-  keeps them in f32; ~2 bf16 ulps at |o| ~ 2), at head dim 64 (ColSmol) and
-  at ColPali's 72 (vision) and 256 (text). Grouped kv heads against
+  keeps them in f32; ~2 bf16 ulps at |o| ~ 2), at head dim 64 (ColSmol), at
+  ColPali's 72 (vision) and 256 (text) and at ColQwen2.5's 80 (vision) and
+  128 (text); ColQwen's window segments, interleaved in the sequence as the
+  processor's merge-block order lays them out (runs of 16 patches of one
+  window over four block rows), then pads. Grouped kv heads against
   ``jnp.repeat`` followed by the library kernel: Hq 4 on Hkv 2 at Dh 64,
-  and Gemma's 8 on 1 at Dh 256.
+  Gemma's 8 on 1 at Dh 256 and Qwen2.5's 16 on 2 at Dh 128.
 - The port's ``mha`` against the JAX ``mha`` on the CPU, whose dense
   fallback runs there: with ``use_flash=True`` (K10's semantics) on the
   valid rows, and with ``use_flash=False`` (the dense fallback's own) on
@@ -102,6 +105,67 @@ def test_plain_matches_the_tpu_kernel_at_colpali_head_dims(dh, t, h, n_segments,
     if dtype == torch.bfloat16:
         q, k, v = (np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32)) for x in (q, k, v))
     np.testing.assert_allclose(_port(q, k, v, seg, causal, dtype), want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dh,t,h,n_segments,causal,dtype,atol", [
+    (80, 128, 2, 2, False, torch.float32, 1e-5),
+    (80, 256, 2, 3, True, torch.float32, 1e-5),
+    (80, 128, 2, 2, False, torch.bfloat16, 2e-2),
+    (128, 128, 2, 2, False, torch.float32, 1e-5),
+    (128, 256, 2, 3, True, torch.float32, 1e-5),
+    (128, 128, 2, 2, True, torch.bfloat16, 2e-2),
+])
+def test_plain_matches_the_tpu_kernel_at_colqwen_head_dims(dh, t, h, n_segments, causal, dtype,
+                                                           atol):
+    """ColQwen2.5's vision tower (Dh 80) and Qwen2.5 text model (Dh 128)."""
+    q, k, v, seg = _inputs(t + dh + 1, 2, t, h, h, n_segments, dh=dh)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = _tpu_kernel(q, k, v, seg, causal, jdt)
+    if dtype == torch.bfloat16:
+        q, k, v = (np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32)) for x in (q, k, v))
+    np.testing.assert_allclose(_port(q, k, v, seg, causal, dtype), want, rtol=0, atol=atol)
+
+
+def _window_segments(gh, gw, t):
+    """ColQwen2.5's vision segments for one page of gh x gw patches in the
+    processor's merge-block order (``processors.py:197-222``): window id + 1
+    of each 8 x 8 patch window, then pads (0) up to t."""
+    hp = np.arange(gh).repeat(gw).reshape(gh, gw)
+    wp = np.tile(np.arange(gw), (gh, 1))
+    order = lambda a: a.reshape(gh // 2, 2, gw // 2, 2).transpose(0, 2, 1, 3).reshape(-1)  # noqa: E731
+    hp, wp = order(hp), order(wp)
+    seg = np.zeros(t, np.int32)
+    seg[:gh * gw] = (hp // 8) * -(-gw // 8) + wp // 8 + 1
+    return seg
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_interleaved_window_segments_match_the_tpu_kernel(dtype, atol):
+    """A 20 x 22 patch page (3 x 3 windows, those at the right and bottom
+    edges partial) and a 16 x 24 one, then pads to T 512, at Dh 80: one
+    window's patches lie in runs of 16 (12 at the right edge) spread over
+    four merge-block rows."""
+    seg = np.stack([_window_segments(20, 22, 512), _window_segments(16, 24, 512)])
+    runs = np.diff(np.flatnonzero(np.diff(seg[0][:440])) + 1)
+    assert set(runs.tolist()) == {12, 16} and seg[0].max() == 9 and seg[1].max() == 6
+    first = np.flatnonzero(seg[0] == 1)
+    assert len(first) == 64 and first[-1] - first[0] > 64  # not one run
+    q, k, v, _ = _inputs(31, 2, 512, 2, 2, 2, dh=80)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = _tpu_kernel(q, k, v, seg, False, jdt)
+    if dtype == torch.bfloat16:
+        q, k, v = (np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32)) for x in (q, k, v))
+    np.testing.assert_allclose(_port(q, k, v, seg, False, dtype), want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_qwen_grouped_heads_match_repeat_then_the_tpu_kernel(causal):
+    """16 query heads on 2 kv heads at Dh 128, as ColQwen2.5's text model."""
+    q, k, v, seg = _inputs(13, 1, 128, 16, 2, 2, dh=128)
+    want = _tpu_kernel(q, np.repeat(k, 8, axis=2), np.repeat(v, 8, axis=2), seg, causal,
+                       jnp.float32)
+    np.testing.assert_allclose(_port(q, k, v, seg, causal, torch.float32), want,
+                               rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -15,8 +15,9 @@ hidden) is initialized in JAX and its parameters carried to the port with
   bf16 by per-token cosine >= 0.999 (0.99994 on these inputs: the two
   frameworks round bf16 at different places, XLA fusing some steps).
 - tiles stay isolated through the tower; the configs the port does not run
-  yet (ColQwen2.5's fields) are refused by name; ``init_params`` draws
-  flax's distributions, with zeros for Gemma's offset norm scales.
+  yet (MoE, scanned layers, ring attention, ``remat``, an unknown MLP
+  activation) are refused by name; ``init_params`` draws flax's
+  distributions, with zeros for Gemma's offset norm scales.
 
 ColPali: a ColPali-shaped tiny config that keeps both real head dims (vision
 hidden 144, 2 heads: Dh 72; Gemma text hidden 512, 2 heads on 1 kv head: Dh
@@ -27,6 +28,19 @@ vision tower without the shuffle (learned ``pos[:n]``, no windows, pads) in
 f32 at 1e-5; pages (with pad rows) and queries in f32 at 1e-4, and in bf16
 by per-token cosine >= 0.999 (0.99992 on these inputs; the embedding scale
 rounds its factor to bf16 on both sides).
+
+ColQwen2.5: a ColQwen-shaped tiny config that keeps both real head dims
+(vision hidden 160, 2 heads: Dh 80; Qwen2.5 text hidden 256, 2 heads on 1 kv
+head: Dh 128 with ColQwen2.5's M-RoPE sections (16, 24, 24)), spatial merge
+2, window segments with a full-attention layer among window layers, RMS-normed
+gated vision blocks with biases, q/k/v biases in the text model; its pages
+come from the processor (two aspect ratios in one batch, so one is padded):
+``_rope`` with M-RoPE sections, ``_rope_2d``, the vision block with window
+segments, the ``PatchMerger`` and the vision tower with the merger in f32 at
+1e-5; ``_mrope_positions`` bit-equal on pages with pads and on queries; pages
+and queries through the whole model in f32 at 1e-5 and in bf16 by per-token
+cosine >= 0.999; ``init_params`` for the new parameters and the full
+ColQwen2.5-v0.2's parameter count.
 """
 
 import dataclasses
@@ -211,22 +225,21 @@ def test_tile_position_ids_have_the_bucketing_quirk():
     assert torch.equal(ids[:1024], ids[1024:])
 
 
-def _colqwen_field(**kw):
-    """ColPali-v1.3 with one of ColQwen2.5's fields set."""
-    cfg = P.ColVLMConfig.colpali_v13()
-    if "vision" in kw:
-        return lambda: dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision,
-                                                                           **kw["vision"]))
-    return lambda: dataclasses.replace(cfg, **kw)
+def _text_field(base, **kw):
+    """``base()`` with fields of its text config set."""
+    def make():
+        cfg = base()
+        return dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, **kw))
+    return make
 
 
 @pytest.mark.parametrize("make,field", [
-    (_colqwen_field(vision=dict(rope_2d=True)), "vision.rope_2d"),
-    (_colqwen_field(spatial_merge=2), "spatial_merge"),
-    (P.ColVLMConfig.colqwen25_v02, "text.mrope_section"),
+    (_text_field(P.ColVLMConfig.colqwen25_v02, scan_layers=True), "text.scan_layers"),
+    (_text_field(P.ColVLMConfig.colqwen25_v02, ring_axis="sp"), "text.ring_axis"),
+    (_text_field(P.ColVLMConfig.colqwen25_v02, moe_experts=8), "text.moe_experts"),
     (lambda: dataclasses.replace(P.ColVLMConfig.tiny(), remat=True), "remat"),
-    (lambda: dataclasses.replace(P.ColVLMConfig.tiny(), text=dataclasses.replace(
-        P.ColVLMConfig.tiny().text, moe_experts=4)), "text.moe_experts"),
+    (_text_field(P.ColVLMConfig.tiny, moe_experts=4), "text.moe_experts"),
+    (_text_field(P.ColVLMConfig.tiny, mlp_act="relu"), "text.mlp_act"),
 ])
 def test_configs_it_does_not_run_are_refused(make, field):
     with pytest.raises(NotImplementedError, match=field.replace(".", r"\.")):
@@ -411,3 +424,197 @@ def test_colpali_whole_model_in_bf16_by_cosine(colpali_models):
         got = port.embed_pages(_t(ids), _t(amask), _t(patches), _t(pmask)).numpy()
     cos = (got * want).sum(-1)[amask]  # both sides L2-normalized
     assert cos.min() >= 0.999, cos.min()
+
+
+# -- ColQwen2.5 -----------------------------------------------------------------
+
+
+def _colqwen_cfg(cls, dtype="float32"):
+    """ColQwen2.5-v0.2's shape at tiny widths, keeping both of its head dims
+    (vision 160 / 2 = 80, text 256 / 2 = 128 on one kv head) and its M-RoPE
+    sections; 3 vision layers, the middle one full attention."""
+    real = cls.colqwen25_v02()
+    return dataclasses.replace(
+        real, dtype=dtype, image_token_id=500,
+        vision=dataclasses.replace(real.vision, hidden=160, layers=3, heads=2, mlp_ratio=2.0,
+                                   patch_pixels=48, max_patches=1024, full_attn_layers=(1,)),
+        text=dataclasses.replace(real.text, hidden=256, layers=2, heads=2, kv_heads=1,
+                                 mlp_hidden=512, vocab=512, max_seq=512))
+
+
+def _colqwen_page_inputs(cfg, seed=0):
+    """Two pages of two aspect ratios through the processor, in one batch
+    (the smaller one padded): ids, mask, patches, patch mask, window ids,
+    patch positions."""
+    from visual_rag_tpu_torch.models.processors import ImageProcessor
+
+    rng = np.random.default_rng(seed)
+    proc = ImageProcessor(backend="colqwen2.5", image_token_id=cfg.image_token_id,
+                          patch_pixels=cfg.vision.patch_pixels, vocab=cfg.text.vocab,
+                          max_visual_tokens=cfg.vision.max_patches // 4)
+    out = proc.process_images([rng.random((200, 520, 3), dtype=np.float32),  # 10 x 25 cells
+                               rng.random((300, 200, 3), dtype=np.float32)])  # 19 x 13
+    assert out.patch_mask[1].sum() < out.patch_mask[0].sum() < out.patch_mask.shape[1]
+    return (out.input_ids, out.attn_mask, out.patches, out.patch_mask, out.window_ids,
+            out.patch_positions)
+
+
+@pytest.fixture(scope="module")
+def colqwen_models():
+    """(JAX ColQwen-shaped model, its params, the port's f32 model with them)."""
+    model = J.ColVLM(_colqwen_cfg(J.ColVLMConfig))
+    params = jax.jit(model.init)(jax.random.PRNGKey(2), jnp.ones((1, 8), jnp.int32),
+                                 jnp.ones((1, 8), bool), jnp.ones((1, 64, 48)),
+                                 jnp.ones((1, 64), bool))
+    params = jax.tree.map(np.asarray, params)
+    # flax starts the norm scales at 1 and the biases at 0: move them
+    rng = np.random.default_rng(19)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, x: x + rng.normal(0, 0.1, x.shape).astype(x.dtype)
+        if path[-1].key in ("scale", "bias") else x, params)
+    cfg_p = _colqwen_cfg(P.ColVLMConfig)
+    return model, params, build_model(cfg_p, params_from_flax(params, cfg_p), "cpu")
+
+
+def test_mrope_matches():
+    rng = np.random.default_rng(20)
+    x = rng.standard_normal((2, 40, 3, 128)).astype(np.float32)
+    pos = rng.integers(0, 300, (2, 40, 3)).astype(np.int32)
+    want = np.asarray(J._rope(jnp.asarray(x), jnp.asarray(pos), 1e6, (16, 24, 24)))
+    got = P._rope(_t(x), _t(pos), 1e6, (16, 24, 24)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    # equal axes are 1-D RoPE; 3-D positions without sections use axis 0
+    same = np.repeat(pos[..., :1], 3, axis=-1)
+    torch.testing.assert_close(P._rope(_t(x), _t(same), 1e6, (16, 24, 24)),
+                               P._rope(_t(x), _t(pos[..., 0]), 1e6), rtol=0, atol=0)
+    torch.testing.assert_close(P._rope(_t(x), _t(pos), 1e6),
+                               P._rope(_t(x), _t(pos[..., 0]), 1e6), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="sum"):
+        P._rope(_t(x), _t(pos), 1e6, (16, 24, 16))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_rope_2d_matches(dtype):
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((2, 64, 2, 80)).astype(np.float32)
+    pos = rng.integers(0, 74, (2, 64, 2)).astype(np.int32)
+    jdt = jnp.float32 if dtype == np.float32 else jnp.bfloat16
+    want = np.asarray(J._rope_2d(jnp.asarray(x, jdt), jnp.asarray(pos), 10000.0)
+                      .astype(jnp.float32))
+    tx = _t(x) if dtype == np.float32 else _t(x).to(torch.bfloat16)
+    got = P._rope_2d(tx, _t(pos), 10000.0)
+    assert got.dtype == tx.dtype
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=1e-5 if dtype == np.float32 else 0)
+
+
+def test_colqwen_vit_block_matches(colqwen_models):
+    model, params, port = colqwen_models
+    _, _, _, pmask, wids, ppos = _colqwen_page_inputs(model.cfg, seed=22)
+    x = np.random.default_rng(23).standard_normal(pmask.shape + (160,)).astype(np.float32)
+    block = J.ViTBlock(model.cfg.vision, dtype=jnp.float32)
+    want = np.asarray(jax.jit(lambda p, *a: block.apply(p, *a[:2], segments=a[2],
+                                                        positions_2d=a[3]))(
+        {"params": params["params"]["vision"]["block_0"]}, jnp.asarray(x), jnp.asarray(pmask),
+        jnp.asarray(wids), jnp.asarray(ppos)))
+    blk = port.vision.blocks[0]
+    assert isinstance(blk.ln1, P.RMSNorm) and blk.mlp.gate.bias is not None
+    assert blk.mlp.gate.weight.shape == (320, 160)
+    got = blk(_t(x), _t(pmask), segments=_t(wids), positions_2d=_t(ppos)).detach().numpy()
+    np.testing.assert_allclose(got[pmask], want[pmask], rtol=0, atol=1e-5)
+
+
+def test_patch_merger_matches(colqwen_models):
+    _, params, port = colqwen_models
+    x = np.random.default_rng(24).standard_normal((2, 48, 160)).astype(np.float32)
+    want = J.PatchMerger(out_hidden=256, merge=2, dtype=jnp.float32).apply(
+        {"params": params["params"]["merger"]}, jnp.asarray(x))
+    got = port.merger(_t(x)).detach().numpy()
+    assert got.shape == (2, 12, 256)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-5)
+
+
+def test_colqwen_vision_tower_and_merger_match(colqwen_models):
+    model, params, port = colqwen_models
+    _, _, patches, pmask, wids, ppos = _colqwen_page_inputs(model.cfg, seed=25)
+    encode = jax.jit(lambda p, *a: model.apply(p, *a, method=J.ColVLM.encode_images))
+    want = np.asarray(encode(params, *(jnp.asarray(a) for a in (patches, pmask, wids, ppos))))
+    got = port.encode_images(*(_t(a) for a in (patches, pmask, wids, ppos))).detach().numpy()
+    assert got.shape == want.shape == (2, pmask.shape[1] // 4, 256)
+    valid = pmask[:, ::4]  # merged tokens of pad patches differ (pad attention), unread
+    assert valid.sum() == 250 + 247
+    np.testing.assert_allclose(got[valid], want[valid], rtol=0, atol=1e-5)
+
+
+def test_mrope_positions_are_bit_equal(colqwen_models):
+    model, params, port = colqwen_models
+    ids, amask, _, _, _, ppos = _colqwen_page_inputs(model.cfg, seed=26)
+    bound = model.bind(params)
+    want = np.asarray(bound._mrope_positions(jnp.asarray(ids), jnp.asarray(amask),
+                                             jnp.asarray(ppos)))
+    got = port._mrope_positions(_t(ids), _t(amask), _t(ppos)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got[amask][:, 1] != got[amask][:, 2]).any()  # image rows differ across axes
+    q_mask = amask[:, :20].copy()
+    q_mask[1, 13:] = False
+    want = np.asarray(bound._mrope_positions(jnp.asarray(ids[:, :20]), jnp.asarray(q_mask),
+                                             None))
+    np.testing.assert_array_equal(port._mrope_positions(_t(ids[:, :20]), _t(q_mask)).numpy(),
+                                  want)
+
+
+def test_colqwen_whole_model_matches_in_f32(colqwen_models):
+    model, params, port = colqwen_models
+    inputs = _colqwen_page_inputs(model.cfg, seed=27)
+    apply = jax.jit(model.apply)
+    want = np.asarray(apply(params, *(jnp.asarray(x) for x in inputs)))
+    with torch.inference_mode():
+        got = port.embed_pages(*(_t(x) for x in inputs)).numpy()
+    ids, amask = inputs[:2]
+    assert got.shape == want.shape == ids.shape + (128,)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    q_ids = ids[:, -24:].copy()
+    q_ids[:, :4] = np.arange(7, 11)
+    q_mask = np.ones_like(q_ids, bool)
+    q_mask[0, 17:] = False
+    want_q = np.asarray(apply(params, jnp.asarray(q_ids), jnp.asarray(q_mask)))
+    with torch.inference_mode():
+        got_q = port.embed_queries(_t(q_ids), _t(q_mask)).numpy()
+    np.testing.assert_allclose(got_q, want_q, rtol=0, atol=1e-5)
+
+
+def test_colqwen_whole_model_in_bf16_by_cosine(colqwen_models):
+    _, params, _ = colqwen_models
+    cfg_j, cfg_p = _colqwen_cfg(J.ColVLMConfig, "bfloat16"), _colqwen_cfg(P.ColVLMConfig,
+                                                                         "bfloat16")
+    ids, amask, patches, pmask, wids, ppos = _colqwen_page_inputs(cfg_j, seed=28)
+    patches = patches.astype(np.float16)
+    want = np.asarray(jax.jit(J.ColVLM(cfg_j).apply)(params, *(jnp.asarray(x) for x in (
+        ids, amask, patches, pmask, wids, ppos))))
+    port = build_model(cfg_p, params_from_flax(params, cfg_p), "cpu")
+    assert port.merger.fc1.weight.dtype == torch.bfloat16
+    assert port.merger.ln_q.scale.dtype == torch.float32
+    with torch.inference_mode():
+        got = port.embed_pages(*(_t(x) for x in (ids, amask, patches, pmask, wids, ppos))).numpy()
+    cos = (got * want).sum(-1)[amask]  # both sides L2-normalized
+    assert cos.min() >= 0.999, cos.min()
+
+
+def test_init_params_covers_colqwens_parameters():
+    sd = init_params(_colqwen_cfg(P.ColVLMConfig, "bfloat16"), seed=2, device="cpu")
+    ones = ["merger.ln_q.scale", "final_norm.scale"] + [
+        k for k in sd if k.startswith("vision.blocks.") and ".ln" in k]
+    assert len(ones) == 8 and all((sd[k] == 1).all() for k in ones)
+    biases = [k for k in sd if k.endswith(".bias")]
+    assert "merger.fc1.bias" in biases and "vision.blocks.2.mlp.down.bias" in biases
+    assert all((sd[k] == 0).all() for k in biases)
+    assert "vision.patch_embed.bias" not in sd and "vision.pos_embed" not in sd
+    w = sd["merger.fc1.weight"]  # fan_in 640
+    assert w.dtype == torch.bfloat16 and abs(w.float().std().item() - 640 ** -0.5) < 0.005
+    # the full ColQwen2.5-v0.2: jax.eval_shape of the flax init counts the same
+    full = P.ColVLM(P.ColVLMConfig.colqwen25_v02(), device="meta")
+    assert sum(p.numel() for p in full.parameters()) == 3963137408
+    assert sum(p.numel() for p in full.vision.parameters()) == 840227840
+    assert sum(p.numel() for p in full.merger.parameters()) == 36708608
+    assert full.tok_embed.weight.numel() == 311164928
+    assert full.vision.blocks[0].mlp.up.weight.shape == (5120, 1280)

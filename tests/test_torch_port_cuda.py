@@ -28,14 +28,15 @@ sharing (runs cut at 16 pairs of one doc, ranges of many pairs), -1 and
 two calls bit-equal; launch counts; the inputs the wrappers refuse; the
 engine with each on the card against the CPU.
 
-K10 (flash attention), at head dims 64, 72 and 256: against its plain
-version in f32 and bf16, causal and not, per-tile segments with pads,
-grouped kv heads (8 on 1 at Dh 256), T not a multiple of 64, strided q/k/v
-views, and rows whose only allowed key is themselves (output = v exactly);
-two calls bit-equal; launch counts; ``mha`` on CUDA tensors raises when the
-kernel refuses a shape (Dh 80 among them) instead of running the plain
-version; small ColSmol- and ColPali-shaped models on the card against the
-CPU, with one K10 launch per attention layer.
+K10 (flash attention), at head dims 64, 72, 80, 128 and 256: against its
+plain version in f32 and bf16, causal and not, per-tile segments with pads,
+ColQwen2.5's interleaved window segments, grouped kv heads (8 on 1 at Dh
+256, 16 on 2 at Dh 128), T not a multiple of 64, strided q/k/v views, and
+rows whose only allowed key is themselves (output = v exactly); two calls
+bit-equal; launch counts; ``mha`` on CUDA tensors raises when the kernel
+refuses a shape (Dh 96 among them) instead of running the plain version;
+small ColSmol-, ColPali- and ColQwen2.5-shaped models on the card against
+the CPU, with one K10 launch per attention layer.
 """
 
 import numpy as np
@@ -467,7 +468,14 @@ def test_engine_dedup_and_sweep_on_card_match_cpu(dev, impl, query_wire):
 
 # -- K10: flash attention ---------------------------------------------------------------
 
-FA_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # bf16: ~2 ulps at |o| ~ 2
+# (rtol, atol) for each element. Both sides round f32 values of the same inputs to the output
+# dtype: in bf16 they may differ by one output ulp, at most 2**-7 of |want|
+FA_TOL = {torch.float32: (0.0, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-5)}
+
+
+def _assert_fa_close(got, want, dtype):
+    rtol, atol = FA_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
 
 
 def _fa_inputs(dev, dtype, b, t, hq, hkv, seed, tile=None, dh=64):
@@ -490,7 +498,10 @@ def _fa_inputs(dev, dtype, b, t, hq, hkv, seed, tile=None, dh=64):
     (256, 4, 4, 64, 64), (200, 6, 2, None, 64), (1100, 3, 1, 96, 64), (37, 2, 2, None, 64),
     # ColPali's vision tower (Dh 72) and Gemma text model (Dh 256, 8 heads on 1 kv head)
     (256, 4, 4, None, 72), (300, 2, 2, 96, 72), (37, 2, 2, None, 72),
-    (200, 8, 1, None, 256), (1100, 8, 1, 96, 256), (37, 2, 1, None, 256)])
+    (200, 8, 1, None, 256), (1100, 8, 1, 96, 256), (37, 2, 1, None, 256),
+    # ColQwen2.5's vision tower (Dh 80) and Qwen2.5 text model (Dh 128, 16 heads on 2)
+    (256, 4, 4, None, 80), (300, 2, 2, 96, 80), (37, 2, 2, None, 80),
+    (200, 16, 2, None, 128), (1100, 4, 2, 96, 128), (37, 2, 1, None, 128)])
 def test_flash_attention_matches_plain(dev, dtype, causal, t, hq, hkv, tile, dh):
     q, k, v, seg = _fa_inputs(dev, dtype, 2, t, hq, hkv, seed=t + hq, tile=tile, dh=dh)
     before = flash_attention.launches
@@ -498,14 +509,15 @@ def test_flash_attention_matches_plain(dev, dtype, causal, t, hq, hkv, tile, dh)
     want = flash_attention_plain(q, k, v, seg, causal=causal)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (2, t, hq, dh)
-    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=FA_ATOL[dtype])
+    _assert_fa_close(got, want, dtype)
     assert torch.equal(got, again)
     assert flash_attention.launches == before + 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("dh,hq,hkv", [(64, 4, 2), (72, 4, 2), (256, 8, 1)])
+@pytest.mark.parametrize("dh,hq,hkv", [(64, 4, 2), (72, 4, 2), (80, 4, 4), (128, 16, 2),
+                                       (256, 8, 1)])
 def test_flash_attention_row_with_only_itself(dev, dtype, causal, dh, hq, hkv):
     """Every row its own segment: softmax over one key, the output is v."""
     q, k, v, _ = _fa_inputs(dev, dtype, 1, 130, hq, hkv, seed=3, dh=dh)
@@ -515,18 +527,41 @@ def test_flash_attention_row_with_only_itself(dev, dtype, causal, dh, hq, hkv):
     assert torch.equal(got, v.repeat_interleave(hq // hkv, dim=2))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_on_colqwen_window_segments(dev, dtype):
+    """The processor's window ids of a 20 x 22 patch page, in its merge-block
+    order: each 8 x 8 patch window's patches lie in runs of 16 (12 at the
+    right edge) over four block rows; then pads to T 480; 16 heads of 80."""
+    from visual_rag_tpu_torch.models.attention import segment_ids
+    from visual_rag_tpu_torch.models.processors import ImageProcessor
+
+    page = ImageProcessor(backend="colqwen2.5", image_token_id=1, patch_pixels=12,
+                          max_visual_tokens=120).process_images(
+        [np.zeros((200, 220, 3), np.float32)])
+    assert page.token_infos[0]["grid_h"] == 20 and page.token_infos[0]["grid_w"] == 22
+    seg = segment_ids(torch.from_numpy(page.patch_mask), torch.from_numpy(page.window_ids))
+    t = seg.shape[1]
+    assert t == 480
+    q, k, v, _ = _fa_inputs(dev, dtype, 1, t, 16, 16, seed=8, dh=80)
+    seg = seg.to(dev)
+    got = flash_attention(q, k, v, seg, causal=False)
+    want = flash_attention_plain(q, k, v, seg, causal=False)
+    torch.cuda.synchronize()
+    _assert_fa_close(got, want, dtype)
+
+
 def test_flash_attention_refuses_other_head_dims_on_cuda(dev, monkeypatch):
-    """Dh 80 (ColQwen2.5's vision tower) is not an instance yet: a CUDA call
-    raises by name and never falls back to the plain version."""
+    """Dh 96 is not an instance: a CUDA call raises by name and never falls
+    back to the plain version."""
     import visual_rag_tpu_torch.ops.kernels.flash_attention as fa
 
     def no_plain(*a, **k):
         raise AssertionError("the plain version ran for a CUDA tensor")
 
     monkeypatch.setattr(fa, "flash_attention_plain", no_plain)
-    q, k, v, seg = _fa_inputs(dev, torch.bfloat16, 1, 64, 2, 2, seed=4, dh=80)
+    q, k, v, seg = _fa_inputs(dev, torch.bfloat16, 1, 64, 2, 2, seed=4, dh=96)
     before = fa.flash_attention.launches
-    with pytest.raises(ValueError, match=r"head dims \(64, 72, 256\), got 80"):
+    with pytest.raises(ValueError, match=r"head dims \(64, 72, 80, 128, 256\), got 96"):
         fa.flash_attention(q, k, v, seg, causal=False)
     assert fa.flash_attention.launches == before
 
@@ -613,6 +648,48 @@ def test_colpali_shaped_model_on_card_matches_cpu(dev):
     with torch.inference_mode():
         got = card.embed_pages(*(x.to(dev) for x in (ids, amask, patches, pmask)))
         want = cpu.embed_pages(ids, amask, patches, pmask)
+        q_ids = torch.from_numpy(rng.integers(4, 400, (2, 24)).astype(np.int32))
+        q_mask = torch.arange(24)[None] < torch.tensor([[24], [11]])
+        got_q = card.embed_queries(q_ids.to(dev), q_mask.to(dev))
+        want_q = cpu.embed_queries(q_ids, q_mask)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.vision.layers + 2 * cfg.text.layers
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-3)
+    torch.testing.assert_close(got_q.cpu(), want_q, rtol=0, atol=1e-3)
+
+
+def test_colqwen_shaped_model_on_card_matches_cpu(dev):
+    """ColQwen2.5's head dims (vision 80 with window segments and a full
+    layer, Qwen2.5 text 128 with M-RoPE), the 2-D rotary and the PatchMerger,
+    pages from the processor (two aspect ratios, one padded) and queries:
+    every attention runs K10."""
+    import dataclasses
+
+    from visual_rag_tpu_torch.models.colvlm import ColVLMConfig
+    from visual_rag_tpu_torch.models.convert import build_model, init_params
+    from visual_rag_tpu_torch.models.processors import ImageProcessor
+
+    real = ColVLMConfig.colqwen25_v02()
+    cfg = dataclasses.replace(
+        real, dtype="float32", image_token_id=500,
+        vision=dataclasses.replace(real.vision, hidden=160, layers=3, heads=2, mlp_ratio=2.0,
+                                   patch_pixels=48, max_patches=1024, full_attn_layers=(1,)),
+        text=dataclasses.replace(real.text, hidden=256, layers=2, heads=2, kv_heads=1,
+                                 mlp_hidden=512, vocab=512))
+    sd = init_params(cfg, seed=1, device="cpu")
+    sd = {k: v + 0.1 * torch.randn_like(v) if k.endswith(("scale", "bias")) else v
+          for k, v in sd.items()}
+    card, cpu = build_model(cfg, sd, dev), build_model(cfg, sd, "cpu")
+    rng = np.random.default_rng(4)
+    proc = ImageProcessor(backend="colqwen2.5", image_token_id=500, patch_pixels=48, vocab=512,
+                          max_visual_tokens=256).process_images(
+        [rng.random((200, 520, 3), dtype=np.float32), rng.random((300, 200, 3), dtype=np.float32)])
+    page = [torch.from_numpy(x) for x in (proc.input_ids, proc.attn_mask, proc.patches,
+                                          proc.patch_mask, proc.window_ids, proc.patch_positions)]
+    before = flash_attention.launches
+    with torch.inference_mode():
+        got = card.embed_pages(*(x.to(dev) for x in page))
+        want = cpu.embed_pages(*page)
         q_ids = torch.from_numpy(rng.integers(4, 400, (2, 24)).astype(np.int32))
         q_mask = torch.arange(24)[None] < torch.tensor([[24], [11]])
         got_q = card.embed_queries(q_ids.to(dev), q_mask.to(dev))

@@ -34,6 +34,16 @@
   (vision Dh 72, Gemma text Dh 256 on one kv head) and ColPali's 32 x 32
   patch grid, parameters carried from the JAX ``VisualEmbedder("vidore/
   colpali-v1.3")``.
+- ColQwen2.5: the same with a ColQwen-shaped tiny config that keeps both
+  real head dims (vision Dh 80 with window segments and a full-attention
+  layer, Qwen2.5 text Dh 128 with M-RoPE), the 2 x 2 PatchMerger, parameters
+  carried from the JAX ``VisualEmbedder("vidore/colqwen2.5-v0.2")``: pages
+  of two aspect ratios (the processor's patch positions reach the model),
+  the adaptive-row mean pooling of the effective grid, ``page_vectors`` with
+  the gaussian and triangular vectors and the ``experimental_pooling``
+  alias, and the seal and searches end to end. Both ColQwen names map to
+  ColQwen2.5-v0.2's config; an embedder refuses a config its model does not
+  run when it is built.
 """
 
 import dataclasses
@@ -96,6 +106,20 @@ def _colpali_cfg(cls):
                                  embed_scale=True, causal=False, max_seq=2048))
 
 
+def _colqwen_cfg(cls):
+    """ColQwen2.5-v0.2's shape at tiny widths: vision 160 / 2 heads = 80 with
+    8 x 8 patch windows and layer 1 of 3 full, text 256 / 2 heads = 128 on
+    one kv head with the M-RoPE sections (16, 24, 24), room for 256 merged
+    tokens a page."""
+    real = cls.colqwen25_v02()
+    return dataclasses.replace(
+        real, dtype="float32", image_token_id=500,
+        vision=dataclasses.replace(real.vision, hidden=160, layers=3, heads=2, mlp_ratio=2.0,
+                                   patch_pixels=48, max_patches=1024, full_attn_layers=(1,)),
+        text=dataclasses.replace(real.text, hidden=256, layers=2, heads=2, kv_heads=1,
+                                 mlp_hidden=512, vocab=512, max_seq=512))
+
+
 def _embedder_pair(model_name, cfg_j, cfg_p):
     jax_emb = JaxEmbedder(model_name, config=cfg_j, batch_size=6)
     params = jax.tree.map(np.asarray, jax_emb.params)
@@ -107,6 +131,12 @@ def _embedder_pair(model_name, cfg_j, cfg_p):
 @pytest.fixture(scope="module")
 def embedders():
     return _embedder_pair("vidore/colSmol-500M", _cfg(J.ColVLMConfig), _cfg(P.ColVLMConfig))
+
+
+@pytest.fixture(scope="module")
+def colqwen_embedders():
+    return _embedder_pair("vidore/colqwen2.5-v0.2", _colqwen_cfg(J.ColVLMConfig),
+                          _colqwen_cfg(P.ColVLMConfig))
 
 
 @pytest.fixture(scope="module")
@@ -229,8 +259,10 @@ def test_page_vectors_match_the_jax_pipeline(embedders):
 
 
 def test_embedder_refuses_other_backends():
-    with pytest.raises(NotImplementedError, match="colqwen2.5"):
-        VisualEmbedder("vidore/colqwen2.5-v0.2", device="cpu")
+    moe = P.ColVLMConfig.colqwen25_v02()
+    moe = dataclasses.replace(moe, text=dataclasses.replace(moe.text, moe_experts=8))
+    with pytest.raises(NotImplementedError, match=r"text\.moe_experts"):
+        VisualEmbedder("vidore/colqwen2.5-v0.2", config=moe, device="cpu")
     with pytest.raises(NotImplementedError, match="checkpoint"):
         VisualEmbedder(checkpoint="some/dir", device="cpu")
     with pytest.raises(ValueError, match="device"):
@@ -409,6 +441,108 @@ def test_colpali_slice_end_to_end_matches(colpali_embedders):
     jax_emb, port = colpali_embedders
     imgs = _images(15, 6)
     names = experimental_vector_plan("colpali")["names"]
+    engines = {}
+    for side, emb in (("port", port), ("jax", jax_emb)):
+        embs, infos = emb.embed_images(imgs, return_token_info=True)
+        builder = (IndexBuilder(CollectionSchema.standard(names, storage_dtype="float32"))
+                   if side == "port" else
+                   JaxBuilder(JaxSchema.standard(names, storage_dtype="float32")))
+        for i, (e, info) in enumerate(zip(embs, infos)):
+            builder.add(f"page{i}", *page_vectors(port, e, info))
+        engines[side] = ((RetrievalEngine(builder.seal(device="cpu"), stage1_cut="exact")
+                          if side == "port" else JaxEngine(builder.seal(), stage1_cut="exact")),
+                         emb.embed_queries(QUERIES))
+    for mode, key in (("two_stage", "score_final"), ("single_full", "score"),
+                      ("single_experimental_pooled", "score")):
+        kw = dict(mode=mode, top_k=4, prefetch_k=5, with_payload=False)
+        (pe, pq), (je, jq) = engines["port"], engines["jax"]
+        for a, b in zip(pe.search_embedded_batch(pq, **kw), je.search_embedded_batch(jq, **kw)):
+            assert [h["id"] for h in a] == [h["id"] for h in b]
+            assert strict_rank_equal([dict(h, score=h[key]) for h in b], a, score_tol=1e-5)
+
+
+# -- ColQwen2.5 -------------------------------------------------------------------
+
+
+def test_both_colqwen_names_take_colqwen25s_config():
+    for name, backend in (("vidore/colqwen2.5-v0.2", "colqwen2.5"),
+                          ("vidore/colqwen2-v1.0", "colqwen2")):
+        emb = VisualEmbedder(name, device="cpu")
+        assert emb.backend == backend and emb.cfg == P.ColVLMConfig.colqwen25_v02()
+        assert emb.processor.max_visual_tokens == 1024 and emb._model is None
+
+
+def test_colqwen_embedder_matches(colqwen_embedders):
+    jax_emb, port = colqwen_embedders
+    assert port.backend == "colqwen2.5" and port.cfg.spatial_merge == 2
+    for got, want in zip(port.embed_queries(QUERIES, batch_size=3),
+                         jax_emb.embed_queries(QUERIES, batch_size=3)):
+        assert got.shape == want.shape and got.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    rng = np.random.default_rng(17)
+    imgs = [rng.random((700, 480, 3), dtype=np.float32),  # portrait
+            rng.random((420, 820, 3), dtype=np.float32),  # landscape
+            rng.random((500, 500, 3), dtype=np.float32)]
+    seen = []
+    embed_pages = port.model.embed_pages
+    port.model.embed_pages = lambda *a: seen.append(a) or embed_pages(*a)
+    try:
+        got, infos = port.embed_images(imgs, batch_size=2, return_token_info=True)
+    finally:
+        del port.model.embed_pages
+    want, infos_j = jax_emb.embed_images(imgs, batch_size=2, return_token_info=True)
+    assert infos == infos_j
+    assert len({(i["grid_h_eff"], i["grid_w_eff"]) for i in infos}) == 3
+    ppos = JaxProcessor(backend="colqwen2.5", image_token_id=500, patch_pixels=48, vocab=512,
+                        max_visual_tokens=256).process_images(imgs[:2]).patch_positions
+    assert seen[0][5].dtype == torch.int32 and np.array_equal(seen[0][5].numpy(), ppos)
+    for g, w, info in zip(got, want, infos):
+        n = info["grid_h_eff"] * info["grid_w_eff"]
+        assert info["num_visual_tokens"] == n and g.shape == w.shape == (n + 4, 128)
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
+        visual = port.extract_visual_embedding(g, info)
+        mean = port.mean_pool_visual_embedding(visual, info)
+        assert mean.shape == (min(32, info["grid_h_eff"]), 128)
+        np.testing.assert_allclose(mean, jax_emb.mean_pool_visual_embedding(visual, info),
+                                   rtol=0, atol=1e-6)
+        for kw in ({}, dict(target_vectors=None), dict(kernel="triangular"),
+                   dict(kernel="legacy")):
+            np.testing.assert_allclose(
+                port.experimental_pool_visual_embedding(visual, info, **kw),
+                jax_emb.experimental_pool_visual_embedding(visual, info, **kw), rtol=0,
+                atol=1e-6)
+
+
+def test_colqwen_page_vectors_match_the_jax_pipeline(colqwen_embedders):
+    from visual_rag_tpu.pipeline.pipeline import PipelineStats, ProcessingPipeline
+
+    jax_emb, port = colqwen_embedders
+    plan = experimental_vector_plan(port.backend)
+    assert plan["names"] == ["experimental_pooling_gaussian", "experimental_pooling_triangular",
+                             "experimental_pooling"]
+    embs, infos = port.embed_images(_images(18, 2), return_token_info=True)
+    pipe = ProcessingPipeline(jax_emb, JaxBuilder(JaxSchema.standard(
+        experimental_names=plan["names"])))
+    for i, (e, info) in enumerate(zip(embs, infos)):
+        pipe._process_single_page({"page_number": i + 1}, e, info, None, "doc.pdf", {},
+                                  PipelineStats())
+        want = pipe._queue[-1]
+        vectors, payload = page_vectors(port, e, info)
+        assert sorted(vectors) == sorted(want["vectors"]) == sorted(
+            ["initial", "mean_pooling", "global_pooling"] + plan["names"])
+        for name, v in vectors.items():
+            assert v.dtype == np.float32 and v.tobytes() == want["vectors"][name].tobytes(), name
+        rows = vectors["mean_pooling"].shape[0]
+        assert vectors["experimental_pooling_gaussian"].shape == (rows, 128)
+        assert np.array_equal(vectors["experimental_pooling"],
+                              vectors["experimental_pooling_gaussian"])
+        assert payload == {k: want["payload"][k] for k in payload}
+
+
+def test_colqwen_slice_end_to_end_matches(colqwen_embedders):
+    jax_emb, port = colqwen_embedders
+    imgs = _images(19, 6)
+    names = experimental_vector_plan("colqwen2.5")["names"]
     engines = {}
     for side, emb in (("port", port), ("jax", jax_emb)):
         embs, infos = emb.embed_images(imgs, return_token_info=True)

@@ -1,0 +1,39 @@
+"""The parsers of ``visual_rag_tpu_torch/tools/sass_diff.py`` on cuobjdump and
+ptxas text in the formats CUDA 12 prints."""
+
+from visual_rag_tpu_torch.tools.sass_diff import ptxas_by_kernel, sass_by_kernel
+
+SASS = """
+Fatbin elf code:
+================
+arch = sm_90a
+
+\t\tFunction : _Z1kPf
+\t.headerflags\t@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;        /* 0x00000a00ff017b82 */
+                                                                  /* 0x000e220000000800 */
+        /*0010*/                   EXIT ;                         /* 0x000000000000794d */
+\t\tFunction : _Z1gPi
+        /*0000*/                   EXIT ;                         /* 0x000000000000794d */
+"""
+
+PTXAS = """ptxas info    : Compiling entry function '_Z1kPf' for 'sm_90a'
+ptxas info    : Function properties for _Z1kPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 124 registers, used 1 barriers
+"""
+
+
+def test_sass_by_kernel_drops_addresses_and_encodings():
+    got = sass_by_kernel(SASS)
+    assert list(got) == ["_Z1kPf", "_Z1gPi"]
+    assert got["_Z1kPf"] == ['.headerflags\t@"EF_CUDA_SM90"', "LDC R1, c[0x0][0x28] ;", "EXIT ;"]
+    assert got["_Z1gPi"] == ["EXIT ;"]
+    moved = SASS.replace("/*0010*/", "/*0a40*/").replace("0x000000000000794d", "0x1")
+    assert sass_by_kernel(moved) == got
+
+
+def test_ptxas_by_kernel_keeps_registers_and_spills():
+    assert ptxas_by_kernel(PTXAS) == {"_Z1kPf": [
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "Used 124 registers, used 1 barriers"]}

@@ -1,5 +1,5 @@
 // K10: flash-attention forward with segment ids, an optional causal mask and
-// grouped kv heads, at head dims 64, 72 and 256.
+// grouped kv heads, at head dims 64, 72, 80, 128 and 256.
 //
 // Replaces the TPU kernel that visual_rag_tpu/models/attention.py::mha calls
 // (:61-73): the library's jax/experimental/pallas/ops/tpu/flash_attention.py,
@@ -15,8 +15,10 @@
 // output is in the input dtype (f32 or bf16).
 //
 // Head dims: 64 (both towers of ColSmol-500M), 72 (ColPali's SigLIP vision
-// tower, 1152 / 16) and 256 (ColPali's Gemma text model, 2048 / 8, one kv
-// head). Each is an explicit instance of the templated kernel.
+// tower, 1152 / 16), 80 (ColQwen2.5's vision tower, 1280 / 16, window
+// segments), 128 (ColQwen2.5's Qwen2.5 text model, 2048 / 16 on 2 kv heads,
+// causal) and 256 (ColPali's Gemma text model, 2048 / 8, one kv head). Each
+// is an explicit instance of the templated kernel.
 //
 // What bounds it on the H100: arithmetic. A page's attention does 4 * Dh
 // flops per allowed pair and head over ~1e6-1e7 pairs a head, against
@@ -42,7 +44,8 @@
 // BK / 16), and of the 64 x Dh output tile the columns c*64 + 4tx..+3 for
 // each full 64-column chunk c, plus column 64*(Dh/64) + tx where Dh is not a
 // multiple of 64 (Dh 72: 4 + 1 columns a thread, the fifth stored only for
-// tx < 8). Q, K^T, V and P sit in shared memory as f32, the head dim
+// tx < 8; Dh 80: 4 + 1, the fifth stored by every thread; Dh 128: 8). Q,
+// K^T, V and P sit in shared memory as f32, the head dim
 // zero-padded to DHP (a multiple of 16): the padded columns of Q and rows of
 // K^T are zeros, so they add exactly 0 to each logit, and the padded output
 // columns are never stored. Each dot product is one fmaf chain in a fixed
@@ -58,6 +61,9 @@
 // plus a byte a kv tile (at most 32 KB, at T 1,048,576 and BK 32):
 //   Dh  64: DHP  64, BK 64:  64 KB (three blocks an SM);
 //   Dh  72: DHP  80, BK 64:  76 KB (two blocks an SM);
+//   Dh  80: DHP  80, BK 64:  76 KB (two blocks an SM; no padded column);
+//   Dh 128: DHP 128, BK 64: 113 KB (one block an SM: two would need 230 KB
+//     of the SM's 228);
 //   Dh 256: DHP 256, BK 32: 136 KB (one block an SM). At BK 64 it would be
 //     208 KB, within 4% of the 227 KB a block may have, so the kv tile is
 //     halved instead: the logit tile, its softmax and P shrink with it, and
@@ -86,6 +92,11 @@ struct Cfg {
   static_assert(DH % 8 == 0, "a bf16 row is whole 16-byte vectors");
   static_assert(REST <= 1, "one column a thread past the full chunks");
   static constexpr int PV_UNROLL = NC > 8 ? 2 : 4;  // kk steps unrolled in O += P V
+  // the least blocks an SM that __launch_bounds__ asks registers for (0: no
+  // minimum). Dh 128 alone asks for one: its shared memory allows one block an
+  // SM anyway, and without it ptxas held bf16 to 128 registers and spilled.
+  // Asked of Dh 256, it moved bf16 from 205 to 167 registers and cost 4%
+  static constexpr int MIN_BLOCKS = DH == 128 ? 1 : 0;
   // f32 tiles and segment ids; the live-tile flags (a byte a kv tile) follow
   static constexpr size_t SMEM =
       sizeof(float) * (BQ * DHP + DHP * BK + BK * DHP + BQ * BK) + sizeof(int) * (BQ + BK);
@@ -213,14 +224,15 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ base, Strides st
 template <int DH, int DHP, int BK>
 __device__ __forceinline__ void zero_pad(float* q_s, float* kt_s, float* v_s) {
   constexpr int W = DHP - DH;
-  if (W == 0) return;
-  for (int i = threadIdx.x; i < BQ * W; i += THREADS) q_s[(i / W) * DHP + DH + i % W] = 0.f;
-  for (int i = threadIdx.x; i < W * BK; i += THREADS) kt_s[DH * BK + i] = 0.f;
-  for (int i = threadIdx.x; i < BK * W; i += THREADS) v_s[(i / W) * DHP + DH + i % W] = 0.f;
+  if constexpr (W > 0) {
+    for (int i = threadIdx.x; i < BQ * W; i += THREADS) q_s[(i / W) * DHP + DH + i % W] = 0.f;
+    for (int i = threadIdx.x; i < W * BK; i += THREADS) kt_s[DH * BK + i] = 0.f;
+    for (int i = threadIdx.x; i < BK * W; i += THREADS) v_s[(i / W) * DHP + DH + i % W] = 0.f;
+  }
 }
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, Cfg<DH>::MIN_BLOCKS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const int* __restrict__ seg, const int2* __restrict__ tile_range,
                  T* __restrict__ o, int t_len, int n_kt, int hq, int group, Strides qs_,
@@ -421,6 +433,12 @@ cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v, const
     case 72:
       return launch<T, 72>(q, k, v, seg, ranges, o, batch, t_len, hq, group, qs, ks, vs, causal,
                            sm_scale, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, seg, ranges, o, batch, t_len, hq, group, qs, ks, vs, causal,
+                           sm_scale, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, seg, ranges, o, batch, t_len, hq, group, qs, ks, vs, causal,
+                            sm_scale, stream);
     case 256:
       return launch<T, 256>(q, k, v, seg, ranges, o, batch, t_len, hq, group, qs, ks, vs, causal,
                             sm_scale, stream);
@@ -436,8 +454,8 @@ cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v, const
 // [batch, t_len, hkv, dh] with the given element strides (the head dim
 // contiguous; rows 16-byte aligned); seg [batch, t_len] int32 contiguous;
 // tile_range: scratch of batch * ceil(t_len / 32) int2; o [batch, t_len, hq,
-// dh] contiguous, written in full. dh must be 64, 72 or 256 and hq a multiple
-// of hkv. Returns the cudaError_t of the launches.
+// dh] contiguous, written in full. dh must be 64, 72, 80, 128 or 256 and hq a
+// multiple of hkv. Returns the cudaError_t of the launches.
 extern "C" int vrt_flash_attention(int device, int dtype, const void* q, const void* k,
                                    const void* v, const void* seg, void* tile_range, void* o,
                                    int batch, int t_len, int hq, int hkv, int dh,
@@ -447,7 +465,7 @@ extern "C" int vrt_flash_attention(int device, int dtype, const void* q, const v
                                    float sm_scale, void* stream) {
   using namespace vrt_fa;
   if (batch == 0 || t_len == 0) return 0;
-  if ((dh != 64 && dh != 72 && dh != 256) || hkv <= 0 || hq % hkv != 0 ||
+  if ((dh != 64 && dh != 72 && dh != 80 && dh != 128 && dh != 256) || hkv <= 0 || hq % hkv != 0 ||
       (t_len + BQ - 1) / BQ > MAX_TILES || hq > 65535 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);

@@ -1,26 +1,32 @@
-"""ColVLM in PyTorch, for the configurations ColSmol-500M and ColPali-v1.3 run.
+"""ColVLM in PyTorch, for the configurations ColSmol-500M, ColPali-v1.3 and
+ColQwen2.5-v0.2 run.
 
 Counterpart of ``visual_rag_tpu/models/colvlm.py``. The four config
 dataclasses and their classmethods (``:31-177``) are copied as they are, so
-that a config means the same on both sides. The modules are the ones
-ColSmol and ColPali run: ``RMSNorm`` with Gemma's optional offset
-(``:233-247``), 1-D ``_rope`` (``:180-209``), ``GQAttention``
-(``:250-295``), ``SwiGLU`` with SiLU or Gemma's GeGLU (``:298-312``),
-``DecoderBlock`` (``:387-408``), ``ViTBlock`` (``:451-477``),
-``VisionTower`` (``:480-534``; per-tile positions with the pixel shuffle,
-``pos[:n]`` without it), and ``ColVLM`` with the pixel shuffle
-(``:604-618``), the connector, ``_lm``, ``_project``, the image-slot merge
-and PaliGemma's embedding scale (``:654-709``). A config that needs more
-(MoE, scanned or rematerialized layers, the PatchMerger, M-RoPE or 2-D
-RoPE, gated or RMS-normed vision blocks: ColQwen2.5) is refused with a
-``NotImplementedError`` naming the field.
+that a config means the same on both sides. The modules are the ones the
+three models run: ``RMSNorm`` with Gemma's optional offset (``:233-247``),
+``_rope`` with Qwen2.5-VL's M-RoPE sections (``:180-209``), the vision
+tower's 2-D ``_rope_2d`` (``:212-230``), ``GQAttention`` (``:250-295``),
+``SwiGLU`` with SiLU or Gemma's GeGLU, biased or not (``:298-312``),
+``DecoderBlock`` (``:387-408``), ``ViTBlock`` with SigLIP's LayerNorm + GELU
+MLP or Qwen2.5-VL's RMSNorm + biased SwiGLU (``:451-477``), ``VisionTower``
+(``:480-534``; per-tile positions with the pixel shuffle, ``pos[:n]``
+without it, none with the 2-D rotary), Qwen2.5-VL's ``PatchMerger``
+(``:537-553``), and ``ColVLM`` with the pixel shuffle (``:604-618``), the
+connector or the merger, the M-RoPE positions (``:620-652``), ``_lm``,
+``_project``, the image-slot merge and PaliGemma's embedding scale
+(``:654-709``). A config that needs more (MoE, scanned or rematerialized
+layers, ring attention) is refused with a ``NotImplementedError`` naming the
+field.
 
 Numerics follow flax's: a ``Dense`` with ``dtype`` bf16 casts its input, its
 kernel and its bias to bf16 (the port stores them in bf16); ``LayerNorm``
 takes its statistics in f32 with the fast variance ``E[x^2] - E[x]^2`` and
 epsilon 1e-6, with f32 scale and bias; ``RMSNorm`` runs in f32 with an f32
-scale; RoPE angles are f32 and the result is cast back; ``gelu`` is the tanh
-approximation; embeddings are tables in the model dtype.
+scale; RoPE angles are f32 and the result is cast back (the 2-D rotary
+rotates an f32 copy of x); ``gelu`` is the tanh approximation (flax's
+``nn.gelu``, also in the PatchMerger); embeddings are tables in the model
+dtype.
 
 Parameter names mirror the flax tree (``models/convert.py`` maps one onto
 the other). Every module takes ``device`` and ``dtype`` at construction;
@@ -188,24 +194,20 @@ _UNSUPPORTED = (
     ("text.moe_experts", lambda c: c.text.moe_experts > 0),
     ("text.scan_layers", lambda c: c.text.scan_layers),
     ("text.ring_axis", lambda c: c.text.ring_axis is not None),
-    ("text.mrope_section", lambda c: c.text.mrope_section is not None),
     ("text.mlp_act", lambda c: c.text.mlp_act not in MLP_ACTS),
     ("remat", lambda c: c.remat),
-    ("spatial_merge", lambda c: c.spatial_merge > 1),
-    ("vision.rope_2d", lambda c: c.vision.rope_2d),
-    ("vision.mlp_gated", lambda c: c.vision.mlp_gated),
-    ("vision.rms_norm", lambda c: c.vision.rms_norm),
 )
 
 
 def check_supported(cfg: ColVLMConfig) -> None:
     """Raise ``NotImplementedError`` naming the first field the port's
-    ColVLM does not run (ColQwen2.5 is a later slice)."""
+    ColVLM does not run (MoE, scanned layers and ring attention come with
+    the sharded slice, ``remat`` with training)."""
     for name, needs in _UNSUPPORTED:
         if needs(cfg):
             value = functools.reduce(getattr, name.split("."), cfg)
             raise NotImplementedError(f"the port's ColVLM does not run {name} = {value!r} "
-                                      "yet (ColSmol- and ColPali-shaped configs only)")
+                                      "yet (ColSmol-, ColPali- and ColQwen2.5-shaped configs)")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -255,27 +257,61 @@ class RMSNorm(nn.Module):
         return (norm * ((1.0 + self.scale) if self.offset else self.scale)).to(x.dtype)
 
 
-def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+          mrope_section=None) -> torch.Tensor:
     """Rotary embedding over the last dim of [B, T, H, Dh] (rotate-half
-    layout), angles in f32, the result cast back to x's dtype."""
+    layout), angles in f32, the result cast back to x's dtype.
+
+    positions: [B, T] (1-D), or [B, T, 3] with ``mrope_section`` (Qwen2.5-VL
+    M-RoPE): the half-dim frequency bands fall into (temporal, height,
+    width) sections and each band rotates by its own axis's position. 3-D
+    positions without sections use axis 0."""
     half = x.shape[-1] // 2
     freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=x.device) / half))
-    angles = positions[..., None].float() * freqs  # [B, T, half]
+    if mrope_section is not None and positions.dim() == 3:
+        if sum(mrope_section) != half:
+            raise ValueError(f"mrope_section {tuple(mrope_section)} does not sum to {half}")
+        # band j takes the position of its section's axis (no host-to-device copy)
+        ends = [sum(mrope_section[:a + 1]) for a in range(3)]
+        angles = torch.cat([positions[..., a, None].float() * freqs[end - n:end]
+                            for a, (n, end) in enumerate(zip(mrope_section, ends))],
+                           dim=-1)  # [B, T, half]
+    else:
+        if positions.dim() == 3:
+            positions = positions[..., 0]
+        angles = positions[..., None].float() * freqs  # [B, T, half]
     cos, sin = torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def _rope_2d(x: torch.Tensor, pos2d: torch.Tensor, theta: float) -> torch.Tensor:
+    """Qwen2.5-VL's vision rotary over [B, T, H, Dh]: ``Dh / 4`` frequencies
+    an axis, ``cat(row * inv, col * inv)`` repeated twice, rotate-half on an
+    f32 copy of x, the result cast back. pos2d: [B, T, 2] (row, col)."""
+    half = x.shape[-1] // 2
+    inv = 1.0 / (theta ** (torch.arange(0, half, 2, dtype=torch.float32, device=x.device)
+                           / half))
+    freqs = torch.cat([pos2d[..., 0:1].float() * inv, pos2d[..., 1:2].float() * inv], dim=-1)
+    emb = torch.cat([freqs, freqs], dim=-1)[:, :, None, :]  # [B, T, 1, Dh]
+    x32 = x.float()
+    rotated = torch.cat([-x32[..., half:], x32[..., :half]], dim=-1)
+    return (x32 * torch.cos(emb) + rotated * torch.sin(emb)).to(x.dtype)
+
+
 class GQAttention(nn.Module):
-    """Grouped-query attention with optional RoPE and causal masking. The
-    kv heads go to :func:`mha` as they are, not repeated."""
+    """Grouped-query attention with optional RoPE (1-D, M-RoPE or the vision
+    tower's 2-D rotary) and causal masking. The kv heads go to :func:`mha`
+    as they are, not repeated."""
 
     def __init__(self, hidden: int, heads: int, kv_heads: int, dtype, *,
                  rope_theta: Optional[float] = None, causal: bool = True,
-                 qkv_bias: bool = False, out_bias: bool = False, device=None):
+                 qkv_bias: bool = False, out_bias: bool = False,
+                 rope_2d_theta: Optional[float] = None, mrope_section=None, device=None):
         super().__init__()
         self.heads, self.kv_heads, self.dh = heads, kv_heads, hidden // heads
         self.rope_theta, self.causal, self.dtype = rope_theta, causal, dtype
+        self.rope_2d_theta, self.mrope_section = rope_2d_theta, mrope_section
         self.use_flash = True
         kw = dict(dtype=dtype, device=device)
         self.q = Dense(hidden, heads * self.dh, bias=qkv_bias, **kw)
@@ -283,16 +319,22 @@ class GQAttention(nn.Module):
         self.v = Dense(hidden, kv_heads * self.dh, bias=qkv_bias, **kw)
         self.o = Dense(heads * self.dh, hidden, bias=out_bias, **kw)
 
-    def forward(self, x, mask, positions=None, segments=None):
+    def forward(self, x, mask, positions=None, segments=None, positions_2d=None):
+        """The 2-D rotary where ``rope_2d_theta`` is set and ``positions_2d``
+        given, else 1-D or M-RoPE where ``rope_theta`` is set, else none
+        (``colvlm.py:280-287``)."""
         b, t, _ = x.shape
         q = self.q(x).view(b, t, self.heads, self.dh)
         k = self.k(x).view(b, t, self.kv_heads, self.dh)
         v = self.v(x).view(b, t, self.kv_heads, self.dh)
-        if self.rope_theta is not None:
+        if self.rope_2d_theta is not None and positions_2d is not None:
+            q = _rope_2d(q, positions_2d, self.rope_2d_theta)
+            k = _rope_2d(k, positions_2d, self.rope_2d_theta)
+        elif self.rope_theta is not None:
             if positions is None:
                 positions = torch.arange(t, device=x.device).expand(b, t)
-            q = _rope(q, positions, self.rope_theta)
-            k = _rope(k, positions, self.rope_theta)
+            q = _rope(q, positions, self.rope_theta, self.mrope_section)
+            k = _rope(k, positions, self.rope_theta, self.mrope_section)
         out = mha(q, k, v, mask, causal=self.causal, dtype=self.dtype,
                   use_flash=self.use_flash, segments=segments)
         return self.o(out.reshape(b, t, self.heads * self.dh))
@@ -300,11 +342,13 @@ class GQAttention(nn.Module):
 
 class SwiGLU(nn.Module):
     """Gated MLP: ``down(act(gate(x)) * up(x))``, ``act`` a key of
-    ``MLP_ACTS`` (``"gelu_tanh"``: Gemma's GeGLU)."""
+    ``MLP_ACTS`` (``"gelu_tanh"``: Gemma's GeGLU); ``use_bias``: Qwen2.5-VL's
+    vision MLP."""
 
-    def __init__(self, hidden: int, mlp_hidden: int, dtype, act: str = "silu", device=None):
+    def __init__(self, hidden: int, mlp_hidden: int, dtype, act: str = "silu",
+                 use_bias: bool = False, device=None):
         super().__init__()
-        kw = dict(bias=False, dtype=dtype, device=device)
+        kw = dict(bias=use_bias, dtype=dtype, device=device)
         self.act = MLP_ACTS[act]
         self.gate = Dense(hidden, mlp_hidden, **kw)
         self.up = Dense(hidden, mlp_hidden, **kw)
@@ -320,7 +364,8 @@ class DecoderBlock(nn.Module):
         self.ln1 = RMSNorm(cfg.hidden, offset=cfg.rms_offset, device=device)
         self.attn = GQAttention(cfg.hidden, cfg.heads, cfg.kv_heads, dtype,
                                 rope_theta=cfg.rope_theta, causal=cfg.causal,
-                                qkv_bias=cfg.attn_qkv_bias, device=device)
+                                qkv_bias=cfg.attn_qkv_bias, mrope_section=cfg.mrope_section,
+                                device=device)
         self.ln2 = RMSNorm(cfg.hidden, offset=cfg.rms_offset, device=device)
         self.mlp = SwiGLU(cfg.hidden, cfg.mlp_hidden, dtype, act=cfg.mlp_act, device=device)
 
@@ -330,22 +375,39 @@ class DecoderBlock(nn.Module):
 
 
 class ViTBlock(nn.Module):
-    """SigLIP block: pre-LayerNorm attention, then the LayerNorm + GELU-tanh
-    MLP with biases."""
+    """Pre-norm vision block. SigLIP: LayerNorms and the biased GELU-tanh MLP
+    (``fc1``, ``fc2``). Qwen2.5-VL (``rms_norm``, ``mlp_gated``,
+    ``rope_2d``): RMSNorms, the biased SiLU ``SwiGLU`` named ``mlp`` and the
+    2-D rotary from ``positions_2d``."""
 
     def __init__(self, cfg: VisionConfig, dtype, device=None):
         super().__init__()
         mlp = int(cfg.hidden * cfg.mlp_ratio)
-        self.ln1 = LayerNorm(cfg.hidden, dtype, device=device)
-        self.attn = GQAttention(cfg.hidden, cfg.heads, cfg.heads, dtype, causal=False,
-                                qkv_bias=cfg.attn_bias, out_bias=cfg.attn_bias, device=device)
-        self.ln2 = LayerNorm(cfg.hidden, dtype, device=device)
-        self.fc1 = Dense(cfg.hidden, mlp, dtype=dtype, device=device)
-        self.fc2 = Dense(mlp, cfg.hidden, dtype=dtype, device=device)
 
-    def forward(self, x, mask, segments=None):
-        h = x + self.attn(self.ln1(x), mask, segments=segments)
-        return h + self.fc2(F.gelu(self.fc1(self.ln2(h)), approximate="tanh"))
+        def norm():
+            if cfg.rms_norm:
+                return RMSNorm(cfg.hidden, device=device)
+            return LayerNorm(cfg.hidden, dtype, device=device)
+
+        self.ln1 = norm()
+        self.attn = GQAttention(cfg.hidden, cfg.heads, cfg.heads, dtype, causal=False,
+                                qkv_bias=cfg.attn_bias, out_bias=cfg.attn_bias,
+                                rope_2d_theta=cfg.rope_theta if cfg.rope_2d else None,
+                                device=device)
+        self.ln2 = norm()
+        self.gated = cfg.mlp_gated
+        if cfg.mlp_gated:
+            self.mlp = SwiGLU(cfg.hidden, mlp, dtype, use_bias=True, device=device)
+        else:
+            self.fc1 = Dense(cfg.hidden, mlp, dtype=dtype, device=device)
+            self.fc2 = Dense(mlp, cfg.hidden, dtype=dtype, device=device)
+
+    def forward(self, x, mask, segments=None, positions_2d=None):
+        h = x + self.attn(self.ln1(x), mask, segments=segments, positions_2d=positions_2d)
+        y = self.ln2(h)
+        if self.gated:
+            return h + self.mlp(y)
+        return h + self.fc2(F.gelu(self.fc1(y), approximate="tanh"))
 
 
 def tile_position_ids(n: int, pixel_shuffle: int, device=None) -> torch.Tensor:
@@ -375,7 +437,7 @@ class VisionTower(nn.Module):
                                     for _ in range(cfg.layers))
         self.post_ln = LayerNorm(cfg.hidden, dtype, device=device) if cfg.post_ln else None
 
-    def forward(self, patches, patch_mask, window_ids=None):
+    def forward(self, patches, patch_mask, window_ids=None, patch_positions=None):
         b, n, _ = patches.shape
         if n > self.cfg.max_patches:
             raise ValueError(f"{n} patches exceeds vision.max_patches={self.cfg.max_patches}")
@@ -389,7 +451,7 @@ class VisionTower(nn.Module):
         for i, blk in enumerate(self.blocks):
             seg = window_ids if window_ids is not None and i not in self.cfg.full_attn_layers \
                 else None
-            x = blk(x, patch_mask, segments=seg)
+            x = blk(x, patch_mask, segments=seg, positions_2d=patch_positions)
         return x if self.post_ln is None else self.post_ln(x)
 
 
@@ -407,6 +469,25 @@ def pixel_shuffle(feats: torch.Tensor, sps: int) -> torch.Tensor:
     return x.reshape(b, tiles * 64, h * sps * sps)
 
 
+class PatchMerger(nn.Module):
+    """Qwen2.5-VL's 2 x 2 merge (``colvlm.py:537-553``): RMSNorm ``ln_q``,
+    each ``merge ** 2`` consecutive patches (the processor's merge-block
+    order) folded into one row, then ``fc1``, tanh GELU, ``fc2``."""
+
+    def __init__(self, hidden: int, out_hidden: int, merge: int, dtype, device=None):
+        super().__init__()
+        m2 = merge * merge
+        self.m2 = m2
+        self.ln_q = RMSNorm(hidden, device=device)
+        self.fc1 = Dense(m2 * hidden, m2 * hidden, dtype=dtype, device=device)
+        self.fc2 = Dense(m2 * hidden, out_hidden, dtype=dtype, device=device)
+
+    def forward(self, x):
+        b, n, h = x.shape
+        x = self.ln_q(x).reshape(b, n // self.m2, self.m2 * h)
+        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+
+
 class ColVLM(nn.Module):
     """Late-interaction VLM: L2-normalized [B, L, embed_dim] f32 tokens."""
 
@@ -417,9 +498,13 @@ class ColVLM(nn.Module):
         dtype = torch_dtype(cfg.dtype)
         self.dtype = dtype
         self.vision = VisionTower(cfg.vision, dtype, device=device)
-        sps = cfg.vision.pixel_shuffle
-        self.connector = Dense(cfg.vision.hidden * sps * sps, cfg.text.hidden,
-                               bias=cfg.connector_bias, dtype=dtype, device=device)
+        if cfg.spatial_merge > 1:
+            self.merger = PatchMerger(cfg.vision.hidden, cfg.text.hidden, cfg.spatial_merge,
+                                      dtype, device=device)
+        else:
+            sps = cfg.vision.pixel_shuffle
+            self.connector = Dense(cfg.vision.hidden * sps * sps, cfg.text.hidden,
+                                   bias=cfg.connector_bias, dtype=dtype, device=device)
         self.tok_embed = nn.Embedding(cfg.text.vocab, cfg.text.hidden, dtype=dtype,
                                       device=device)
         self.layers = nn.ModuleList(DecoderBlock(cfg.text, dtype, device=device)
@@ -441,15 +526,43 @@ class ColVLM(nn.Module):
             if isinstance(m, GQAttention):
                 m.use_flash = self._use_flash
 
-    def encode_images(self, patches, patch_mask, window_ids=None):
+    def encode_images(self, patches, patch_mask, window_ids=None, patch_positions=None):
         """[B, N, patch_pixels] -> [B, N', text_hidden] image token embeddings."""
-        feats = self.vision(patches, patch_mask, window_ids)
+        feats = self.vision(patches, patch_mask, window_ids, patch_positions)
+        if self.cfg.spatial_merge > 1:
+            return self.merger(feats)
         if self.cfg.vision.pixel_shuffle > 1:
             feats = pixel_shuffle(feats, self.cfg.vision.pixel_shuffle)
         return self.connector(feats)
 
-    def _lm(self, embeds, mask):
-        positions = (torch.cumsum(mask.to(torch.int32), dim=1) - 1).clamp(min=0)
+    def _mrope_positions(self, input_ids, attn_mask, patch_positions=None):
+        """int [B, L, 3] (t, h, w) M-RoPE positions, HF ``get_rope_index``
+        (``colvlm.py:620-652``): text tokens carry equal positions on the
+        three axes; an image token carries (base, base + row, base + col) of
+        its merged grid cell; an image block advances the counter by
+        ``max(h, w) + 1`` of its last cell. Without patches (queries) every
+        axis is the 1-D position."""
+        mask_i = attn_mask.to(torch.int64)
+        if patch_positions is None:
+            base = (torch.cumsum(mask_i, dim=1) - 1).clamp(min=0)
+            return base[..., None].expand(-1, -1, 3)
+        is_img = (input_ids == self.cfg.image_token_id) & (mask_i > 0)
+        m = self.cfg.spatial_merge
+        merged = patch_positions[:, ::m * m, :].to(torch.int64) // m  # [B, Ni, 2]
+        slot = (torch.cumsum(is_img.to(torch.int64), dim=1) - 1).clamp(0, merged.shape[1] - 1)
+        h_c = torch.gather(merged[..., 0], 1, slot)
+        w_c = torch.gather(merged[..., 1], 1, slot)
+        next_img = torch.cat([is_img[:, 1:], torch.zeros_like(is_img[:, :1])], dim=1)
+        block_end = is_img & ~next_img
+        adv = torch.where(is_img, torch.where(block_end, torch.maximum(h_c, w_c) + 1, 0),
+                          mask_i) * mask_i
+        base = torch.cumsum(adv, dim=1) - adv  # the position before each token
+        return torch.stack([base, base + torch.where(is_img, h_c, 0),
+                            base + torch.where(is_img, w_c, 0)], dim=-1)
+
+    def _lm(self, embeds, mask, positions=None):
+        if positions is None:
+            positions = (torch.cumsum(mask.to(torch.int32), dim=1) - 1).clamp(min=0)
         h = embeds
         for blk in self.layers:
             h = blk(h, mask, positions)
@@ -466,16 +579,19 @@ class ColVLM(nn.Module):
         rounding is made on the host: no copy to the device)."""
         return x * float(torch.tensor(self.cfg.text.hidden ** power, dtype=x.dtype))
 
-    def forward(self, input_ids, attn_mask, patches=None, patch_mask=None, window_ids=None):
+    def forward(self, input_ids, attn_mask, patches=None, patch_mask=None, window_ids=None,
+                patch_positions=None):
         """Pages (ids holding image placeholders, filled with the image
         embeddings in order, as HF's masked_scatter does) or plain queries.
         With ``text.embed_scale`` (PaliGemma) the image features are divided
         by sqrt(hidden) before the merge and the whole sequence multiplied
-        by it after (``colvlm.py:683-694``)."""
+        by it after (``colvlm.py:683-694``). With ``text.mrope_section``
+        (Qwen2.5-VL) the text model rotates by :meth:`_mrope_positions`."""
         input_ids = input_ids.long()
         x = self.tok_embed(input_ids)
         if patches is not None:
-            img = self.encode_images(patches, patch_mask, window_ids)  # [B, Ni, H]
+            img = self.encode_images(patches, patch_mask, window_ids,
+                                     patch_positions)  # [B, Ni, H]
             if self.cfg.text.embed_scale:
                 img = self._scaled(img, -0.5)
             is_img = input_ids == self.cfg.image_token_id
@@ -484,10 +600,15 @@ class ColVLM(nn.Module):
             x = torch.where(is_img[..., None], gathered.to(x.dtype), x)
         if self.cfg.text.embed_scale:
             x = self._scaled(x, 0.5)
-        return self._project(self._lm(x, attn_mask), attn_mask)
+        positions = None
+        if self.cfg.text.mrope_section is not None:
+            positions = self._mrope_positions(
+                input_ids, attn_mask, patch_positions if patches is not None else None)
+        return self._project(self._lm(x, attn_mask, positions), attn_mask)
 
     def embed_queries(self, input_ids, attn_mask):
         return self(input_ids, attn_mask)
 
-    def embed_pages(self, input_ids, attn_mask, patches, patch_mask, window_ids=None):
-        return self(input_ids, attn_mask, patches, patch_mask, window_ids)
+    def embed_pages(self, input_ids, attn_mask, patches, patch_mask, window_ids=None,
+                    patch_positions=None):
+        return self(input_ids, attn_mask, patches, patch_mask, window_ids, patch_positions)

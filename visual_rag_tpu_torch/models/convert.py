@@ -3,15 +3,19 @@ flax tree, or drawn at random.
 
 - :func:`params_from_hf` is the counterpart of the JAX package's
   ``convert_state_dict`` (``visual_rag_tpu/models/convert.py:45-288``) for
-  the ``idefics3`` (ColSmol) and ``paligemma`` (ColPali) layouts: its
-  mapping (the SigLIP rules ``:61-105``, PaliGemma's nesting included, and
-  the text rules ``:145-213``) is copied here, since the JAX module imports
-  flax, and maps each HF tensor straight onto the port's parameter name. An
-  HF ``Linear`` is ``[out, in]``, torch's own layout, so nothing is
-  transposed; a conv patch embed ``[H, C, k, k]`` becomes the ``[H, k*k*C]``
-  weight of the patch Dense (the processor flattens a patch row, column,
-  channel). The ``qwen2.5`` layout waits for ColQwen2.5. Reading safetensors
-  from disk waits until a checkpoint is in the repository.
+  the ``idefics3`` (ColSmol), ``paligemma`` (ColPali) and ``qwen2.5``
+  (ColQwen2.5) layouts: its mapping (the SigLIP rules ``:61-105``,
+  PaliGemma's nesting included, the Qwen2.5-VL vision and merger rules
+  ``:108-142`` and the text rules ``:145-213``) is copied here, since the
+  JAX module imports flax, and maps each HF tensor straight onto the port's
+  parameter name. An HF ``Linear`` is ``[out, in]``, torch's own layout, so
+  nothing is transposed; a conv patch embed ``[H, C, k, k]`` becomes the
+  ``[H, k*k*C]`` weight of the patch Dense (the processor flattens a patch
+  row, column, channel), and Qwen2.5-VL's Conv3d ``[H, C, 2, k, k]`` is
+  summed over its two frames first (the image is doubled over them); a
+  fused ``attn.qkv`` weight ``[3H, H]`` and bias ``[3H]`` split into q, k
+  and v, and the HF key is consumed once all three are mapped. Reading
+  safetensors from disk waits until a checkpoint is in the repository.
 - :func:`params_from_flax` maps the JAX ColVLM's param tree, as nested dicts
   of numpy arrays (the caller applies ``jax.tree.map(np.asarray, ...)``, so
   this module needs no jax), onto the port's ``state_dict``. A flax ``Dense``
@@ -129,7 +133,7 @@ def build_model(cfg: ColVLMConfig, state_dict: Mapping[str, torch.Tensor], devic
 # -- HF state dicts (visual_rag_tpu/models/convert.py:40-288) -------------------
 
 KEY_PREFIXES = ("model.", "vlm.model.", "model.model.")  # backbone nestings seen in the wild
-HF_LAYOUTS = ("idefics3", "paligemma")
+HF_LAYOUTS = ("idefics3", "paligemma", "qwen2.5")
 
 
 def _strip_prefix(key: str) -> str:
@@ -175,17 +179,49 @@ def _siglip_vision_rules(cfg: ColVLMConfig, prefixes: Tuple[str, ...]):
     return rules
 
 
+def _qwen_vision_rules(cfg: ColVLMConfig):
+    """Qwen2.5-VL tower and merger rules (``convert.py:108-142``): the fused
+    ``attn.qkv``, RMSNorm ``norm1``/``norm2``, the biased SwiGLU MLP, the
+    merger's ``ln_q``, ``mlp.0`` and ``mlp.2``, the Conv3d patch embed."""
+    rules: List[Tuple[Tuple[str, ...], str, str]] = [
+        (("visual.patch_embed.proj.weight",), "vision.patch_embed.weight", "patch_conv3d"),
+        (("visual.merger.ln_q.weight",), "merger.ln_q.scale", "raw"),
+        (("visual.merger.mlp.0.weight",), "merger.fc1.weight", "linear"),
+        (("visual.merger.mlp.0.bias",), "merger.fc1.bias", "raw"),
+        (("visual.merger.mlp.2.weight",), "merger.fc2.weight", "linear"),
+        (("visual.merger.mlp.2.bias",), "merger.fc2.bias", "raw"),
+    ]
+    for i in range(cfg.vision.layers):
+        blk, lyr = f"vision.blocks.{i}.", f"visual.blocks.{i}."
+        for j, x in enumerate("qkv"):
+            rules += [((f"{lyr}attn.qkv.weight",), blk + f"attn.{x}.weight", f"qkv_{j}"),
+                      ((f"{lyr}attn.qkv.bias",), blk + f"attn.{x}.bias", f"qkv_{j}")]
+        rules += [
+            ((f"{lyr}attn.proj.weight",), blk + "attn.o.weight", "linear"),
+            ((f"{lyr}attn.proj.bias",), blk + "attn.o.bias", "raw"),
+            ((f"{lyr}norm1.weight",), blk + "ln1.scale", "raw"),
+            ((f"{lyr}norm2.weight",), blk + "ln2.scale", "raw"),
+        ]
+        rules += [((f"{lyr}mlp.{x}_proj.{leaf}",), blk + f"mlp.{x}.{leaf}",
+                   "linear" if leaf == "weight" else "raw")
+                  for x in ("gate", "up", "down") for leaf in ("weight", "bias")]
+    return rules
+
+
 def param_mapping(cfg: ColVLMConfig) -> List[Tuple[Tuple[str, ...], str, str]]:
     """``[(hf_key_candidates, port_name, transform)]`` for ``cfg``
     (``convert.py:145-213``). transform: ``linear`` and ``raw`` (as they
     are: HF's ``[out, in]`` is torch's), ``embed`` (the ``[vocab, hidden]``
-    table), ``patch_conv`` (``[H, C, k, k]`` -> ``[H, k*k*C]``)."""
+    table), ``patch_conv`` (``[H, C, k, k]`` -> ``[H, k*k*C]``),
+    ``patch_conv3d`` (``[H, C, t, k, k]``, summed over t first) and
+    ``qkv_0``/``qkv_1``/``qkv_2`` (the q, k or v third of a fused qkv
+    weight or bias)."""
     if cfg.hf_layout not in HF_LAYOUTS:
         raise NotImplementedError(
-            f"the {cfg.hf_layout!r} HF layout is not ported yet (it comes with ColQwen2.5); "
-            f"the port maps {HF_LAYOUTS}")
+            f"the port maps the HF layouts {HF_LAYOUTS}, not {cfg.hf_layout!r}")
     text_pre = {"idefics3": ("text_model.",),
-                "paligemma": ("language_model.", "text_model.")}[cfg.hf_layout]
+                "paligemma": ("language_model.", "text_model."),
+                "qwen2.5": ("language_model.", "text_model.")}[cfg.hf_layout]
 
     def tc(suffix: str) -> Tuple[str, ...]:
         return tuple(p + suffix for p in text_pre)
@@ -198,15 +234,18 @@ def param_mapping(cfg: ColVLMConfig) -> List[Tuple[Tuple[str, ...], str, str]]:
     ]
     if cfg.proj_bias:
         rules.append((("custom_text_proj.bias", "embedding_proj_layer.bias"), "proj.bias", "raw"))
-    # vision -> text connector (SmolVLM modality projection / PaliGemma projector)
-    rules.append((("connector.modality_projection.proj.weight",
-                   "multi_modal_projector.linear.weight"), "connector.weight", "linear"))
-    if cfg.connector_bias:
-        rules.append((("connector.modality_projection.proj.bias",
-                       "multi_modal_projector.linear.bias"), "connector.bias", "raw"))
-    vis_pre = (("vision_tower.vision_model.", "vision_model.")
-               if cfg.hf_layout == "paligemma" else ("vision_model.",))
-    rules += _siglip_vision_rules(cfg, vis_pre)
+    if cfg.spatial_merge > 1:  # Qwen2.5-VL: the merger takes the connector's place
+        rules += _qwen_vision_rules(cfg)
+    else:
+        # vision -> text connector (SmolVLM modality projection / PaliGemma projector)
+        rules.append((("connector.modality_projection.proj.weight",
+                       "multi_modal_projector.linear.weight"), "connector.weight", "linear"))
+        if cfg.connector_bias:
+            rules.append((("connector.modality_projection.proj.bias",
+                           "multi_modal_projector.linear.bias"), "connector.bias", "raw"))
+        vis_pre = (("vision_tower.vision_model.", "vision_model.")
+                   if cfg.hf_layout == "paligemma" else ("vision_model.",))
+        rules += _siglip_vision_rules(cfg, vis_pre)
     for i in range(cfg.text.layers):
         blk, lyr = f"layers.{i}.", f"layers.{i}."
         rules += [
@@ -238,9 +277,14 @@ def _as_tensor(value) -> torch.Tensor:
 
 
 def _transform(value: torch.Tensor, how: str) -> torch.Tensor:
+    if how == "patch_conv3d":  # [H, C, t, k, k]: the image fills every frame
+        value, how = value.float().sum(dim=2), "patch_conv"  # f32, as the JAX converter
     if how == "patch_conv":  # [H, C, k, k] -> [H, k*k*C], (row, col, channel) per patch
         h, c, kh, kw = value.shape
         return value.permute(0, 2, 3, 1).reshape(h, kh * kw * c)
+    if how.startswith("qkv_"):  # the q, k or v third of a fused [3H, ...] tensor
+        third, i = value.shape[0] // 3, int(how[-1])
+        return value[i * third:(i + 1) * third]
     return value
 
 
@@ -256,18 +300,22 @@ def params_from_hf(state_dict: Mapping[str, Any],
     out: Dict[str, torch.Tensor] = {}
     matched: List[str] = []
     missing: List[str] = []
+    consumed = set()  # a fused qkv key feeds three parameters: dropped after the loop
     for candidates, name, how in param_mapping(cfg):
         found = next((k for k in candidates if k in normalized), None)
         if found is None:
             missing.append(candidates[0])
             continue
-        value = _transform(_as_tensor(normalized.pop(found)), how)
+        consumed.add(found)
+        value = _transform(_as_tensor(normalized[found]), how)
         ref = want[name]
         if tuple(value.shape) != tuple(ref.shape):
             raise ValueError(f"{found}: shape {tuple(value.shape)}, the port's {name} is "
                              f"{tuple(ref.shape)}")
         out[name] = value.to(ref.dtype).contiguous()
         matched.append(candidates)
+    for key in consumed:
+        del normalized[key]
     if missing:
         raise ValueError(f"the HF state dict does not fit the port's ColVLM: missing "
                          f"{missing[:5]} (+{max(0, len(missing) - 5)} more)")

@@ -1,23 +1,24 @@
 """VisualEmbedder: the embedding facade on the port's ColVLM.
 
-Counterpart of ``visual_rag_tpu/models/embedder.py`` for the ColSmol and
-ColPali backends (ColSmol-500M and ColPali-v1.3, ``_CONFIG_BY_BACKEND``
-``:49-54``):
+Counterpart of ``visual_rag_tpu/models/embedder.py`` for every backend of
+its ``_CONFIG_BY_BACKEND`` (``:49-54``): ColSmol-500M, ColPali-v1.3 and
+ColQwen2.5-v0.2 (the ``colqwen2.5`` and ``colqwen2`` names both):
 
 - ``embed_query`` / ``embed_queries`` with the optional length sort, the
   NaN/Inf guard that logs the query and recomputes it alone, and the
   special-token filter (``:144-201``);
 - ``embed_images(return_token_info=True)`` with the f16 patch wire of
-  ``:236-242`` (the model sees f16-rounded pixels on both sides) and the
-  1-deep pipeline of ``:223-266``: batch i + 1 is dispatched, its inputs
-  copied from pinned host memory without blocking, before batch i's output
-  is read back;
+  ``:236-242`` (the model sees f16-rounded pixels on both sides), the window
+  ids and ColQwen's int32 patch positions shipped beside the patches
+  (``:243-261``), and the 1-deep pipeline of ``:223-266``: batch i + 1 is
+  dispatched, its inputs copied from pinned host memory without blocking,
+  before batch i's output is read back;
 - ``extract_visual_embedding``, ``mean_pool_visual_embedding``,
   ``experimental_pool_visual_embedding`` and ``global_pool_from_mean_pool``
   (``:271-359``), every branch (the ColQwen grid branch needs only numpy).
 
-The ColQwen backends (``colqwen2.5``, ``colqwen2``) and checkpoint loading
-raise ``NotImplementedError``. Weights are random from ``seed``, drawn on
+Checkpoint loading raises ``NotImplementedError``. Weights are random from
+``seed``, drawn on
 ``device``, unless a ``state_dict`` (``params``) is given, e.g. one carried
 from the JAX model by ``models/convert.py::params_from_flax`` or from an HF
 state dict by ``params_from_hf``. The model runs on ``device`` (``"cuda"``
@@ -38,7 +39,7 @@ import numpy as np
 import torch
 
 from visual_rag_tpu_torch.device import resolve_device
-from visual_rag_tpu_torch.models.colvlm import ColVLMConfig
+from visual_rag_tpu_torch.models.colvlm import ColVLMConfig, check_supported
 from visual_rag_tpu_torch.models.convert import build_model, init_params
 from visual_rag_tpu_torch.models.processors import ImageProcessor
 from visual_rag_tpu_torch.models.tokenizer import load_tokenizer
@@ -56,10 +57,12 @@ MODEL_BACKENDS = {
 }
 
 
-# visual_rag_tpu/models/embedder.py:49-54, for the backends the port runs
+# visual_rag_tpu/models/embedder.py:49-54
 _CONFIG_BY_BACKEND = {
     "colsmol": ColVLMConfig.colsmol_500m,
     "colpali": ColVLMConfig.colpali_v13,
+    "colqwen2.5": ColVLMConfig.colqwen25_v02,
+    "colqwen2": ColVLMConfig.colqwen25_v02,
 }
 
 
@@ -72,7 +75,8 @@ def detect_backend(model_name: str) -> str:
 
 
 class VisualEmbedder:
-    """Late-interaction embedder over the port's ColVLM (ColSmol, ColPali)."""
+    """Late-interaction embedder over the port's ColVLM (ColSmol, ColPali,
+    ColQwen2.5)."""
 
     def __init__(
         self,
@@ -90,16 +94,13 @@ class VisualEmbedder:
     ):
         self.model_name = model_name
         self.backend = detect_backend(model_name)
-        if self.backend not in _CONFIG_BY_BACKEND:
-            raise NotImplementedError(
-                f"the port embeds with {sorted(_CONFIG_BY_BACKEND)}; {model_name!r} needs the "
-                f"{self.backend} backend (a later slice)")
         if checkpoint is not None:
             raise NotImplementedError("loading an HF checkpoint into the port is not ported yet")
         self.device = resolve_device(device)
         self.batch_size = int(batch_size)
         self.output_dtype = np.dtype(output_dtype)
         self.cfg = config or _CONFIG_BY_BACKEND[self.backend]()
+        check_supported(self.cfg)  # refuse now, not at the first batch
         self._params = params
         self._seed = seed
         self._model = None
@@ -235,12 +236,12 @@ class VisualEmbedder:
             # rounded to f16 on the host, cast to the model dtype on the device
             host = [proc.input_ids, proc.attn_mask, proc.patches.astype(np.float16),
                     proc.patch_mask]
-            if proc.window_ids is not None:
-                host.append(proc.window_ids)
-            dev = self._to_device(host)
-            wids = dev[4] if proc.window_ids is not None else None
+            extra = [proc.window_ids, proc.patch_positions]  # either may be None
+            dev = self._to_device(host + [a for a in extra if a is not None])
+            it = iter(dev[4:])
+            wids, ppos = (None if a is None else next(it) for a in extra)
             with torch.inference_mode():
-                out = self.model.embed_pages(dev[0], dev[1], dev[2], dev[3], wids)
+                out = self.model.embed_pages(dev[0], dev[1], dev[2], dev[3], wids, ppos)
             if pending is not None:
                 drain(*pending)
             pending = (out, proc)

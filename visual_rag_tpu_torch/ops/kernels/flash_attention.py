@@ -14,8 +14,9 @@ pad query (segment 0) attends the pad keys. Logits, maxima and sums are f32,
 the output is in the input dtype, and a row with no allowed key is zeros.
 
 On a CUDA tensor :func:`flash_attention` launches ``csrc/flash_attention.cu``
-(f32 or bf16, ``Dh`` 64, 72 or 256: ColSmol-500M's two towers, ColPali's
-vision tower and its Gemma text model) or raises; on a CPU tensor it runs
+(f32 or bf16, ``Dh`` 64, 72, 80, 128 or 256: ColSmol-500M's two towers,
+ColPali's vision tower and its Gemma text model, ColQwen2.5's vision tower
+and its Qwen2.5 text model) or raises; on a CPU tensor it runs
 :func:`flash_attention_plain`, which takes any ``Dh``.
 """
 
@@ -28,7 +29,7 @@ import torch
 from visual_rag_tpu_torch.ops.kernels import _build
 from visual_rag_tpu_torch.ops.kernels._checks import on_cpu, ptr, stream_ptr
 
-KERNEL_HEAD_DIMS = (64, 72, 256)  # the instances of csrc/flash_attention.cu
+KERNEL_HEAD_DIMS = (64, 72, 80, 128, 256)  # the instances of csrc/flash_attention.cu
 TILE = 64  # rows a query tile
 MIN_KV_TILE = 32  # keys of the smallest kv tile (Dh 256): the tile-range scratch is sized by it
 MAX_TILES = 16384  # csrc/flash_attention.cu MAX_TILES, in query tiles

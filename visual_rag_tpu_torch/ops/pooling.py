@@ -1,6 +1,6 @@
 """Pooling of page embeddings, as linear maps of the token rows.
 
-Port of ``visual_rag_tpu/ops/pooling.py`` for ColSmol and ColPali:
+Port of ``visual_rag_tpu/ops/pooling.py`` for ColSmol, ColPali and ColQwen2.5:
 :func:`tile_level_mean_pooling` (``:268``), :func:`colsmol_experimental_pooling`
 (``:326``), :func:`global_mean_pooling` (``:425``),
 :func:`colpali_row_mean_pooling` (``:284``),

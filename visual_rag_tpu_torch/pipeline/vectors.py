@@ -9,8 +9,9 @@ is, and :func:`page_vectors`, the vector and token-info half of
 with: ``initial`` holds the visual tokens, then ``mean_pooling``,
 ``global_pooling``, one vector per producer of the plan (ColSmol:
 ``experimental_pooling``; ColPali: ``experimental_pooling_3``, the legacy
-conv) and the ``experimental_pooling`` alias column, the canonical
-producer's. A caller seals them under
+conv; ColQwen: ``experimental_pooling_gaussian`` and
+``experimental_pooling_triangular``, window 3) and the
+``experimental_pooling`` alias column, the canonical producer's. A caller seals them under
 ``CollectionSchema.standard(experimental_names=plan["names"])``. The other
 strategies, PDF rendering, cropping, page-image upload, the upload queue and
 the ``colsmol_2d`` vector come with the ingest/CLI slice.
