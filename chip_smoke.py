@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's query and embedding paths once on one GPU.
+"""Drive the PyTorch/CUDA port's query, embedding and training paths once on one GPU.
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
 
@@ -134,6 +134,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    against the CPU in f32 at full width, the depth cut to 2 vision layers
    (the second full attention) and 2 text layers, 1 page (window ids and
    patch positions passed on both devices) and 4 queries, atol 1e-3.
+14. ColSmol-500M training (K10's forward with its logsumexp, B4 and B5).
+   First, not counted, at the path's shapes -- vision, one 17-tile page (T
+   17408, 12 heads, per-tile segments); page text, 4 pages of 13 tiles (T
+   896, 15 on 5 heads, causal, pads); 4 queries (T 30, causal) -- in bf16
+   and f32: the forward that saves lse against its plain version (out
+   within ``K10_TOL``, lse within ``LSE_ATOL``, two calls bit-equal, out
+   equal to the serving forward's); B4 (dK, dV) and B5 (dQ) against their
+   plain versions, called directly and through the autograd Function's
+   backward with a random dO: dq, dk and dv each within ``BWD_TOL`` (f32
+   1e-4 of the tensor's largest; bf16 one output ulp plus 1e-5 of the
+   largest), two calls bit-equal and equal to the Function's. The
+   CUDA-event ms of the three kernels, their plain versions and SDPA (its
+   forward on inputs that need grad; its backward alone) with the same
+   boolean mask, and the ptxas lines of the six training instances (0 spill
+   bytes required). Then full-width
+   ColSmol-500M (460296512 parameters asserted; f32 master weights from
+   seed 0 drawn on the card, bf16 compute), ``Trainer(lr=1e-4, warmup=0)``,
+   one batch of 4 (query, page) pairs from the port's processor (17-tile
+   random pages with their window ids, 4 random queries): ``remat=True``
+   gives the same loss and gradients; a warm step, then, counts at 0, the
+   main path: 5 steps (steps/s, pairs/s, peak memory; each loss finite and
+   the last below the warm one's; the forward that saves lse, B4 and B5
+   launched 76 times a step each: 12 vision + 32 page text + 32 query text
+   layers; the serving forward never); ``ema_update`` of the parameters
+   before and after the 5 steps against the f64 lerp; a profiled step; a
+   checkpoint saved, restored and stepped once, equal to a step from the
+   live state. Then, not counted: one step's loss and gradients in f32 on
+   the card against the CPU at full width, the depth cut to 2 + 2 layers, 2
+   pairs of 5-tile pages (loss 1e-4 relative; each leaf within 1e-3 of its
+   own largest, except the leaves at f32 rounding level on the CPU,
+   ``ROUNDING_SHARE``, which may be only the key biases).
 
 The build's log gives each kernel's registers and spills (``-Xptxas=-v``).
 Every kernel entry carries ``bound_ms`` (the larger of its bytes over 3.35
@@ -141,7 +172,11 @@ TB/s and its operations over the peak rate of their type: 989 TFLOP/s bf16,
 67 TFLOP/s f32, 1979 TOP/s int8), ``bound_by``, and ``library_ms`` (SDPA for
 K10; null for the MaxSim kernels, which no single PyTorch call computes).
 K10's one entry holds every shape of phases 11, 12 and 13 under ``shapes``,
-the head dims it ran (64, 72, 80, 128, 256) and its launches on each path.
+the head dims it ran (64, 72, 80, 128, 256) and its launches on each
+embedding path; the entries of the forward that saves lse
+(``flash_attention_fwd``; ``library_ms``: SDPA's forward on inputs that
+need grad), B4 and B5 (``library_ms``: SDPA's whole backward) hold phase
+14's shapes and their ptxas lines.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary. Without a CUDA device the script raises at once.
 """
@@ -614,6 +649,9 @@ def main() -> None:
 
     # -- 13. the ColQwen2.5-v0.2 embedding path ---------------------------------------------
     colqwen = colqwen_phase(dev, card, rerank_fns, entry_points[1:])
+
+    # -- 14. ColSmol-500M training: K10 with lse, B4 and B5 ---------------------------------
+    training, _ = training_phase(dev, card)
     k10["launches_by_path"] = {"colsmol": k10["launches"], "colpali": colpali["launches"],
                                "colqwen2.5": colqwen["launches"]}
     k10["launches"] += colpali["launches"] + colqwen["launches"]
@@ -626,6 +664,7 @@ def main() -> None:
                                  if "f32" in k)
     k10["of_limit"] = max(v["of_limit"] for v in k10["shapes"].values())  # <= 1 (K10_TOL)
     kernels.append(k10)
+    kernels += training
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "visual_rag_tpu"))
     if leaked:
         raise AssertionError(f"the JAX package or jax was imported: {leaked[:5]}")
@@ -1779,6 +1818,359 @@ def colqwen_phase(dev, card, rerank_fns, search_fns):
     log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
     return {"shapes": k10, "launches": k10_launches, "pages_per_s": 32 / t_pages,
             "queries_per_s": 64 / t_queries, "profile": prof, "ptxas": ptxas}
+
+
+# (rtol, atol as a share of the tensor's largest |want|) for B4 and B5 against their plain
+# versions, each element: f32 sums of the same products in another order; in bf16 both
+# round f32 values to bf16, so one output ulp (2**-7 |want|) apart
+BWD_TOL = {"f32": (0.0, 1e-4), "bf16": (2.0 ** -7, 1e-5)}
+# the forward that saves lse against its plain version: out within K10_TOL, and lse (f32
+# m + log(l) of f32 logits in both, whatever the input dtype) within an absolute 1e-5,
+# -inf in the same rows
+LSE_ATOL = 1e-5
+# a gradient leaf at most this share of the largest leaf is at f32 rounding level (phase
+# 14c): the key biases read about 2e-9 of it on the CPU, every other leaf 2.8e-3 or more
+ROUNDING_SHARE = 1e-6
+
+
+def bwd_shape(dev, card, name, dtype, b, t, hq, hkv, dh, seg, causal, iters):
+    """K10's forward that saves lse, B4 and B5 against their plain versions
+    at one shape (module docstring, 14a). The forward: out within ``K10_TOL``
+    and lse within ``LSE_ATOL``, two calls bit-equal, out equal to the serving
+    forward's. B4 and B5, called directly and through the autograd Function's
+    backward with a random dO: each of dq, dk, dv within ``BWD_TOL``, two calls
+    bit-equal. The CUDA-event ms of each kernel, of its plain version and of
+    SDPA (its forward on inputs that need grad, which keeps its logsumexp;
+    its backward timed alone, with the same boolean mask); bound_ms of each
+    kernel. Returns the three kernels' entries for this shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from visual_rag_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(t + hq + 1)
+    q, do = (torch.randn((b, t, hq, dh), generator=gen, device=dev).to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, t, hkv, dh), generator=gen, device=dev).to(dtype) for _ in range(2))
+    out, lse = fa.flash_attention_fwd(q, k, v, seg, causal=causal)
+    out2, lse2 = fa.flash_attention_fwd(q, k, v, seg, causal=causal)
+    serving = fa.flash_attention(q, k, v, seg, causal=causal)
+    out_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, seg, causal=causal)
+    torch.cuda.synchronize()
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    rtol, atol = K10_TOL[dt]
+    diff = (out.float() - out_p.float()).abs()
+    out_of_limit = float((diff / (atol + rtol * out_p.float().abs())).max())
+    out_err = float(diff.max())
+    del diff
+    inf_same = torch.equal(torch.isinf(lse), torch.isinf(lse_p))
+    fin = torch.isfinite(lse_p)
+    lse_err = float((lse - lse_p).abs()[fin].max()) if bool(fin.any()) else 0.0
+    n_inf = int((~fin).sum())
+    if not out_of_limit <= 1.0 or not inf_same or not lse_err <= LSE_ATOL:
+        raise AssertionError(f"K10 with lse {name} {dt}: out at {out_of_limit:.3g} of K10_TOL "
+                             f"(max_abs_err {out_err}), lse max_abs_err {lse_err} (limit "
+                             f"{LSE_ATOL}), -inf rows the same: {inf_same}")
+    if not (torch.equal(out, out2) and torch.equal(lse, lse2) and torch.equal(out, serving)):
+        raise AssertionError(f"K10 with lse {name} {dt} is not deterministic or its out differs "
+                             "from the serving forward's")
+    del out2, lse2, serving, out_p, lse_p, fin
+    di = fa.attention_di(out, do)
+    kw = dict(causal=causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, seg, do, lse, di, **kw)
+    dq = fa.flash_attention_bwd_dq(q, k, v, seg, do, lse, di, **kw)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, seg, do, lse, di, **kw)
+    dq2 = fa.flash_attention_bwd_dq(q, k, v, seg, do, lse, di, **kw)
+    want = dict(zip(("dk", "dv"), fa.flash_attention_bwd_dkv_plain(q, k, v, seg, do, lse, di,
+                                                                   **kw)))
+    want["dq"] = fa.flash_attention_bwd_dq_plain(q, k, v, seg, do, lse, di, **kw)
+    # through the Function: forward with lse, di, then B4 and B5
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    fa.flash_attention(qg, kg, vg, seg, causal=causal).backward(do)
+    torch.cuda.synchronize()
+    rtol, atol = BWD_TOL[dt]
+    res = {}
+    for key, got, again, via in (("dq", dq, dq2, qg.grad), ("dk", dk, dk2, kg.grad),
+                                 ("dv", dv, dv2, vg.grad)):
+        w = want[key].float()
+        diff = (got.float() - w).abs()
+        of_limit = float((diff / (atol * float(w.abs().max()) + rtol * w.abs())).max())
+        res[key] = {"max_abs_err": float(diff.max()), "max_want": float(w.abs().max()),
+                    "of_limit": of_limit}
+        if not of_limit <= 1.0:
+            raise AssertionError(f"B4/B5 {name} {dt} {key}: |got - want| reaches {of_limit:.3g} "
+                                 f"of the limit (max_abs_err {float(diff.max())})")
+        if not torch.equal(got, again):
+            raise AssertionError(f"B4/B5 {name} {dt} {key} is not deterministic")
+        if not torch.equal(got, via):
+            raise AssertionError(f"B4/B5 {name} {dt} {key}: the Function's backward differs "
+                                 "from the direct call")
+    del want, dq2, dk2, dv2, qg, kg, vg
+    fwd_ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, seg, **kw), iters)
+    fwd_plain = cuda_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, seg, **kw), 1)
+    b4_ms = cuda_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, seg, do, lse, di, **kw), iters)
+    b5_ms = cuda_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, seg, do, lse, di, **kw), iters)
+    b4_plain = cuda_ms(lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, seg, do, lse, di, **kw),
+                       1)
+    b5_plain = cuda_ms(lambda: fa.flash_attention_bwd_dq_plain(q, k, v, seg, do, lse, di, **kw),
+                       1)
+    rep = hq // hkv  # SDPA's backward alone: the forward made once, untimed
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (
+        q, k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)))
+    mask = torch.stack([fa.allowed_pairs(s, causal) for s in seg])[:, None]
+    sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+                          iters)
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    do_t = do.transpose(1, 2)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(o_sdpa, (qt, kt, vt), do_t,
+                                                     retain_graph=True), iters)
+    del qt, kt, vt, mask, o_sdpa
+    pairs = allowed_pair_count(seg, causal)
+    ins = sum(_nb(x) for x in (q, k, v, do, lse, di, seg))
+    b4_bound = bound(ins + _nb(dk) + _nb(dv), 8 * dh * pairs * hq, dt)
+    b5_bound = bound(ins + _nb(dq), 6 * dh * pairs * hq, dt)
+    fwd_bound = bound(sum(_nb(x) for x in (q, k, v, seg, out, lse)), 4 * dh * pairs * hq, dt)
+    log(f"K10 with lse {name} {dt} [B {b}, T {t}, heads {hq}/{hkv}, Dh {dh}, "
+        f"{'causal' if causal else 'segments'}]: out max_abs_err {out_err:.3g} "
+        f"({out_of_limit:.3g} of K10_TOL), lse max_abs_err {lse_err:.3g} (limit {LSE_ATOL}; "
+        f"{n_inf} -inf rows, the same in both); bit-equal twice, out equal to the serving "
+        f"forward's; {fwd_ms:.4f} ms (plain {fwd_plain:.4f}, bound {fwd_bound[0]:.4f} "
+        f"{fwd_bound[1]}), SDPA forward on inputs that need grad {sdpa_fwd_ms:.4f} ms [{card}]")
+    log(f"B4/B5 {name} {dt} [B {b}, T {t}, heads {hq}/{hkv}, Dh {dh}, "
+        f"{'causal' if causal else 'segments'}, {pairs} allowed pairs a head]: "
+        + ", ".join(f"{key} max_abs_err {r['max_abs_err']:.3g} (max |want| "
+                    f"{r['max_want']:.3g}, {r['of_limit']:.3g} of the limit)"
+                    for key, r in res.items())
+        + f"; bit-equal twice and through the Function; B4 {b4_ms:.4f} ms (plain "
+        f"{b4_plain:.4f}, bound {b4_bound[0]:.4f} {b4_bound[1]}), B5 {b5_ms:.4f} ms (plain "
+        f"{b5_plain:.4f}, bound {b5_bound[0]:.4f} {b5_bound[1]}), SDPA backward "
+        f"{library_ms:.4f} ms [{card}]")
+    shape = {"shape": [b, t, hq, hkv, dh], "causal": causal, "pairs_per_head": pairs,
+             "library_ms": library_ms}
+    return ({"max_abs_err": out_err, "of_limit": out_of_limit, "lse_max_abs_err": lse_err,
+             "ms": fwd_ms, "plain_ms": fwd_plain, "bound_ms": fwd_bound[0],
+             "bound_by": fwd_bound[1], **shape, "library_ms": sdpa_fwd_ms},
+            {"max_abs_err": max(res["dk"]["max_abs_err"], res["dv"]["max_abs_err"]),
+             "of_limit": max(res["dk"]["of_limit"], res["dv"]["of_limit"]), "ms": b4_ms,
+             "plain_ms": b4_plain, "bound_ms": b4_bound[0], "bound_by": b4_bound[1], **shape},
+            {"max_abs_err": res["dq"]["max_abs_err"], "of_limit": res["dq"]["of_limit"],
+             "ms": b5_ms, "plain_ms": b5_plain, "bound_ms": b5_bound[0],
+             "bound_by": b5_bound[1], **shape})
+
+
+def training_phase(dev, card):
+    """Phase 14: ColSmol-500M training (module docstring). Returns the
+    kernel entries of K10's forward that saves lse, B4 and B5, and the
+    training path's end-to-end numbers."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from visual_rag_tpu_torch.cli.train_colvlm import QUERY_WORDS, processed_batch
+    from visual_rag_tpu_torch.models.colvlm import ColVLM, ColVLMConfig
+    from visual_rag_tpu_torch.models.convert import init_params
+    from visual_rag_tpu_torch.models.embedder import VisualEmbedder
+    from visual_rag_tpu_torch.models.train import (
+        Trainer,
+        TrainState,
+        ema_update,
+        restore_train_state,
+        save_train_state,
+    )
+    from visual_rag_tpu_torch.ops.kernels import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    # 14a. B4 and B5 against their plain versions at the path's shapes (not counted)
+    vision_seg = (torch.arange(17408, device=dev)[None] // 1024 + 1).to(torch.int32)
+    shapes = {"vision 17 tiles": (1, 17408, 12, 12, 64, vision_seg, False, 5),
+              "page text 13 tiles": (4, 896, 15, 5, 64, prefix_seg(dev, [836] * 4, 896), True,
+                                     10),
+              "queries": (4, 30, 15, 5, 64, prefix_seg(dev, [30, 21, 12, 25], 30), True, 10)}
+    fwd, b4, b5 = {}, {}, {}
+    for name, (b, t, hq, hkv, dh, seg, causal, iters) in shapes.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            key = f"{name} {'bf16' if dtype == torch.bfloat16 else 'f32'}"
+            fwd[key], b4[key], b5[key] = bwd_shape(dev, card, name, dtype, b, t, hq, hkv, dh,
+                                                   seg, causal, iters)
+            torch.cuda.empty_cache()
+    ptxas = {entry: lines for entry, lines in ptxas_report().items()
+             if any(k in entry for k in ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel",
+                                         "flash_fwd_lse_kernel"))}
+    if len(ptxas) != 6:  # B4, B5 and the forward that saves lse, each f32 and bf16
+        raise AssertionError(f"the build log names {len(ptxas)} training kernel instances, "
+                             f"not 6: {sorted(ptxas)}")
+    for entry, lines in ptxas.items():
+        log(f"ptxas {entry}: {'; '.join(lines)}")
+        if not any("0 bytes spill stores, 0 bytes spill loads" in x for x in lines):
+            raise AssertionError(f"training kernel instance {entry} spills: {lines}")
+
+    # 14b. full-width ColSmol-500M: f32 master weights from seed 0 drawn on the card,
+    # bf16 compute; one batch of 4 (query, page) pairs of 17-tile pages
+    t0 = time.perf_counter()
+    cfg = ColVLMConfig.colsmol_500m()
+    trainer = Trainer(cfg, lr=1e-4, warmup=0, device=dev)
+    state = trainer.init_state(seed=0)
+    n_params = sum(p.numel() for p in state.params.values())
+    torch.cuda.synchronize()
+    log(f"ColSmol-500M training state: {n_params} parameters, f32 master weights and AdamW "
+        f"moments, {cfg.dtype} compute, on the card in {time.perf_counter() - t0:.2f} s")
+    if n_params != 460296512:
+        raise AssertionError(f"ColSmol-500M has {n_params} parameters, not 460296512")
+    processor = VisualEmbedder("vidore/colSmol-500M", config=cfg, device=dev).processor
+    rng = np.random.default_rng(14)
+    texts = [" ".join(rng.choice(QUERY_WORDS, int(rng.integers(4, 26)))) for _ in range(4)]
+    t0 = time.perf_counter()
+    batch = processed_batch(processor, synthetic_pages(4, 17, seed=140), texts)
+    t_host = time.perf_counter() - t0
+    log(f"training batch: 4 pairs, patches {batch['patches'].shape}, page ids "
+        f"{batch['page_ids'].shape}, queries {batch['query_ids'].shape}, window ids "
+        f"{'yes' if 'window_ids' in batch else 'no'}; the host processor took {t_host:.3f} s")
+    # 14c, first part: remat=True gives the same loss and gradients (not counted; at the
+    # initial parameters, where the loss is far from 0)
+    (l0, _), g0 = trainer.value_and_grad(state.params, batch)
+    remat = Trainer(dataclasses.replace(cfg, remat=True), lr=1e-4, warmup=0, device=dev)
+    (l1, _), g1 = remat.value_and_grad(state.params, batch)
+    rel = max(float((g1[k] - g0[k]).abs().max() / g0[k].abs().max().clamp(min=1e-30))
+              for k in g0)
+    log(f"remat=True on the same batch: loss {float(l1):.6f} against {float(l0):.6f}, largest "
+        f"gradient difference {rel:.3g} of its leaf's largest")
+    if not (abs(float(l1) - float(l0)) <= 1e-6 * abs(float(l0)) and rel <= 1e-5):
+        raise AssertionError(f"remat changes the loss or the gradients: {float(l1)} vs "
+                             f"{float(l0)}, {rel}")
+    del g0, g1, remat
+    torch.cuda.empty_cache()
+    step_fn = trainer.make_train_step()
+    params, opt = state.params, state.opt_state
+    params, opt, metrics = step_fn(params, opt, batch)  # warm step, not counted
+    losses = [float(metrics["loss"])]
+    before = {k: v.detach().clone() for k, v in params.items()}
+    # the forward that saves lse, B4 and B5; the serving forward must not run in training
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq,
+                fa.flash_attention)
+    for fn in counters:
+        fn.launches = 0
+
+    # -- the main path: 5 train steps --
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        params, opt, metrics = step_fn(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    t_steps = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in counters}
+    peak = torch.cuda.max_memory_allocated()
+    want = cfg.vision.layers + 2 * cfg.text.layers
+    log(f"5 train steps after a warm one in {t_steps:.3f} s = {5 / t_steps:.3f} steps/s = "
+        f"{20 / t_steps:.2f} pairs/s; losses {losses} (the first from the warm step, at the "
+        f"initial parameters; each finite, the last below the first); peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; launches {counts} (the first three each {want} a step: "
+        f"{cfg.vision.layers} vision + {cfg.text.layers} page text + {cfg.text.layers} query "
+        f"text; the serving forward none) [{card}]")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the training loss did not fall or is not finite: {losses}")
+    for fn, n in zip(counters, (5 * want,) * 3 + (0,)):
+        if counts[fn.__name__] != n:
+            raise AssertionError(f"{fn.__name__} launched {counts[fn.__name__]} times over 5 "
+                                 f"steps, not {n}")
+
+    # EMA of the parameters before the 5 steps with those after them (before the profiled
+    # step moves them again)
+    ema = ema_update(before, params, 0.9)
+    lerp_err = max(float((ema[k].double() - 0.9 * before[k].double()
+                          - 0.1 * params[k].detach().double()).abs().max()) for k in ema)
+    log(f"ema_update (decay 0.9) of the parameters before and after the 5 steps: largest "
+        f"difference from the f64 lerp {lerp_err:.3g}")
+    if not lerp_err <= 1e-6:
+        raise AssertionError(f"ema_update is not the lerp: {lerp_err}")
+    del ema, before
+    prof = profile_batch(lambda: step_fn(params, opt, batch), "one train step of 4 pairs", card)
+    # a checkpoint: one step from the restored state equals one from the live state
+    ckpt = ROOT / "build" / "phase14_ckpt"
+    t0 = time.perf_counter()
+    path = save_train_state(TrainState(params, opt, 7), ckpt)
+    t_save = time.perf_counter() - t0
+    restored = restore_train_state(ckpt, template=state)
+    shutil.rmtree(ckpt)
+    live, m_live = trainer.train_step_once(TrainState(params, opt, 7), batch)
+    again, m_again = trainer.train_step_once(restored, batch)
+    same = (float(m_live["loss"]) == float(m_again["loss"])
+            and all(torch.equal(live.params[k], again.params[k]) for k in live.params)
+            and all(torch.equal(live.opt_state.nu[k], again.opt_state.nu[k]) for k in live.params))
+    log(f"checkpoint: saved {path} in {t_save:.2f} s, restored (step {restored.step}); one step "
+        f"from it equals one from the live state (loss, parameters, moments): {same}")
+    if not same or again.step != 8:
+        raise AssertionError("a step from the restored checkpoint differs from the live one")
+    del again, restored, live, params, opt, state, trainer
+    torch.cuda.empty_cache()
+
+    # 14c. the card against the CPU in f32 (not counted)
+    cut = dataclasses.replace(cfg, dtype="float32",
+                              vision=dataclasses.replace(cfg.vision, layers=2),
+                              text=dataclasses.replace(cfg.text, layers=2))
+    keep = set(ColVLM(cut, device="meta").state_dict())
+    sd = {k: v.cpu() for k, v in init_params(cut, seed=0, device=dev,
+                                             param_dtype=torch.float32).items() if k in keep}
+    small = processed_batch(processor, synthetic_pages(2, 5, seed=141), texts[:2])
+    res = {}
+    for where in ("card", "cpu"):
+        tr = Trainer(cut, lr=1e-4, warmup=0, device=dev if where == "card" else "cpu")
+        st = tr.init_state(params=sd)
+        (loss, _), grads = tr.value_and_grad(st.params, small)
+        res[where] = (float(loss), {k: g.cpu() for k, g in grads.items()})
+        del tr, st, grads
+    # each leaf within 1e-3 of its own largest |CPU gradient|, except the leaves whose CPU
+    # gradient is at f32 rounding level, at most ROUNDING_SHARE of the largest of all leaves:
+    # the key biases, whose exact gradient is 0 (a shift of every logit of a row leaves its
+    # softmax as it is), so both devices give noise there. The rule may exempt only those,
+    # and their card gradient must be at that level too
+    loss_err = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    top = max(float(g.abs().max()) for g in res["cpu"][1].values())
+    exempt = {k: (float(g.abs().max()), float(res["card"][1][k].abs().max()))
+              for k, g in res["cpu"][1].items() if float(g.abs().max()) <= ROUNDING_SHARE * top}
+    worst = max((float((res["card"][1][k] - g).abs().max()) / (1e-3 * float(g.abs().max())), k)
+                for k, g in res["cpu"][1].items() if k not in exempt)
+    log(f"card vs CPU, f32 at full width cut to 2 + 2 layers, one step's loss and gradients on "
+        f"2 pairs of 5-tile pages: loss {res['card'][0]:.6f} vs {res['cpu'][0]:.6f} (relative "
+        f"{loss_err:.3g}, limit 1e-4); worst leaf {worst[1]} at {worst[0]:.3g} of its limit "
+        f"(1e-3 of its largest); at rounding level (<= {ROUNDING_SHARE} of the largest "
+        f"gradient, {top:.3g}), so exempt: "
+        + ", ".join(f"{k} largest {c:.3g} on the CPU, {g:.3g} on the card" for k, (c, g) in
+                    exempt.items()))
+    if loss_err > 1e-4 or worst[0] > 1.0:
+        raise AssertionError(f"f32 training on the card and on the CPU differ: {loss_err}, "
+                             f"{worst}")
+    if (not all(k.endswith("attn.k.bias") for k in exempt)
+            or not all(g <= ROUNDING_SHARE * top for _, g in exempt.values())):
+        raise AssertionError(f"the rounding-level rule exempts other leaves than the key "
+                             f"biases, or the card's are not at that level: {exempt}")
+    del res, sd
+    torch.cuda.empty_cache()
+    log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
+
+    def entry(name, source, line, kernel, shapes_):
+        main = shapes_["vision 17 tiles bf16"]
+        return {"name": name, "route": "cuda", "source": f"visual_rag_tpu_torch/csrc/{source}",
+                "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
+                "launches": counts[name],
+                "max_abs_err": max(v["max_abs_err"] for k, v in shapes_.items() if "bf16" in k),
+                "max_abs_err_f32": max(v["max_abs_err"] for k, v in shapes_.items()
+                                       if "f32" in k),
+                "of_limit": max(v["of_limit"] for v in shapes_.values()),
+                **{key: main[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                              "bound_by")},
+                "shapes": shapes_,
+                "ptxas": {k: v for k, v in ptxas.items() if kernel in k}}
+
+    return ([entry("flash_attention_fwd", "flash_attention.cu", 758, "flash_fwd_lse_kernel", fwd),
+             entry("flash_attention_bwd_dkv", "flash_attention_bwd.cu", 1121,
+                   "flash_bwd_dkv_kernel", b4),
+             entry("flash_attention_bwd_dq", "flash_attention_bwd.cu", 1456,
+                   "flash_bwd_dq_kernel", b5)],
+            {"steps_per_s": 5 / t_steps, "pairs_per_s": 20 / t_steps, "peak_gib": peak / 2 ** 30,
+             "profile": prof, "losses": losses})
 
 
 if __name__ == "__main__":

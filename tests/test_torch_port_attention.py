@@ -17,12 +17,31 @@
   valid rows, and with ``use_flash=False`` (the dense fallback's own) on
   every row, pads included, at 1e-5 in f32.
 - On a CPU tensor the wrapper runs the plain version and counts no launch.
+
+The backward (B4, B5):
+
+- The plain backward (:func:`flash_attention_bwd_dq_plain`,
+  :func:`flash_attention_bwd_dkv_plain`, fed by :func:`flash_attention_fwd_plain`'s
+  lse and ``attention_di``) against ``jax.grad`` of the library kernel under
+  ``pltpu.force_tpu_interpret_mode()`` (its custom VJP runs the library's B4
+  and B5 in interpret mode), with a random dO, segment ids and pads, causal
+  and not, at head dims 64, 72, 80, 128 and 256: dq, dk and dv within 1e-5
+  of each tensor's largest magnitude in f32 (every row, pads included); in
+  bf16 within 2**-6 of it plus one output ulp an element (the library rounds
+  P and dS to bf16 before its products, the port keeps them f32: a few bf16
+  ulps of the largest term). Grouped heads (4 on 2, 15 on 5) against
+  ``jnp.repeat`` followed by the library: autodiff sums the repeats.
+- The autograd Function on the CPU against autograd through the dense
+  attention of ``mha(use_flash=False)`` on valid rows (dO zero on pads, as
+  the projection mask makes it), f32 at 1e-5; the forward's lse against
+  the dense logsumexp; a row alone in its segment gets zero dq.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import jax
 from jax.experimental.pallas import tpu as pltpu
 from jax.experimental.pallas.ops.tpu.flash_attention import SegmentIds
 from jax.experimental.pallas.ops.tpu.flash_attention import flash_attention as tpu_flash
@@ -30,7 +49,14 @@ from jax.experimental.pallas.ops.tpu.flash_attention import flash_attention as t
 from visual_rag_tpu.models.attention import mha as jax_mha
 from visual_rag_tpu_torch.models.attention import mha, segment_ids
 from visual_rag_tpu_torch.ops.kernels.flash_attention import (
+    attention_di,
     flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dkv_plain,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_dq_plain,
+    flash_attention_fwd,
+    flash_attention_fwd_plain,
     flash_attention_plain,
 )
 
@@ -231,3 +257,141 @@ def test_cpu_tensors_run_the_plain_version():
     with pytest.raises(ValueError, match="multiple"):
         flash_attention(args[0][:, :, :1].repeat(1, 1, 3, 1), args[1].repeat(1, 1, 2, 1),
                         args[2].repeat(1, 1, 2, 1), args[3], causal=False)
+
+
+# -- the backward: B4 and B5 -----------------------------------------------------
+
+
+def _tpu_grads(q, k, v, seg, do, causal, dtype):
+    """dq, dk, dv of sum(o * dO) through the library kernel in interpret mode
+    (its custom VJP: B4 and B5), in the port's layout; kv heads repeated
+    first where there are fewer (autodiff sums the repeats)."""
+    rep = q.shape[2] // k.shape[2]
+    to = lambda x: jnp.moveaxis(jnp.asarray(x, dtype), 2, 1)  # noqa: E731
+    segs = SegmentIds(q=jnp.asarray(seg), kv=jnp.asarray(seg))
+    dout = to(do)
+
+    def f(q, k, v):
+        o = tpu_flash(q, jnp.repeat(k, rep, axis=1), jnp.repeat(v, rep, axis=1),
+                      segment_ids=segs, causal=causal, sm_scale=q.shape[-1] ** -0.5)
+        return jnp.sum(o.astype(jnp.float32) * dout.astype(jnp.float32))
+
+    with pltpu.force_tpu_interpret_mode():
+        grads = jax.grad(f, argnums=(0, 1, 2))(to(q), to(k), to(v))
+    return [np.asarray(jnp.moveaxis(g, 1, 2).astype(jnp.float32)) for g in grads]
+
+
+def _port_grads(q, k, v, seg, do, causal, dtype):
+    t = lambda x: torch.from_numpy(x).to(dtype)  # noqa: E731
+    q, k, v, do, seg = t(q), t(k), t(v), t(do), torch.from_numpy(seg)
+    out, lse = flash_attention_fwd_plain(q, k, v, seg, causal=causal)
+    di = attention_di(out, do)
+    dk, dv = flash_attention_bwd_dkv_plain(q, k, v, seg, do, lse, di, causal=causal)
+    dq = flash_attention_bwd_dq_plain(q, k, v, seg, do, lse, di, causal=causal)
+    assert dq.dtype == dk.dtype == dv.dtype == dtype
+    return [x.float().numpy() for x in (dq, dk, dv)]
+
+
+def _bf16(x):
+    return np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+
+
+def _assert_grads_close(got, want, dtype):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        scale = float(np.abs(w).max())
+        if dtype == torch.float32:
+            tol = 1e-5 * scale
+        else:  # a few bf16 ulps of the largest term, plus one ulp an element
+            tol = 2.0 ** -6 * scale + 2.0 ** -8 * np.abs(w)
+        assert (np.abs(g - w) <= tol).all(), (name, float(np.abs(g - w).max()), scale)
+
+
+@pytest.mark.parametrize("dh,t,n_segments,causal,dtype", [
+    (64, 256, 3, True, torch.float32),
+    (64, 128, 2, False, torch.float32),
+    (72, 128, 2, True, torch.float32),
+    (72, 256, 3, False, torch.float32),
+    (80, 256, 3, True, torch.float32),
+    (80, 128, 2, False, torch.float32),
+    (128, 128, 2, True, torch.float32),
+    (128, 256, 3, False, torch.float32),
+    (256, 256, 3, True, torch.float32),
+    (256, 128, 2, False, torch.float32),
+    (64, 256, 3, True, torch.bfloat16),
+    (256, 128, 2, False, torch.bfloat16),
+])
+def test_plain_backward_matches_the_tpu_kernels(dh, t, n_segments, causal, dtype):
+    """B4 and B5's plain versions against the library's backward kernels."""
+    q, k, v, seg = _inputs(t + dh + 2, 2, t, 2, 2, n_segments, dh=dh)
+    do = np.random.default_rng(dh + t).standard_normal(q.shape).astype(np.float32)
+    if dtype == torch.bfloat16:  # both sides read the same bf16 inputs
+        q, k, v, do = (_bf16(x) for x in (q, k, v, do))
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = _tpu_grads(q, k, v, seg, do, causal, jdt)
+    _assert_grads_close(_port_grads(q, k, v, seg, do, causal, dtype), want, dtype)
+
+
+@pytest.mark.parametrize("hq,hkv,causal", [(4, 2, True), (15, 5, False)])
+def test_plain_backward_sums_grouped_heads_as_the_tpu_kernels(hq, hkv, causal):
+    """Grouped kv heads (ColSmol's text model: 15 on 5): dk and dv sum the
+    group's query heads, as autodiff of ``jnp.repeat`` does."""
+    q, k, v, seg = _inputs(hq + 40, 1, 128, hq, hkv, 2)
+    do = np.random.default_rng(hq).standard_normal(q.shape).astype(np.float32)
+    want = _tpu_grads(q, k, v, seg, do, causal, jnp.float32)
+    _assert_grads_close(_port_grads(q, k, v, seg, do, causal, torch.float32), want,
+                        torch.float32)
+
+
+@pytest.mark.parametrize("causal,hq,hkv", [(True, 6, 2), (False, 3, 3)])
+def test_autograd_function_matches_dense_attention_on_valid_rows(causal, hq, hkv):
+    """The Function (plain forward with lse, then B4 and B5's plain versions)
+    against autograd through the dense attention; dO is zero on pad rows,
+    as the model's projection mask makes it, so the two agree on every
+    gradient although pad queries attend differently."""
+    q, k, v, seg = _inputs(17 + hq, 2, 90, hq, hkv, 3)
+    mask = seg > 0
+    do = np.random.default_rng(3).standard_normal(q.shape).astype(np.float32)
+    do[~mask] = 0.0
+    grads = []
+    for flash in (True, False):
+        tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+        out = mha(tq, tk, tv, torch.from_numpy(mask), causal=causal, dtype=torch.float32,
+                  use_flash=flash)
+        (out * torch.from_numpy(do)).sum().backward()
+        grads.append([x.grad.numpy() for x in (tq, tk, tv)])
+    for got, want in zip(*grads):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_forward_lse_is_the_logsumexp_of_the_allowed_logits():
+    """lse = logsumexp of the allowed scaled logits (f32 [B, Hq, T]); a row
+    whose only allowed key is itself gets that logit and finite gradients."""
+    q, k, v, seg = _inputs(23, 1, 64, 2, 1, 2)
+    seg[0, 40] = 7  # row 40: a segment of its own
+    tq, tk, tv, ts = (torch.from_numpy(x) for x in (q, k, v, seg))
+    out, lse = flash_attention_fwd_plain(tq, tk, tv, ts, causal=True)
+    logits = torch.einsum("bqhd,bkhd->bhqk", tq, tk.repeat_interleave(2, dim=2)) / 8.0
+    ok = (ts[:, None, :, None] == ts[:, None, None, :]) & torch.ones(64, 64).tril().bool()
+    want = torch.logsumexp(logits.masked_fill(~ok, float("-inf")), dim=-1)
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-5)
+    torch.testing.assert_close(out[0, 40], tv[0, 40].expand(2, -1), rtol=0, atol=0)
+    do = torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
+    di = attention_di(out, do)
+    dq = flash_attention_bwd_dq(tq, tk, tv, ts, do, lse, di, causal=True)
+    dk, dv = flash_attention_bwd_dkv(tq, tk, tv, ts, do, lse, di, causal=True)
+    assert all(torch.isfinite(x).all() for x in (dq, dk, dv))
+    # a softmax over one key has no gradient in q: dS = P (dO.v - dO.o) with o = v,
+    # two f32 sums of the same products in other orders
+    assert dq[0, 40].abs().max() < 1e-5
+
+
+def test_function_counts_no_launch_on_the_cpu():
+    q, k, v, seg = _inputs(29, 1, 70, 2, 1, 2)
+    counters = (flash_attention, flash_attention_fwd, flash_attention_bwd_dkv,
+                flash_attention_bwd_dq)
+    before = [f.launches for f in counters]
+    tq = torch.from_numpy(q).requires_grad_()
+    flash_attention(tq, torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(seg),
+                    causal=True).sum().backward()
+    assert tq.grad is not None and torch.isfinite(tq.grad).all()
+    assert [f.launches for f in counters] == before

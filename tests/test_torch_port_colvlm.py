@@ -15,8 +15,8 @@ hidden) is initialized in JAX and its parameters carried to the port with
   bf16 by per-token cosine >= 0.999 (0.99994 on these inputs: the two
   frameworks round bf16 at different places, XLA fusing some steps).
 - tiles stay isolated through the tower; the configs the port does not run
-  yet (MoE, scanned layers, ring attention, ``remat``, an unknown MLP
-  activation) are refused by name; ``init_params`` draws flax's
+  yet (MoE, scanned layers, ring attention, an unknown MLP activation) are
+  refused by name (``remat`` runs: ``tests/test_torch_port_train.py``); ``init_params`` draws flax's
   distributions, with zeros for Gemma's offset norm scales.
 
 ColPali: a ColPali-shaped tiny config that keeps both real head dims (vision
@@ -237,7 +237,7 @@ def _text_field(base, **kw):
     (_text_field(P.ColVLMConfig.colqwen25_v02, scan_layers=True), "text.scan_layers"),
     (_text_field(P.ColVLMConfig.colqwen25_v02, ring_axis="sp"), "text.ring_axis"),
     (_text_field(P.ColVLMConfig.colqwen25_v02, moe_experts=8), "text.moe_experts"),
-    (lambda: dataclasses.replace(P.ColVLMConfig.tiny(), remat=True), "remat"),
+    (_text_field(P.ColVLMConfig.colsmol_500m, ring_axis="sp"), "text.ring_axis"),
     (_text_field(P.ColVLMConfig.tiny, moe_experts=4), "text.moe_experts"),
     (_text_field(P.ColVLMConfig.tiny, mlp_act="relu"), "text.mlp_act"),
 ])

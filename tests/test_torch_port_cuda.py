@@ -37,6 +37,14 @@ bit-equal; launch counts; ``mha`` on CUDA tensors raises when the kernel
 refuses a shape (Dh 96 among them) instead of running the plain version;
 small ColSmol-, ColPali- and ColQwen2.5-shaped models on the card against
 the CPU, with one K10 launch per attention layer.
+
+B4 and B5 (K10's backward, Dh 64): against their plain versions in f32
+(1e-4 of each tensor's largest) and bf16 (one output ulp plus 1e-5 of the
+largest), causal and not, per-tile segments with pads, grouped heads (15 on
+5), strided views, T not a multiple of 64; two calls bit-equal; the forward
+that saves lse gives the serving output bit for bit; the autograd Function
+on the card against the CPU; Dh 72 refused by name with no plain fallback;
+one train step of a small ColSmol-shaped model on the card against the CPU.
 """
 
 import numpy as np
@@ -698,3 +706,148 @@ def test_colqwen_shaped_model_on_card_matches_cpu(dev):
     assert flash_attention.launches == before + cfg.vision.layers + 2 * cfg.text.layers
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-3)
     torch.testing.assert_close(got_q.cpu(), want_q, rtol=0, atol=1e-3)
+
+
+# -- B4 and B5: K10's backward ----------------------------------------------------------
+
+# (rtol, atol as a share of the tensor's largest |want|), each element: f32 sums of the same
+# products in another order; bf16 one output ulp (both round f32 values of the same inputs)
+BWD_TOL = {torch.float32: (0.0, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-5)}
+
+
+def _assert_bwd_close(got, want, dtype):
+    rtol, atol = BWD_TOL[dtype]
+    w = want.float()
+    assert ((got.float() - w).abs() <= atol * w.abs().max() + rtol * w.abs()).all()
+
+
+def _bwd(dev, q, k, v, seg, do, causal):
+    from visual_rag_tpu_torch.ops.kernels import flash_attention as fa
+
+    out, lse = fa.flash_attention_fwd(q, k, v, seg, causal=causal)
+    di = fa.attention_di(out, do)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, seg, do, lse, di, causal=causal)
+    dq = fa.flash_attention_bwd_dq(q, k, v, seg, do, lse, di, causal=causal)
+    plain = (fa.flash_attention_bwd_dq_plain(q, k, v, seg, do, lse, di, causal=causal),
+             *fa.flash_attention_bwd_dkv_plain(q, k, v, seg, do, lse, di, causal=causal))
+    return (dq, dk, dv), plain, (out, lse)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t,hq,hkv,tile", [(256, 4, 4, 64), (200, 6, 2, None),
+                                           (1100, 3, 1, 96), (37, 2, 2, None),
+                                           (130, 15, 5, None)])
+def test_flash_attention_backward_matches_plain(dev, dtype, causal, t, hq, hkv, tile):
+    """B4 and B5 (strided q, k, v views; grouped heads up to ColSmol's 15 on
+    5; T not a multiple of 64; pads) against their plain versions, two calls
+    bit-equal, one launch each; the forward that saves lse gives the serving
+    forward's output bit for bit."""
+    from visual_rag_tpu_torch.ops.kernels import flash_attention as fa
+
+    q, k, v, seg = _fa_inputs(dev, dtype, 2, t, hq, hkv, seed=t + hq + 7, tile=tile)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(t)).to(dev, dtype)
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq)
+    before = [f.launches for f in counters]
+    got, want, (out, lse) = _bwd(dev, q, k, v, seg, do, causal)
+    again, _, _ = _bwd(dev, q, k, v, seg, do, causal)
+    torch.cuda.synchronize()
+    assert [f.launches for f in counters] == [b + 2 for b in before]
+    for g, w, a in zip(got, want, again):
+        assert g.dtype == dtype and g.shape == w.shape
+        _assert_bwd_close(g, w, dtype)
+        assert torch.equal(g, a)
+    assert torch.equal(out, fa.flash_attention(q, k, v, seg, causal=causal))
+    _, lse_plain = fa.flash_attention_fwd_plain(q, k, v, seg, causal=causal)
+    torch.testing.assert_close(lse, lse_plain, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32])
+def test_autograd_function_on_card_matches_cpu(dev, dtype):
+    """The Function's forward and backward (K10 with lse, B4, B5) against the
+    same autograd on the CPU (the plain versions), in f32: in bf16 the two
+    forwards may round o an ulp apart, which di carries into every gradient
+    (the kernels alone are held in bf16 above, on the same o and lse)."""
+    q, k, v, seg = _fa_inputs(dev, dtype, 2, 300, 6, 2, seed=5, tile=100)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(dev, dtype)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        xs = [x.detach().to(d).clone().requires_grad_() for x in (q, k, v)]
+        flash_attention(*xs, seg.to(d), causal=True).backward(do.to(d))
+        grads.append([x.grad for x in xs])
+    torch.cuda.synchronize()
+    for g, w in zip(*grads):
+        _assert_bwd_close(g.cpu(), w, dtype)
+
+
+def test_backward_refuses_other_head_dims_on_cuda(dev, monkeypatch):
+    """B4 and B5 exist at Dh 64: a CUDA call at Dh 72 raises by name (as does
+    the forward that saves lse) and never runs the plain version."""
+    import visual_rag_tpu_torch.ops.kernels.flash_attention as fa
+
+    def no_plain(*a, **k):
+        raise AssertionError("a plain version ran for a CUDA tensor")
+
+    for name in ("flash_attention_bwd_dkv_plain", "flash_attention_bwd_dq_plain",
+                 "flash_attention_fwd_plain"):
+        monkeypatch.setattr(fa, name, no_plain)
+    q, k, v, seg = _fa_inputs(dev, torch.bfloat16, 1, 64, 2, 2, seed=4, dh=72)
+    lse = torch.zeros((1, 2, 64), device=dev)
+    with pytest.raises(ValueError, match=r"head dims \(64,\), got 72"):
+        fa.flash_attention_bwd_dkv(q, k, v, seg, q, lse, lse, causal=False)
+    with pytest.raises(ValueError, match=r"head dims \(64,\), got 72"):
+        fa.flash_attention_bwd_dq(q, k, v, seg, q, lse, lse, causal=False)
+    with pytest.raises(ValueError, match=r"head dims \(64,\), got 72"):
+        fa.flash_attention(q.detach().clone().requires_grad_(), k, v, seg, causal=False)
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """A ColSmol-shaped model (Dh 64 in both towers, pixel shuffle 2, per-tile
+    window ids, a padded page) in f32: the loss and every gradient of one
+    train step on the card against the CPU; K10, B4 and B5 launch once per
+    attention layer and pass."""
+    import dataclasses
+
+    from visual_rag_tpu_torch.models.colvlm import ColVLMConfig
+    from visual_rag_tpu_torch.models.convert import init_params
+    from visual_rag_tpu_torch.models.train import Trainer
+    from visual_rag_tpu_torch.ops.kernels import flash_attention as fa
+
+    tiny = ColVLMConfig.tiny()
+    cfg = dataclasses.replace(
+        tiny, dtype="float32", proj_bias=True, connector_bias=False,
+        vision=dataclasses.replace(tiny.vision, hidden=128, heads=2, pixel_shuffle=2,
+                                   max_patches=2048, attn_bias=True),
+        text=dataclasses.replace(tiny.text, hidden=128, heads=2, kv_heads=1))
+    sd = init_params(cfg, seed=2, device="cpu", param_dtype=torch.float32)
+    rng = np.random.default_rng(3)
+    n = 2 * 256
+    pmask = np.ones((3, n), bool)
+    pmask[2, 256:] = False
+    wids = np.repeat(np.arange(2, dtype=np.int32), 256)[None].repeat(3, 0)
+    wids[2, 256:] = -1
+    ids = rng.integers(4, 500, (3, 136)).astype(np.int32)
+    ids[:2, :128], ids[2, :64] = cfg.image_token_id, cfg.image_token_id
+    amask = np.ones((3, 136), bool)
+    amask[2, 70:] = False
+    batch = {"query_ids": rng.integers(4, 500, (3, 11)).astype(np.int32),
+             "query_mask": np.arange(11)[None] < np.array([[11], [7], [9]]),
+             "page_ids": ids, "page_mask": amask,
+             "patches": rng.random((3, n, 48), dtype=np.float32), "patch_mask": pmask,
+             "window_ids": wids}
+    out = {}
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq,
+                fa.flash_attention)
+    before = [f.launches for f in counters]
+    for d in (dev, "cpu"):
+        trainer = Trainer(cfg, lr=1e-4, warmup=0, device=d)
+        (loss, _), grads = trainer.value_and_grad(trainer.init_state(params=sd).params, batch)
+        out[str(d)] = (float(loss), {k: g.cpu() for k, g in grads.items()})
+    torch.cuda.synchronize()
+    layers = cfg.vision.layers + 2 * cfg.text.layers
+    # the forward that saves lse, B4 and B5 once a layer; the serving forward never
+    assert [f.launches for f in counters] == [b + n for b, n in zip(before, [layers] * 3 + [0])]
+    (l_card, g_card), (l_cpu, g_cpu) = out[str(dev)], out["cpu"]
+    assert abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
+    for k, w in g_cpu.items():
+        assert (g_card[k] - w).abs().max() <= 1e-3 * w.abs().max() + 1e-6, k

@@ -60,7 +60,8 @@ def test_port_imports_no_jax():
             "visual_rag_tpu_torch.ops.kernels.flash_attention", "visual_rag_tpu_torch.ops.pooling",
             "visual_rag_tpu_torch.index.builder", "visual_rag_tpu_torch.models.convert",
             "visual_rag_tpu_torch.models.attention", "visual_rag_tpu_torch.retrieval.engine",
-            "visual_rag_tpu_torch.pipeline.vectors"} <= set(mods)
+            "visual_rag_tpu_torch.pipeline.vectors", "visual_rag_tpu_torch.models.train",
+            "visual_rag_tpu_torch.ops.maxsim", "visual_rag_tpu_torch.cli.train_colvlm"} <= set(mods)
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -12,7 +12,11 @@
 // over the keys j allowed for row i: seg[b, j] == seg[b, i] and, if causal,
 // j <= i. Every row allows itself, so a row's sum is never empty; a row with
 // no allowed key would write zeros. Logits, maxima and sums are f32; the
-// output is in the input dtype (f32 or bf16).
+// output is in the input dtype (f32 or bf16). For training, a second
+// __global__ over the same body (flash_fwd_lse_kernel, Dh 64) also writes each
+// row's logsumexp lse = m + log(l) in f32, the residual that the backward
+// kernels B4 and B5 (flash_attention_bwd.cu) read; the serving kernel
+// (flash_fwd_kernel) does not store it and compiles to the same code as before.
 //
 // Head dims: 64 (both towers of ColSmol-500M), 72 (ColPali's SigLIP vision
 // tower, 1152 / 16), 80 (ColQwen2.5's vision tower, 1280 / 16, window
@@ -70,16 +74,11 @@
 //     the 64 x 256 output accumulator (64 f32 registers a thread) is not
 //     touched. Keeping K and V as bf16 would have saved as much for bf16
 //     inputs only, not for f32.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math_constants.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace vrt_fa {
-
-constexpr int BQ = 64;            // query rows a block
-constexpr int THREADS = 256;      // 16 x 16, a 4-row patch each
-constexpr int MAX_TILES = 16384;  // T <= 1,048,576 (in 64-row tiles): int offsets stay in range
 
 template <int DH>
 struct Cfg {
@@ -101,45 +100,6 @@ struct Cfg {
   static constexpr size_t SMEM =
       sizeof(float) * (BQ * DHP + DHP * BK + BK * DHP + BQ * BK) + sizeof(int) * (BQ + BK);
   static size_t smem_bytes(int n_kt) { return SMEM + (n_kt + 15) / 16 * 16; }
-};
-
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;  // elements in 16 bytes
-  __device__ static void load(const float* p, float* out) {
-    const float4 a = *reinterpret_cast<const float4*>(p);
-    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  }
-  __device__ static void store4(float* p, float a, float b, float c, float d) {
-    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-  }
-  __device__ static void store1(float* p, float a) { *p = a; }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
-    __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
-    uint2 u;
-    u.x = *reinterpret_cast<uint32_t*>(&lo);
-    u.y = *reinterpret_cast<uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(p) = u;
-  }
-  __device__ static void store1(__nv_bfloat16* p, float a) { *p = __float2bfloat16_rn(a); }
 };
 
 // SC consecutive floats of shared memory (SC 2 or 4, 8- or 16-byte aligned)
@@ -180,9 +140,13 @@ __global__ void seg_tile_range_kernel(const int* __restrict__ seg, int t_len, in
   out[i] = make_int2(lo, hi);
 }
 
-struct Strides {
-  long long b, t, h;  // in elements; the head dim is contiguous
-};
+cudaError_t launch_seg_tile_range(const int* seg, int t_len, int n_tiles, int tile, int batch,
+                                  int2* out, cudaStream_t stream) {
+  const int cells = batch * n_tiles;
+  seg_tile_range_kernel<<<(cells + 127) / 128, 128, 0, stream>>>(seg, t_len, n_tiles, tile, batch,
+                                                                 out);
+  return cudaGetLastError();
+}
 
 // Rows [row0, row0 + ROWS) of one head, DH values each, into dst as f32:
 // row-major dst[r * DHP + d] (TRANSPOSE false) or dst[d * ROWS + r] (true).
@@ -231,12 +195,15 @@ __device__ __forceinline__ void zero_pad(float* q_s, float* kt_s, float* v_s) {
   }
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(THREADS, Cfg<DH>::MIN_BLOCKS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const int* __restrict__ seg, const int2* __restrict__ tile_range,
-                 T* __restrict__ o, int t_len, int n_kt, int hq, int group, Strides qs_,
-                 Strides ks_, Strides vs_, int causal, float sm_scale) {
+// The block's work, shared by the serving kernel and the one that also writes
+// each row's logsumexp for the backward (SAVE_LSE): the flag adds only the
+// lse store at the end, so the serving kernel compiles as it did without it.
+template <typename T, int DH, bool SAVE_LSE>
+__device__ __forceinline__ void flash_fwd_body(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const int* __restrict__ seg, const int2* __restrict__ tile_range, T* __restrict__ o,
+    float* __restrict__ lse, int t_len, int n_kt, int hq, int group, Strides qs_, Strides ks_,
+    Strides vs_, int causal, float sm_scale) {
   using C = Cfg<DH>;
   constexpr int DHP = C::DHP, BK = C::BK, SC = C::SC, FULL = C::FULL, NC = C::NC;
   extern __shared__ __align__(16) float smem[];
@@ -397,51 +364,82 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       if (col < DH) Vec<T>::store1(dst + col, acc[i][j] * inv);
     }
   }
+  if constexpr (SAVE_LSE) {  // lse is contiguous [B, Hq, T]; one thread a row
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (tx == 0 && my_pos[i] < t_len)
+        lse[(static_cast<size_t>(b) * hq + h) * t_len + my_pos[i]] =
+            l[i] > 0.f ? m[i] + logf(l[i]) : -CUDART_INF_F;
+  }
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(THREADS, Cfg<DH>::MIN_BLOCKS)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const int* __restrict__ seg, const int2* __restrict__ tile_range,
+                 T* __restrict__ o, int t_len, int n_kt, int hq, int group, Strides qs_,
+                 Strides ks_, Strides vs_, int causal, float sm_scale) {
+  flash_fwd_body<T, DH, false>(q, k, v, seg, tile_range, o, nullptr, t_len, n_kt, hq, group, qs_,
+                               ks_, vs_, causal, sm_scale);
+}
+
+// the forward of training: also lse[b, h, i] = m + log(l) of each row (-inf
+// for a row with no allowed key), the residual B4 and B5 read
+template <typename T, int DH>
+__global__ void __launch_bounds__(THREADS, Cfg<DH>::MIN_BLOCKS)
+flash_fwd_lse_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const int* __restrict__ seg, const int2* __restrict__ tile_range,
+                     T* __restrict__ o, float* __restrict__ lse, int t_len, int n_kt, int hq,
+                     int group, Strides qs_, Strides ks_, Strides vs_, int causal,
+                     float sm_scale) {
+  flash_fwd_body<T, DH, true>(q, k, v, seg, tile_range, o, lse, t_len, n_kt, hq, group, qs_, ks_,
+                              vs_, causal, sm_scale);
 }
 
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, int2* ranges,
-                   void* o, int batch, int t_len, int hq, int group, Strides qs, Strides ks,
-                   Strides vs, int causal, float sm_scale, cudaStream_t stream) {
+                   void* o, float* lse, int batch, int t_len, int hq, int group, Strides qs,
+                   Strides ks, Strides vs, int causal, float sm_scale, cudaStream_t stream) {
   using C = Cfg<DH>;
   const int n_kt = (t_len + C::BK - 1) / C::BK;
-  const int cells = batch * n_kt;
-  seg_tile_range_kernel<<<(cells + 127) / 128, 128, 0, stream>>>(seg, t_len, n_kt, C::BK, batch,
-                                                                 ranges);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_seg_tile_range(seg, t_len, n_kt, C::BK, batch, ranges, stream);
   if (err != cudaSuccess) return err;
-  auto kernel = flash_fwd_kernel<T, DH>;
   const size_t smem = C::smem_bytes(n_kt);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
   const dim3 grid((t_len + BQ - 1) / BQ, hq, batch);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), seg, ranges,
-      static_cast<T*>(o), t_len, n_kt, hq, group, qs, ks, vs, causal, sm_scale);
-  return cudaGetLastError();
+  const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
+          *vt = static_cast<const T*>(v);
+  if (lse == nullptr)
+    return launch_kernel(flash_fwd_kernel<T, DH>, smem, grid, stream, qt, kt, vt, seg,
+                         static_cast<const int2*>(ranges), static_cast<T*>(o), t_len, n_kt, hq,
+                         group, qs, ks, vs, causal, sm_scale);
+  if constexpr (DH == BWD_DH)
+    return launch_kernel(flash_fwd_lse_kernel<T, DH>, smem, grid, stream, qt, kt, vt, seg,
+                         static_cast<const int2*>(ranges), static_cast<T*>(o), lse, t_len, n_kt,
+                         hq, group, qs, ks, vs, causal, sm_scale);
+  return cudaErrorInvalidValue;  // the residual-saving forward exists at BWD_DH only
 }
 
 template <typename T>
 cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v, const int* seg,
-                      int2* ranges, void* o, int batch, int t_len, int hq, int group, Strides qs,
-                      Strides ks, Strides vs, int causal, float sm_scale, cudaStream_t stream) {
+                      int2* ranges, void* o, float* lse, int batch, int t_len, int hq, int group,
+                      Strides qs, Strides ks, Strides vs, int causal, float sm_scale,
+                      cudaStream_t stream) {
   switch (dh) {
     case 64:
-      return launch<T, 64>(q, k, v, seg, ranges, o, batch, t_len, hq, group, qs, ks, vs, causal,
-                           sm_scale, stream);
+      return launch<T, 64>(q, k, v, seg, ranges, o, lse, batch, t_len, hq, group, qs, ks, vs,
+                           causal, sm_scale, stream);
     case 72:
-      return launch<T, 72>(q, k, v, seg, ranges, o, batch, t_len, hq, group, qs, ks, vs, causal,
-                           sm_scale, stream);
+      return launch<T, 72>(q, k, v, seg, ranges, o, lse, batch, t_len, hq, group, qs, ks, vs,
+                           causal, sm_scale, stream);
     case 80:
-      return launch<T, 80>(q, k, v, seg, ranges, o, batch, t_len, hq, group, qs, ks, vs, causal,
-                           sm_scale, stream);
+      return launch<T, 80>(q, k, v, seg, ranges, o, lse, batch, t_len, hq, group, qs, ks, vs,
+                           causal, sm_scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, seg, ranges, o, batch, t_len, hq, group, qs, ks, vs, causal,
-                            sm_scale, stream);
+      return launch<T, 128>(q, k, v, seg, ranges, o, lse, batch, t_len, hq, group, qs, ks, vs,
+                            causal, sm_scale, stream);
     case 256:
-      return launch<T, 256>(q, k, v, seg, ranges, o, batch, t_len, hq, group, qs, ks, vs, causal,
-                            sm_scale, stream);
+      return launch<T, 256>(q, k, v, seg, ranges, o, lse, batch, t_len, hq, group, qs, ks, vs,
+                            causal, sm_scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -455,10 +453,11 @@ cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v, const
 // contiguous; rows 16-byte aligned); seg [batch, t_len] int32 contiguous;
 // tile_range: scratch of batch * ceil(t_len / 32) int2; o [batch, t_len, hq,
 // dh] contiguous, written in full. dh must be 64, 72, 80, 128 or 256 and hq a
-// multiple of hkv. Returns the cudaError_t of the launches.
+// multiple of hkv. lse: null (serving), or f32 [batch, hq, t_len] contiguous,
+// written in full (dh 64 only). Returns the cudaError_t of the launches.
 extern "C" int vrt_flash_attention(int device, int dtype, const void* q, const void* k,
                                    const void* v, const void* seg, void* tile_range, void* o,
-                                   int batch, int t_len, int hq, int hkv, int dh,
+                                   void* lse, int batch, int t_len, int hq, int hkv, int dh,
                                    long long q_sb, long long q_st, long long q_sh,
                                    long long k_sb, long long k_st, long long k_sh,
                                    long long v_sb, long long v_st, long long v_sh, int causal,
@@ -473,15 +472,17 @@ extern "C" int vrt_flash_attention(int device, int dtype, const void* q, const v
   const Strides qs{q_sb, q_st, q_sh}, ks{k_sb, k_st, k_sh}, vs{v_sb, v_st, v_sh};
   const int* s = static_cast<const int*>(seg);
   int2* r = static_cast<int2*>(tile_range);
+  float* l = static_cast<float*>(lse);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int group = hq / hkv;
   switch (dtype) {
     case 0:
-      return static_cast<int>(launch_dh<float>(dh, q, k, v, s, r, o, batch, t_len, hq, group, qs,
-                                               ks, vs, causal, sm_scale, st));
+      return static_cast<int>(launch_dh<float>(dh, q, k, v, s, r, o, l, batch, t_len, hq, group,
+                                               qs, ks, vs, causal, sm_scale, st));
     case 1:
-      return static_cast<int>(launch_dh<__nv_bfloat16>(dh, q, k, v, s, r, o, batch, t_len, hq,
-                                                       group, qs, ks, vs, causal, sm_scale, st));
+      return static_cast<int>(launch_dh<__nv_bfloat16>(dh, q, k, v, s, r, o, l, batch, t_len,
+                                                       hq, group, qs, ks, vs, causal, sm_scale,
+                                                       st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,0 +1,81 @@
+// What K10's forward (flash_attention.cu) and its backward, B4 and B5
+// (flash_attention_bwd.cu), share: the block shape, the 16-byte row loads and
+// stores of f32 and bf16, strides, and the launcher of the segment-range
+// kernel that both use for their exact tile skips.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace vrt_fa {
+
+constexpr int BQ = 64;            // query rows a block
+constexpr int THREADS = 256;      // 16 x 16, a 4-row patch each
+constexpr int MAX_TILES = 16384;  // T <= 1,048,576 (in 64-row tiles): int offsets stay in range
+// the head dim of the training kernels: the forward that saves lse, B4 and B5
+// (ColSmol-500M's two towers; the other head dims are ROADMAP B work)
+constexpr int BWD_DH = 64;
+
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;  // elements in 16 bytes
+  __device__ static void load(const float* p, float* out) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  }
+  __device__ static void store4(float* p, float a, float b, float c, float d) {
+    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+  }
+  __device__ static void store1(float* p, float a) { *p = a; }
+};
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void load(const __nv_bfloat16* p, float* out) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+  __device__ static void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+    uint2 u;
+    u.x = *reinterpret_cast<uint32_t*>(&lo);
+    u.y = *reinterpret_cast<uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(p) = u;
+  }
+  __device__ static void store1(__nv_bfloat16* p, float a) { *p = __float2bfloat16_rn(a); }
+};
+
+struct Strides {
+  long long b, t, h;  // in elements; the head dim is contiguous
+};
+
+// Sets the kernel's dynamic shared-memory limit (above 48 KB it must be asked
+// for), launches it with THREADS threads a block on `stream`, and returns the
+// launch's error: a refused launch never runs and a synchronize would not say so.
+template <typename Kernel, typename... Args>
+cudaError_t launch_kernel(Kernel kernel, size_t smem, dim3 grid, cudaStream_t stream,
+                          Args... args) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, THREADS, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// Launches seg_tile_range_kernel (flash_attention.cu): out[b * n_tiles + j] =
+// [min, max] of the segment ids of rows j*tile .. j*tile + tile - 1 of batch row b.
+cudaError_t launch_seg_tile_range(const int* seg, int t_len, int n_tiles, int tile, int batch,
+                                  int2* out, cudaStream_t stream);
+
+}  // namespace vrt_fa

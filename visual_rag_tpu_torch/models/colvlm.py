@@ -15,18 +15,27 @@ without it, none with the 2-D rotary), Qwen2.5-VL's ``PatchMerger``
 (``:537-553``), and ``ColVLM`` with the pixel shuffle (``:604-618``), the
 connector or the merger, the M-RoPE positions (``:620-652``), ``_lm``,
 ``_project``, the image-slot merge and PaliGemma's embedding scale
-(``:654-709``). A config that needs more (MoE, scanned or rematerialized
-layers, ring attention) is refused with a ``NotImplementedError`` naming the
-field.
+(``:654-709``). With ``cfg.remat`` each decoder and vision block is
+rematerialized in training (``nn.remat``, ``:572-576``): ``torch.utils.
+checkpoint`` without reentrance, whenever grad is enabled. A config that
+needs more (MoE, scanned layers, ring attention) is refused with a
+``NotImplementedError`` naming the field.
 
 Numerics follow flax's: a ``Dense`` with ``dtype`` bf16 casts its input, its
-kernel and its bias to bf16 (the port stores them in bf16); ``LayerNorm``
-takes its statistics in f32 with the fast variance ``E[x^2] - E[x]^2`` and
-epsilon 1e-6, with f32 scale and bias; ``RMSNorm`` runs in f32 with an f32
-scale; RoPE angles are f32 and the result is cast back (the 2-D rotary
-rotates an f32 copy of x); ``gelu`` is the tanh approximation (flax's
-``nn.gelu``, also in the PatchMerger); embeddings are tables in the model
-dtype.
+kernel and its bias to bf16; ``LayerNorm`` takes its statistics in f32 with
+the fast variance ``E[x^2] - E[x]^2`` and epsilon 1e-6, with f32 scale and
+bias; ``RMSNorm`` runs in f32 with an f32 scale; RoPE angles are f32 and the
+result is cast back (the 2-D rotary rotates an f32 copy of x); ``gelu`` is
+the tanh approximation (flax's ``nn.gelu``, also in the PatchMerger); the
+token table is cast to the model dtype whole and then indexed, the position
+table indexed and then cast, as flax's ``Embed`` and ``pos[idx].astype``.
+
+Parameter dtypes: ``ColVLM(cfg, param_dtype=None)`` stores the Dense layers
+and the tables in the model dtype and the norm scales in f32 (serving: bf16
+weights cost half the memory). ``param_dtype=torch.float32`` stores every
+parameter in f32, as flax keeps them (``param_dtype`` f32), and each layer
+casts its weight to the model dtype at use: the master weights of training,
+where an AdamW update of ~1e-4 is below a bf16 ulp of most weights.
 
 Parameter names mirror the flax tree (``models/convert.py`` maps one onto
 the other). Every module takes ``device`` and ``dtype`` at construction;
@@ -43,6 +52,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from visual_rag_tpu_torch.models.attention import mha
 
@@ -195,14 +205,13 @@ _UNSUPPORTED = (
     ("text.scan_layers", lambda c: c.text.scan_layers),
     ("text.ring_axis", lambda c: c.text.ring_axis is not None),
     ("text.mlp_act", lambda c: c.text.mlp_act not in MLP_ACTS),
-    ("remat", lambda c: c.remat),
 )
 
 
 def check_supported(cfg: ColVLMConfig) -> None:
     """Raise ``NotImplementedError`` naming the first field the port's
     ColVLM does not run (MoE, scanned layers and ring attention come with
-    the sharded slice, ``remat`` with training)."""
+    the sharded slice, ROADMAP A8; an MLP activation outside ``MLP_ACTS``)."""
     for name, needs in _UNSUPPORTED:
         if needs(cfg):
             value = functools.reduce(getattr, name.split("."), cfg)
@@ -216,11 +225,33 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 class Dense(nn.Linear):
-    """flax ``nn.Dense(dtype=...)``: input, kernel and bias in ``dtype``.
-    The weight is torch's ``[out, in]`` (flax's kernel transposed)."""
+    """flax ``nn.Dense(dtype=...)``: input, kernel and bias cast to ``dtype``
+    (the compute dtype) whatever the dtype they are stored in. The weight is
+    torch's ``[out, in]`` (flax's kernel transposed)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, dtype=None,
+                 device=None):
+        super().__init__(in_features, out_features, bias=bias, dtype=dtype, device=device)
+        self.compute_dtype = dtype
 
     def forward(self, x):
-        return super().forward(x.to(self.weight.dtype))
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed(dtype=...)``: the table cast to ``dtype`` whole, then
+    indexed (so a bf16 model's repeated tokens sum their gradients in bf16,
+    as flax's do)."""
+
+    def __init__(self, num: int, dim: int, dtype, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(num, dim, dtype=dtype, device=device))
+
+    def forward(self, ids):
+        return F.embedding(ids, self.weight.to(self.dtype))
 
 
 class LayerNorm(nn.Module):
@@ -422,10 +453,18 @@ def tile_position_ids(n: int, pixel_shuffle: int, device=None) -> torch.Tensor:
     return tile_pos[torch.arange(n, device=device) % (side * side)]
 
 
+def run_block(blk: nn.Module, remat: bool, *args, **kwargs):
+    """``blk(*args, **kwargs)``, rematerialized in the backward when
+    ``remat`` is set and grad is enabled (flax ``nn.remat``)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(blk, *args, use_reentrant=False, **kwargs)
+    return blk(*args, **kwargs)
+
+
 class VisionTower(nn.Module):
-    def __init__(self, cfg: VisionConfig, dtype, device=None):
+    def __init__(self, cfg: VisionConfig, dtype, device=None, remat: bool = False):
         super().__init__()
-        self.cfg, self.dtype = cfg, dtype
+        self.cfg, self.dtype, self.remat = cfg, dtype, remat
         self.patch_embed = Dense(cfg.patch_pixels, cfg.hidden, bias=cfg.patch_bias,
                                  dtype=dtype, device=device)
         if cfg.learned_pos:
@@ -445,13 +484,14 @@ class VisionTower(nn.Module):
         if self.cfg.learned_pos:
             if self.cfg.pixel_shuffle > 1:
                 ids = tile_position_ids(n, self.cfg.pixel_shuffle, device=x.device)
-                x = x + self.pos_embed[ids][None]
+                x = x + self.pos_embed[ids][None].to(self.dtype)
             else:
-                x = x + self.pos_embed[:n][None]
+                x = x + self.pos_embed[:n][None].to(self.dtype)
         for i, blk in enumerate(self.blocks):
             seg = window_ids if window_ids is not None and i not in self.cfg.full_attn_layers \
                 else None
-            x = blk(x, patch_mask, segments=seg, positions_2d=patch_positions)
+            x = run_block(blk, self.remat, x, patch_mask, segments=seg,
+                          positions_2d=patch_positions)
         return x if self.post_ln is None else self.post_ln(x)
 
 
@@ -491,13 +531,13 @@ class PatchMerger(nn.Module):
 class ColVLM(nn.Module):
     """Late-interaction VLM: L2-normalized [B, L, embed_dim] f32 tokens."""
 
-    def __init__(self, cfg: ColVLMConfig, device=None):
+    def __init__(self, cfg: ColVLMConfig, device=None, param_dtype=None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         dtype = torch_dtype(cfg.dtype)
         self.dtype = dtype
-        self.vision = VisionTower(cfg.vision, dtype, device=device)
+        self.vision = VisionTower(cfg.vision, dtype, device=device, remat=cfg.remat)
         if cfg.spatial_merge > 1:
             self.merger = PatchMerger(cfg.vision.hidden, cfg.text.hidden, cfg.spatial_merge,
                                       dtype, device=device)
@@ -505,13 +545,14 @@ class ColVLM(nn.Module):
             sps = cfg.vision.pixel_shuffle
             self.connector = Dense(cfg.vision.hidden * sps * sps, cfg.text.hidden,
                                    bias=cfg.connector_bias, dtype=dtype, device=device)
-        self.tok_embed = nn.Embedding(cfg.text.vocab, cfg.text.hidden, dtype=dtype,
-                                      device=device)
+        self.tok_embed = Embed(cfg.text.vocab, cfg.text.hidden, dtype, device=device)
         self.layers = nn.ModuleList(DecoderBlock(cfg.text, dtype, device=device)
                                     for _ in range(cfg.text.layers))
         self.final_norm = RMSNorm(cfg.text.hidden, offset=cfg.text.rms_offset, device=device)
         self.proj = Dense(cfg.text.hidden, cfg.embed_dim, bias=cfg.proj_bias, dtype=dtype,
                           device=device)
+        if param_dtype is not None:  # every parameter, as flax's param_dtype
+            self.to(dtype=param_dtype)
         self._use_flash = True
 
     @property
@@ -565,7 +606,7 @@ class ColVLM(nn.Module):
             positions = (torch.cumsum(mask.to(torch.int32), dim=1) - 1).clamp(min=0)
         h = embeds
         for blk in self.layers:
-            h = blk(h, mask, positions)
+            h = run_block(blk, self.cfg.remat, h, mask, positions)
         return self.final_norm(h)
 
     def _project(self, h, mask):

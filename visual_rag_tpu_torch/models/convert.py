@@ -20,16 +20,17 @@ flax tree, or drawn at random.
   of numpy arrays (the caller applies ``jax.tree.map(np.asarray, ...)``, so
   this module needs no jax), onto the port's ``state_dict``. A flax ``Dense``
   kernel is ``[in, out]`` and becomes torch's ``[out, in]`` weight; every
-  tensor takes the dtype of the port's parameter (bf16 for the Dense layers
-  and tables of a bf16 config, as flax's ``dtype`` casts them; f32 for the
-  norm scales).
+  tensor takes the dtype of the port's parameter: by default bf16 for the
+  Dense layers and tables of a bf16 config (as flax's ``dtype`` casts them
+  at use) and f32 for the norm scales; with ``param_dtype=torch.float32``
+  every tensor stays f32, unrounded (the master weights of training).
 - :func:`init_params` draws random weights with flax's initializers:
   ``lecun_normal`` Dense kernels (a normal truncated at two deviations,
   scaled to variance ``1 / fan_in``), zero biases, ``normal(0.02)`` token and
   position tables, ones for norm scales, zeros for the scales of Gemma's
-  offset RMSNorms (``colvlm.py:241``), on the device it is asked for. The
-  numbers differ from JAX's for the same seed; tests carry parameters
-  across instead.
+  offset RMSNorms (``colvlm.py:241``), on the device it is asked for, in the
+  dtypes of ``ColVLM(cfg, param_dtype=...)``. The numbers differ from JAX's
+  for the same seed; tests carry parameters across instead.
 """
 
 from __future__ import annotations
@@ -70,14 +71,16 @@ def _port_name(flax_name: str) -> str:
     return flax_name
 
 
-def params_from_flax(params: Mapping[str, Any], cfg: ColVLMConfig) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` (CPU tensors) from a flax ColVLM param tree.
+def params_from_flax(params: Mapping[str, Any], cfg: ColVLMConfig,
+                     param_dtype=None) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` (CPU tensors) from a flax ColVLM param tree,
+    in the dtypes of ``ColVLM(cfg, param_dtype=param_dtype)``.
 
     Raises if a tensor of either side has no counterpart or another shape."""
     if "params" in params:
         params = params["params"]
     flat = {_port_name(k): (k, v) for k, v in _flatten(params).items()}
-    want = ColVLM(cfg, device="meta").state_dict()
+    want = ColVLM(cfg, device="meta", param_dtype=param_dtype).state_dict()
     missing = sorted(set(want) - set(flat))
     extra = sorted(set(flat) - set(want))
     if missing or extra:
@@ -95,12 +98,13 @@ def params_from_flax(params: Mapping[str, Any], cfg: ColVLMConfig) -> Dict[str, 
     return out
 
 
-def init_params(cfg: ColVLMConfig, seed: int = 0, device="cuda") -> Dict[str, torch.Tensor]:
+def init_params(cfg: ColVLMConfig, seed: int = 0, device="cuda",
+                param_dtype=None) -> Dict[str, torch.Tensor]:
     """Random weights for the port's ColVLM on ``device``, from ``seed``
     (module docstring)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
-    meta = ColVLM(cfg, device="meta")
+    meta = ColVLM(cfg, device="meta", param_dtype=param_dtype)
     offset = {f"{name}.scale" for name, m in meta.named_modules()
               if isinstance(m, RMSNorm) and m.offset}
     out = {}
@@ -124,7 +128,9 @@ def init_params(cfg: ColVLMConfig, seed: int = 0, device="cuda") -> Dict[str, to
 
 
 def build_model(cfg: ColVLMConfig, state_dict: Mapping[str, torch.Tensor], device) -> ColVLM:
-    """A ColVLM on ``device`` holding ``state_dict`` (moved there), in eval mode."""
+    """A ColVLM on ``device`` holding ``state_dict`` (moved there; each
+    parameter keeps the tensor's dtype, so f32 master weights stay f32), in
+    eval mode."""
     model = ColVLM(cfg, device="meta")
     model.load_state_dict({k: v.to(device) for k, v in state_dict.items()}, assign=True)
     return model.eval()

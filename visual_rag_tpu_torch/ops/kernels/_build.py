@@ -74,9 +74,16 @@ def _declare(lib):
         i32, vp, i32, vp, vp, i32, i32, vp, i32, i32, i32, i32, i32, i32, vp, vp, vp, vp]
     lib.vrt_pooled_maxsim_scores_packed.restype = i32
     lib.vrt_flash_attention.argtypes = (
-        [i32, i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32] + [i64] * 9
+        [i32, i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32] + [i64] * 9
         + [i32, ctypes.c_float, vp])
     lib.vrt_flash_attention.restype = i32
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    lib.vrt_flash_attention_bwd_dkv.argtypes = (
+        [i32, i32] + [vp] * 10 + [i32] * 5 + [strides, i32, ctypes.c_float, vp])
+    lib.vrt_flash_attention_bwd_dkv.restype = i32
+    lib.vrt_flash_attention_bwd_dq.argtypes = (
+        [i32, i32] + [vp] * 9 + [i32] * 5 + [strides, i32, ctypes.c_float, vp])
+    lib.vrt_flash_attention_bwd_dq.restype = i32
     lib.vrt_error_string.argtypes = [i32]
     lib.vrt_error_string.restype = ctypes.c_char_p
     return lib
