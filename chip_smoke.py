@@ -165,6 +165,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    pairs of 5-tile pages (loss 1e-4 relative; each leaf within 1e-3 of its
    own largest, except the leaves at f32 rounding level on the CPU,
    ``ROUNDING_SHARE``, which may be only the key biases).
+15. ColPali-v1.3 training (K10's forward with its logsumexp, B4 and B5 at
+   head dims 72 and 256). Phase 14's state is freed first. First, not
+   counted, at the path's shapes -- vision, 1 and 4 pages (T 1024, 16 heads
+   of 72, one segment); page text, 4 pages (T 1088 of which 1028 valid, 8
+   heads of 256 on one kv head, bidirectional); 4 queries (T 32) -- in bf16
+   and f32: the three kernels against their plain versions as in 14a, with
+   the ptxas lines of their twelve Dh 72 and 256 instances (0 spill bytes
+   required). Then one batch of 4 (query, page) pairs from the port's
+   processor (random 448 x 448 pages, 1024 patches each, 4 random queries);
+   at a depth cut to 9 vision + 6 text layers (which fits without remat)
+   ``remat=False`` gives the same loss and gradients as ``remat=True``.
+   Then full-width ColPali-v1.3 (``COLPALI_PARAMS`` asserted; f32 master
+   weights from seed 0 drawn on the card, bf16 compute, ``remat=True``),
+   ``Trainer(lr=1e-4, warmup=0)``: a warm step in its two halves, to split
+   the peak memory into the state, the forward and backward, and the
+   optimizer's transient; then, counts at 0, the main path: 5 steps
+   (steps/s, pairs/s, peak memory; each loss finite; B4 and B5 launched 63
+   times a step each, 27 vision + 18 page text + 18 query text layers, the
+   forward that saves lse twice that, since remat runs each block's forward
+   again in the backward, the serving forward never); a profiled step with
+   its device time split into B4, B5, the lse forward, GEMMs and the rest.
+   Then, not counted: one step's loss and gradients in f32 on the card
+   against the CPU at full width cut to 2 + 2 layers, 2 pairs (as 14c); and
+   the CLI, ``cli.train_colvlm --model vidore/colpali-v1.3 --synthetic
+   --device cuda``, 3 steps without remat at the larger of 4 and 2 pairs
+   that fits (``CLI_BATCHES``; its checkpoint written under ``build/`` and
+   deleted).
 
 The build's log gives each kernel's registers and spills (``-Xptxas=-v``).
 Every kernel entry carries ``bound_ms`` (the larger of its bytes over 3.35
@@ -175,8 +202,9 @@ K10's one entry holds every shape of phases 11, 12 and 13 under ``shapes``,
 the head dims it ran (64, 72, 80, 128, 256) and its launches on each
 embedding path; the entries of the forward that saves lse
 (``flash_attention_fwd``; ``library_ms``: SDPA's forward on inputs that
-need grad), B4 and B5 (``library_ms``: SDPA's whole backward) hold phase
-14's shapes and their ptxas lines.
+need grad), B4 and B5 (``library_ms``: SDPA's whole backward) hold the
+shapes of phases 14 and 15, their ptxas lines, the head dims they ran (64,
+72, 256) and their launches on each training path (``launches_by_path``).
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary. Without a CUDA device the script raises at once.
 """
@@ -664,7 +692,10 @@ def main() -> None:
                                  if "f32" in k)
     k10["of_limit"] = max(v["of_limit"] for v in k10["shapes"].values())  # <= 1 (K10_TOL)
     kernels.append(k10)
-    kernels += training
+
+    # -- 15. ColPali-v1.3 training: K10 with lse, B4 and B5 at Dh 72 and 256 ----------------
+    colpali_train, _ = colpali_training_phase(dev, card)
+    kernels += merge_training_entries(training, colpali_train)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "visual_rag_tpu"))
     if leaked:
         raise AssertionError(f"the JAX package or jax was imported: {leaked[:5]}")
@@ -1224,10 +1255,12 @@ def k10_shapes(dev, card, shapes):
     return out
 
 
-def profile_batch(fn, what: str, card: str) -> dict:
+def profile_batch(fn, what: str, card: str, groups=None) -> dict:
     """Run ``fn`` once under ``torch.profiler`` and log its wall time,
     device time (device kernels and copies only: a CPU op's device time
-    repeats its kernels'), busy share, K10's device time and the top items."""
+    repeats its kernels'), busy share, K10's device time and the top items;
+    with ``groups`` ({label: substrings of kernel names}) also the device
+    time of each group, the rest under "other"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1249,8 +1282,19 @@ def profile_batch(fn, what: str, card: str) -> dict:
         f"{total:.1f} ms (busy {total / (wall * 1e3):.2f}) in {launches} kernels and copies, "
         f"K10 {k10_dev:.1f} ms; top device items: "
         + "; ".join(f"{k[:60]} {v:.1f} ms" for k, v in top) + f" [{card}]")
-    return {"wall_ms": wall * 1e3, "device_ms": total, "k10_ms": k10_dev,
-            "device_items": launches}
+    out = {"wall_ms": wall * 1e3, "device_ms": total, "k10_ms": k10_dev,
+           "device_items": launches}
+    if groups:
+        split = {label: 0.0 for label in (*groups, "other")}
+        for key, ms in dev_ms.items():
+            label = next((g for g, subs in groups.items() if any(x in key for x in subs)),
+                         "other")
+            split[label] += ms
+        log(f"profile, {what}: device time by group: "
+            + ", ".join(f"{g} {ms:.1f} ms ({ms / total:.3f})" for g, ms in split.items())
+            + f" [{card}]")
+        out["split_ms"] = split
+    return out
 
 
 def synthetic_pages(n_pages: int, tiles: int, seed: int):
@@ -1509,8 +1553,8 @@ def colpali_phase(dev, card, rerank_fns, search_fns):
         f"{cfg.text.heads} heads of {cfg.text.hidden // cfg.text.heads} on {cfg.text.kv_heads} "
         f"kv head; {n_params} parameters, {cfg.dtype}) on the card in "
         f"{time.perf_counter() - t0:.2f} s")
-    if n_params != 2943532928:
-        raise AssertionError(f"ColPali-v1.3 has {n_params} parameters, not 2943532928")
+    if n_params != COLPALI_PARAMS:
+        raise AssertionError(f"ColPali-v1.3 has {n_params} parameters, not {COLPALI_PARAMS}")
     pages = colpali_pages(32, seed=200)
     texts = synthetic_queries(64, seed=13)
     emb.embed_images(pages[:8])  # warm batch, not counted
@@ -1831,6 +1875,75 @@ LSE_ATOL = 1e-5
 # a gradient leaf at most this share of the largest leaf is at f32 rounding level (phase
 # 14c): the key biases read about 2e-9 of it on the CPU, every other leaf 2.8e-3 or more
 ROUNDING_SHARE = 1e-6
+COLPALI_PARAMS = 2943532928  # ColPali-v1.3 (PaliGemma-3B), as the flax init counts them
+# the CLI's batches in phase 15, tried in order until one fits on the card without remat:
+# 4 pairs fit when this process holds next to nothing; beside 11 GiB held here, only 2 did
+CLI_BATCHES = (4, 2)
+
+
+def training_ptxas(head_dims) -> dict:
+    """The build log's ptxas lines of the training instances (the forward that
+    saves lse, B4 and B5, f32 and bf16) at ``head_dims``, logged; each must
+    spill 0 bytes."""
+    names = ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel", "flash_fwd_lse_kernel")
+    ptxas = {entry: lines for entry, lines in ptxas_report().items()
+             if any(k in entry for k in names) and any(f"Li{d}E" in entry for d in head_dims)}
+    if len(ptxas) != 6 * len(head_dims):
+        raise AssertionError(f"the build log names {len(ptxas)} training kernel instances at "
+                             f"head dims {head_dims}, not {6 * len(head_dims)}: {sorted(ptxas)}")
+    for entry, lines in ptxas.items():
+        log(f"ptxas {entry}: {'; '.join(lines)}")
+        if not any("0 bytes spill stores, 0 bytes spill loads" in x for x in lines):
+            raise AssertionError(f"training kernel instance {entry} spills: {lines}")
+    return ptxas
+
+
+def card_vs_cpu_step(dev, cut, batch, what: str) -> None:
+    """One step's loss and gradients of ``cut`` (f32, depth cut) from seed-0
+    weights on the card against the CPU (phases 14c and 15c): the loss within
+    1e-4 relative; each gradient leaf within 1e-3 of its own largest |CPU
+    gradient|, except the leaves at f32 rounding level (``ROUNDING_SHARE``)."""
+    import torch
+
+    from visual_rag_tpu_torch.models.convert import init_params
+    from visual_rag_tpu_torch.models.train import Trainer
+
+    sd = {k: v.cpu() for k, v in init_params(cut, seed=0, device=dev,
+                                             param_dtype=torch.float32).items()}
+    res = {}
+    for where in ("card", "cpu"):
+        tr = Trainer(cut, lr=1e-4, warmup=0, device=dev if where == "card" else "cpu")
+        st = tr.init_state(params=sd)
+        (loss, _), grads = tr.value_and_grad(st.params, batch)
+        res[where] = (float(loss), {k: g.cpu() for k, g in grads.items()})
+        del tr, st, grads
+    # each leaf within 1e-3 of its own largest |CPU gradient|, except the leaves whose CPU
+    # gradient is at f32 rounding level, at most ROUNDING_SHARE of the largest of all leaves:
+    # the key biases, whose exact gradient is 0 (a shift of every logit of a row leaves its
+    # softmax as it is), so both devices give noise there. The rule may exempt only those,
+    # and their card gradient must be at that level too
+    loss_err = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    top = max(float(g.abs().max()) for g in res["cpu"][1].values())
+    exempt = {k: (float(g.abs().max()), float(res["card"][1][k].abs().max()))
+              for k, g in res["cpu"][1].items() if float(g.abs().max()) <= ROUNDING_SHARE * top}
+    worst = max((float((res["card"][1][k] - g).abs().max()) / (1e-3 * float(g.abs().max())), k)
+                for k, g in res["cpu"][1].items() if k not in exempt)
+    log(f"card vs CPU, f32 at full width cut to {cut.vision.layers} + {cut.text.layers} layers, "
+        f"one step's loss and gradients on {what}: loss {res['card'][0]:.6f} vs "
+        f"{res['cpu'][0]:.6f} (relative {loss_err:.3g}, limit 1e-4); worst leaf {worst[1]} at "
+        f"{worst[0]:.3g} of its limit (1e-3 of its largest); at rounding level (<= "
+        f"{ROUNDING_SHARE} of the largest gradient, {top:.3g}), so exempt: "
+        + ", ".join(f"{k} largest {c:.3g} on the CPU, {g:.3g} on the card" for k, (c, g) in
+                    exempt.items()))
+    if loss_err > 1e-4 or worst[0] > 1.0:
+        raise AssertionError(f"f32 training on the card and on the CPU differ: {loss_err}, "
+                             f"{worst}")
+    if (not all(k.endswith("attn.k.bias") for k in exempt)
+            or not all(g <= ROUNDING_SHARE * top for _, g in exempt.values())):
+        raise AssertionError(f"the rounding-level rule exempts other leaves than the key "
+                             f"biases, or the card's are not at that level: {exempt}")
+    del res, sd
+    torch.cuda.empty_cache()
 
 
 def bwd_shape(dev, card, name, dtype, b, t, hq, hkv, dh, seg, causal, iters):
@@ -1968,8 +2081,7 @@ def training_phase(dev, card):
     import torch
 
     from visual_rag_tpu_torch.cli.train_colvlm import QUERY_WORDS, processed_batch
-    from visual_rag_tpu_torch.models.colvlm import ColVLM, ColVLMConfig
-    from visual_rag_tpu_torch.models.convert import init_params
+    from visual_rag_tpu_torch.models.colvlm import ColVLMConfig
     from visual_rag_tpu_torch.models.embedder import VisualEmbedder
     from visual_rag_tpu_torch.models.train import (
         Trainer,
@@ -1994,16 +2106,7 @@ def training_phase(dev, card):
             fwd[key], b4[key], b5[key] = bwd_shape(dev, card, name, dtype, b, t, hq, hkv, dh,
                                                    seg, causal, iters)
             torch.cuda.empty_cache()
-    ptxas = {entry: lines for entry, lines in ptxas_report().items()
-             if any(k in entry for k in ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel",
-                                         "flash_fwd_lse_kernel"))}
-    if len(ptxas) != 6:  # B4, B5 and the forward that saves lse, each f32 and bf16
-        raise AssertionError(f"the build log names {len(ptxas)} training kernel instances, "
-                             f"not 6: {sorted(ptxas)}")
-    for entry, lines in ptxas.items():
-        log(f"ptxas {entry}: {'; '.join(lines)}")
-        if not any("0 bytes spill stores, 0 bytes spill loads" in x for x in lines):
-            raise AssertionError(f"training kernel instance {entry} spills: {lines}")
+    ptxas = training_ptxas((64,))
 
     # 14b. full-width ColSmol-500M: f32 master weights from seed 0 drawn on the card,
     # bf16 compute; one batch of 4 (query, page) pairs of 17-tile pages
@@ -2103,51 +2206,15 @@ def training_phase(dev, card):
         f"from it equals one from the live state (loss, parameters, moments): {same}")
     if not same or again.step != 8:
         raise AssertionError("a step from the restored checkpoint differs from the live one")
-    del again, restored, live, params, opt, state, trainer
+    del again, restored, live, params, opt, state, trainer, step_fn  # step_fn holds the model
     torch.cuda.empty_cache()
 
     # 14c. the card against the CPU in f32 (not counted)
     cut = dataclasses.replace(cfg, dtype="float32",
                               vision=dataclasses.replace(cfg.vision, layers=2),
                               text=dataclasses.replace(cfg.text, layers=2))
-    keep = set(ColVLM(cut, device="meta").state_dict())
-    sd = {k: v.cpu() for k, v in init_params(cut, seed=0, device=dev,
-                                             param_dtype=torch.float32).items() if k in keep}
-    small = processed_batch(processor, synthetic_pages(2, 5, seed=141), texts[:2])
-    res = {}
-    for where in ("card", "cpu"):
-        tr = Trainer(cut, lr=1e-4, warmup=0, device=dev if where == "card" else "cpu")
-        st = tr.init_state(params=sd)
-        (loss, _), grads = tr.value_and_grad(st.params, small)
-        res[where] = (float(loss), {k: g.cpu() for k, g in grads.items()})
-        del tr, st, grads
-    # each leaf within 1e-3 of its own largest |CPU gradient|, except the leaves whose CPU
-    # gradient is at f32 rounding level, at most ROUNDING_SHARE of the largest of all leaves:
-    # the key biases, whose exact gradient is 0 (a shift of every logit of a row leaves its
-    # softmax as it is), so both devices give noise there. The rule may exempt only those,
-    # and their card gradient must be at that level too
-    loss_err = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
-    top = max(float(g.abs().max()) for g in res["cpu"][1].values())
-    exempt = {k: (float(g.abs().max()), float(res["card"][1][k].abs().max()))
-              for k, g in res["cpu"][1].items() if float(g.abs().max()) <= ROUNDING_SHARE * top}
-    worst = max((float((res["card"][1][k] - g).abs().max()) / (1e-3 * float(g.abs().max())), k)
-                for k, g in res["cpu"][1].items() if k not in exempt)
-    log(f"card vs CPU, f32 at full width cut to 2 + 2 layers, one step's loss and gradients on "
-        f"2 pairs of 5-tile pages: loss {res['card'][0]:.6f} vs {res['cpu'][0]:.6f} (relative "
-        f"{loss_err:.3g}, limit 1e-4); worst leaf {worst[1]} at {worst[0]:.3g} of its limit "
-        f"(1e-3 of its largest); at rounding level (<= {ROUNDING_SHARE} of the largest "
-        f"gradient, {top:.3g}), so exempt: "
-        + ", ".join(f"{k} largest {c:.3g} on the CPU, {g:.3g} on the card" for k, (c, g) in
-                    exempt.items()))
-    if loss_err > 1e-4 or worst[0] > 1.0:
-        raise AssertionError(f"f32 training on the card and on the CPU differ: {loss_err}, "
-                             f"{worst}")
-    if (not all(k.endswith("attn.k.bias") for k in exempt)
-            or not all(g <= ROUNDING_SHARE * top for _, g in exempt.values())):
-        raise AssertionError(f"the rounding-level rule exempts other leaves than the key "
-                             f"biases, or the card's are not at that level: {exempt}")
-    del res, sd
-    torch.cuda.empty_cache()
+    card_vs_cpu_step(dev, cut, processed_batch(processor, synthetic_pages(2, 5, seed=141),
+                                               texts[:2]), "2 pairs of 5-tile pages")
     log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
 
     def entry(name, source, line, kernel, shapes_):
@@ -2171,6 +2238,209 @@ def training_phase(dev, card):
                    "flash_bwd_dq_kernel", b5)],
             {"steps_per_s": 5 / t_steps, "pairs_per_s": 20 / t_steps, "peak_gib": peak / 2 ** 30,
              "profile": prof, "losses": losses})
+
+
+def merge_training_entries(training, colpali_train):
+    """Phase 14's entries of the lse forward, B4 and B5 with phase 15's shapes,
+    ptxas lines and launches added: ``launches`` over both paths, split in
+    ``launches_by_path``; the head dims and the largest errors over every
+    shape."""
+    kernel_of = {"flash_attention_fwd": ("fwd", "flash_fwd_lse_kernel"),
+                 "flash_attention_bwd_dkv": ("b4", "flash_bwd_dkv_kernel"),
+                 "flash_attention_bwd_dq": ("b5", "flash_bwd_dq_kernel")}
+    for entry in training:
+        key, kernel = kernel_of[entry["name"]]
+        entry["shapes"].update(colpali_train[key])
+        entry["ptxas"].update({k: v for k, v in colpali_train["ptxas"].items() if kernel in k})
+        entry["head_dims"] = sorted({v["shape"][4] for v in entry["shapes"].values()})
+        n = colpali_train["launches"][entry["name"]]
+        entry["launches_by_path"] = {"colsmol": entry["launches"], "colpali": n}
+        entry["launches"] += n
+        for field, dt in (("max_abs_err", "bf16"), ("max_abs_err_f32", "f32")):
+            entry[field] = max(v["max_abs_err"] for k, v in entry["shapes"].items() if dt in k)
+        entry["of_limit"] = max(v["of_limit"] for v in entry["shapes"].values())
+    return training
+
+
+# the device-time groups of a training step's profile (phase 15)
+TRAIN_GROUPS = {"B4": ("flash_bwd_dkv",), "B5": ("flash_bwd_dq",),
+                "K10 with lse": ("flash_fwd_lse",),
+                "GEMMs": ("gemm", "nvjet", "xmma", "cutlass", "sm90_")}
+
+
+def colpali_training_phase(dev, card):
+    """Phase 15: ColPali-v1.3 training (module docstring). Returns the shapes,
+    launches and ptxas lines of K10's forward that saves lse, B4 and B5 on
+    this path, and the path's end-to-end numbers."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from visual_rag_tpu_torch.cli.train_colvlm import QUERY_WORDS, processed_batch
+    from visual_rag_tpu_torch.models.colvlm import ColVLMConfig
+    from visual_rag_tpu_torch.models.embedder import VisualEmbedder
+    from visual_rag_tpu_torch.models.train import Trainer
+    from visual_rag_tpu_torch.ops.kernels import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    # 15a. the lse forward, B4 and B5 at the path's shapes, Dh 72 and 256 (not counted)
+    shapes = {"colpali vision 1 page": (1, 1024, 16, 16, 72, prefix_seg(dev, [1024], 1024),
+                                        False, 10),
+              "colpali vision 4 pages": (4, 1024, 16, 16, 72,
+                                         prefix_seg(dev, [1024] * 4, 1024), False, 5),
+              "colpali page text 4 pages": (4, 1088, 8, 1, 256,
+                                            prefix_seg(dev, [1028] * 4, 1088), False, 5),
+              "colpali queries 4": (4, 32, 8, 1, 256, prefix_seg(dev, [32, 21, 12, 25], 32),
+                                    False, 10)}
+    fwd, b4, b5 = {}, {}, {}
+    for name, (b, t, hq, hkv, dh, seg, causal, iters) in shapes.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            key = f"{name} {'bf16' if dtype == torch.bfloat16 else 'f32'}"
+            fwd[key], b4[key], b5[key] = bwd_shape(dev, card, name, dtype, b, t, hq, hkv, dh,
+                                                   seg, causal, iters)
+            torch.cuda.empty_cache()
+    ptxas = training_ptxas((72, 256))
+
+    cfg = dataclasses.replace(ColVLMConfig.colpali_v13(), remat=True)
+    processor = VisualEmbedder("vidore/colpali-v1.3", config=cfg, device=dev).processor
+    rng = np.random.default_rng(15)
+    texts = [" ".join(rng.choice(QUERY_WORDS, int(rng.integers(4, 26)))) for _ in range(4)]
+    pages = [rng.random((448, 448, 3), dtype=np.float32) for _ in range(4)]
+    t0 = time.perf_counter()
+    batch = processed_batch(processor, pages, texts)
+    t_host = time.perf_counter() - t0
+    log(f"ColPali training batch: 4 pairs, patches {batch['patches'].shape}, page ids "
+        f"{batch['page_ids'].shape} ({batch['page_mask'].sum(1).tolist()} valid), queries "
+        f"{batch['query_ids'].shape}; the host processor took {t_host:.3f} s")
+
+    # 15b, first part: at a depth cut to 9 vision + 6 text layers, which fits without remat,
+    # remat=False gives the same loss and gradients as remat=True (not counted)
+    cut = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, layers=9),
+                              text=dataclasses.replace(cfg.text, layers=6))
+    res = {}
+    for remat in (False, True):
+        tr = Trainer(dataclasses.replace(cut, remat=remat), lr=1e-4, warmup=0, device=dev)
+        st = tr.init_state(seed=0)
+        torch.cuda.reset_peak_memory_stats()
+        (loss, _), grads = tr.value_and_grad(st.params, batch)
+        torch.cuda.synchronize()
+        res[remat] = (float(loss), grads, torch.cuda.max_memory_allocated())
+        del tr, st, loss, grads
+    (l0, g0, m0), (l1, g1, m1) = res[False], res[True]
+    equal = l0 == l1 and all(torch.equal(g0[k], g1[k]) for k in g0)
+    rel = max(float((g1[k] - g0[k]).abs().max() / g0[k].abs().max().clamp(min=1e-30))
+              for k in g0)
+    log(f"remat at 9 + 6 layers on the same batch: loss {l1:.6f} against {l0:.6f} without, "
+        f"largest gradient difference {rel:.3g} of its leaf's largest, bit-equal: {equal}; peak "
+        f"memory {m1 / 2 ** 30:.2f} GiB with remat, {m0 / 2 ** 30:.2f} GiB without [{card}]")
+    if not (abs(l1 - l0) <= 1e-6 * abs(l0) and rel <= 1e-5):
+        raise AssertionError(f"remat changes the loss or the gradients: {l1} vs {l0}, {rel}")
+    del res, g0, g1
+    torch.cuda.empty_cache()
+
+    # 15b. full-width ColPali-v1.3: f32 master weights from seed 0 drawn on the card, bf16
+    # compute, remat
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, lr=1e-4, warmup=0, device=dev)
+    state = trainer.init_state(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.params.values())
+    state_bytes = torch.cuda.memory_allocated()
+    log(f"ColPali-v1.3 training state: {n_params} parameters, f32 master weights and AdamW "
+        f"moments ({state_bytes / 2 ** 30:.2f} GiB on the card), {cfg.dtype} compute, remat, "
+        f"in {time.perf_counter() - t0:.2f} s")
+    if n_params != COLPALI_PARAMS:
+        raise AssertionError(f"ColPali-v1.3 has {n_params} parameters, not {COLPALI_PARAMS}")
+    # the warm step (not counted), in its two parts, to split the peak memory: the forward
+    # and backward (activations, gradients), then the optimizer's transient
+    params, opt = state.params, state.opt_state
+    torch.cuda.reset_peak_memory_stats()
+    (loss, _), grads = trainer.value_and_grad(params, batch)
+    torch.cuda.synchronize()
+    peak_fb, with_grads = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    opt = trainer.optimizer.update(grads, opt, params)
+    torch.cuda.synchronize()
+    peak_opt = torch.cuda.max_memory_allocated()
+    del grads
+    losses = [float(loss)]
+    log(f"memory of a step (GiB): state {state_bytes / 2 ** 30:.2f}; forward and backward peak "
+        f"{peak_fb / 2 ** 30:.2f} (activations and gradients {(peak_fb - state_bytes) / 2 ** 30:.2f}"
+        f", gradients alone {(with_grads - state_bytes) / 2 ** 30:.2f}); optimizer peak "
+        f"{peak_opt / 2 ** 30:.2f} (transient {(peak_opt - with_grads) / 2 ** 30:.2f}) [{card}]")
+    step_fn = trainer.make_train_step()
+    # the forward that saves lse (twice a layer under remat), B4 and B5; the serving forward
+    # must not run in training
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq,
+                fa.flash_attention)
+    for fn in counters:
+        fn.launches = 0
+
+    # -- the main path: 5 train steps --
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        params, opt, metrics = step_fn(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    t_steps = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in counters}
+    peak = torch.cuda.max_memory_allocated()
+    layers = cfg.vision.layers + 2 * cfg.text.layers
+    log(f"ColPali-v1.3: 5 train steps after a warm one in {t_steps:.3f} s = {5 / t_steps:.3f} "
+        f"steps/s = {20 / t_steps:.2f} pairs/s; losses {losses} (the first from the warm step, "
+        f"at the initial parameters; each finite); peak memory {peak / 2 ** 30:.2f} GiB; "
+        f"launches {counts} (B4 and B5 each {layers} a step: {cfg.vision.layers} vision + "
+        f"{cfg.text.layers} page text + {cfg.text.layers} query text; the lse forward twice "
+        f"that under remat; the serving forward none) [{card}]")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"a ColPali training loss is not finite: {losses}")
+    for fn, n in zip(counters, (10 * layers, 5 * layers, 5 * layers, 0)):
+        if counts[fn.__name__] != n:
+            raise AssertionError(f"{fn.__name__} launched {counts[fn.__name__]} times over 5 "
+                                 f"steps, not {n}")
+    prof = profile_batch(lambda: step_fn(params, opt, batch), "one ColPali train step of 4 "
+                         "pairs", card, groups=TRAIN_GROUPS)
+    del params, opt, state, trainer, metrics, step_fn, loss  # step_fn holds the model
+    torch.cuda.empty_cache()
+
+    # 15c. the card against the CPU in f32 (not counted)
+    small = dataclasses.replace(cfg, dtype="float32", remat=False,
+                                vision=dataclasses.replace(cfg.vision, layers=2),
+                                text=dataclasses.replace(cfg.text, layers=2))
+    card_vs_cpu_step(dev, small, processed_batch(processor, pages[:2], texts[:2]),
+                     "2 pairs of 448 x 448 pages")
+
+    # the CLI at full width without remat (it has no remat flag, as the JAX script has
+    # none), at the largest batch of CLI_BATCHES that fits on the card; it saves the final
+    # state under build/ (deleted after)
+    ckpt = ROOT / "build" / "phase15_cli"
+    for cli_batch in CLI_BATCHES:
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "visual_rag_tpu_torch.cli.train_colvlm", "--model",
+             "vidore/colpali-v1.3", "--synthetic", "--device", "cuda", "--batch-size",
+             str(cli_batch), "--steps", "3", "--log-every", "1", "--checkpoint-dir", str(ckpt)],
+            capture_output=True, text=True, cwd=ROOT, timeout=600)
+        t_cli = time.perf_counter() - t0
+        shutil.rmtree(ckpt, ignore_errors=True)
+        for line in cli.stdout.splitlines():
+            log(f"  cli: {line}")
+        if cli.returncode == 0:
+            break
+        if "OutOfMemoryError" not in cli.stderr or cli_batch == CLI_BATCHES[-1]:
+            raise AssertionError(f"the ColPali CLI failed ({cli.returncode}): "
+                                 f"{cli.stderr[-2000:]}")
+        log(f"the CLI at {cli_batch} pairs ran out of memory without remat, after "
+            f"{t_cli:.1f} s: " + cli.stderr.strip().splitlines()[-1][:300])
+    log(f"the CLI (--model vidore/colpali-v1.3 --synthetic --batch-size {cli_batch}, 3 steps, "
+        f"no remat) took {t_cli:.1f} s with its process start and checkpoint [{card}]")
+    log(f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return ({"fwd": fwd, "b4": b4, "b5": b5, "ptxas": ptxas, "launches": counts},
+            {"steps_per_s": 5 / t_steps, "pairs_per_s": 20 / t_steps, "peak_gib": peak / 2 ** 30,
+             "profile": prof, "losses": losses, "cli_batch": cli_batch})
 
 
 if __name__ == "__main__":

@@ -29,8 +29,10 @@ The backward (B4, B5):
   of each tensor's largest magnitude in f32 (every row, pads included); in
   bf16 within 2**-6 of it plus one output ulp an element (the library rounds
   P and dS to bf16 before its products, the port keeps them f32: a few bf16
-  ulps of the largest term). Grouped heads (4 on 2, 15 on 5) against
-  ``jnp.repeat`` followed by the library: autodiff sums the repeats.
+  ulps of the largest term). Grouped heads (4 on 2, 15 on 5, and ColPali's
+  8 on 1 at Dh 256 beside its 16 heads of 72, each over one segment of valid
+  tokens then pads) against ``jnp.repeat`` followed by the library:
+  autodiff sums the repeats.
 - The autograd Function on the CPU against autograd through the dense
   attention of ``mha(use_flash=False)`` on valid rows (dO zero on pads, as
   the projection mask makes it), f32 at 1e-5; the forward's lse against
@@ -331,11 +333,18 @@ def test_plain_backward_matches_the_tpu_kernels(dh, t, n_segments, causal, dtype
     _assert_grads_close(_port_grads(q, k, v, seg, do, causal, dtype), want, dtype)
 
 
-@pytest.mark.parametrize("hq,hkv,causal", [(4, 2, True), (15, 5, False)])
-def test_plain_backward_sums_grouped_heads_as_the_tpu_kernels(hq, hkv, causal):
-    """Grouped kv heads (ColSmol's text model: 15 on 5): dk and dv sum the
-    group's query heads, as autodiff of ``jnp.repeat`` does."""
-    q, k, v, seg = _inputs(hq + 40, 1, 128, hq, hkv, 2)
+@pytest.mark.parametrize("hq,hkv,causal,dh,n_segments", [
+    pytest.param(4, 2, True, DH, 2, id="4-2-True"),
+    pytest.param(15, 5, False, DH, 2, id="15-5-False"),
+    # ColPali: Gemma's 8 heads of 256 on one kv head and SigLIP's 16 heads of 72, both
+    # bidirectional over one segment of valid tokens, then pads
+    pytest.param(8, 1, False, 256, 1, id="8-1-False-256-prefix"),
+    pytest.param(16, 16, False, 72, 1, id="16-16-False-72-prefix")])
+def test_plain_backward_sums_grouped_heads_as_the_tpu_kernels(hq, hkv, causal, dh, n_segments):
+    """Grouped kv heads (ColSmol's text model: 15 on 5; ColPali's Gemma: 8
+    on 1): dk and dv sum the group's query heads, as autodiff of
+    ``jnp.repeat`` does."""
+    q, k, v, seg = _inputs(hq + 40, 1, 128, hq, hkv, n_segments, dh=dh)
     do = np.random.default_rng(hq).standard_normal(q.shape).astype(np.float32)
     want = _tpu_grads(q, k, v, seg, do, causal, jnp.float32)
     _assert_grads_close(_port_grads(q, k, v, seg, do, causal, torch.float32), want,

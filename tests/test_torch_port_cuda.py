@@ -38,13 +38,15 @@ refuses a shape (Dh 96 among them) instead of running the plain version;
 small ColSmol-, ColPali- and ColQwen2.5-shaped models on the card against
 the CPU, with one K10 launch per attention layer.
 
-B4 and B5 (K10's backward, Dh 64): against their plain versions in f32
-(1e-4 of each tensor's largest) and bf16 (one output ulp plus 1e-5 of the
-largest), causal and not, per-tile segments with pads, grouped heads (15 on
-5), strided views, T not a multiple of 64; two calls bit-equal; the forward
-that saves lse gives the serving output bit for bit; the autograd Function
-on the card against the CPU; Dh 72 refused by name with no plain fallback;
-one train step of a small ColSmol-shaped model on the card against the CPU.
+B4 and B5 (K10's backward, Dh 64, 72 and 256): against their plain
+versions in f32 (1e-4 of each tensor's largest) and bf16 (one output ulp
+plus 1e-5 of the largest), causal and not, per-tile segments with pads,
+grouped heads (15 on 5, 8 on 1 at Dh 256), strided views, T not a multiple
+of 64 (nor of Dh 256's 32-key tiles); two calls bit-equal; the forward that
+saves lse gives the serving output bit for bit; the autograd Function on the
+card against the CPU at each head dim; Dh 80 and 128 refused by name with no
+plain fallback; one train step of small ColSmol- and ColPali-shaped models
+on the card against the CPU.
 """
 
 import numpy as np
@@ -735,17 +737,20 @@ def _bwd(dev, q, k, v, seg, do, causal):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("t,hq,hkv,tile", [(256, 4, 4, 64), (200, 6, 2, None),
-                                           (1100, 3, 1, 96), (37, 2, 2, None),
-                                           (130, 15, 5, None)])
-def test_flash_attention_backward_matches_plain(dev, dtype, causal, t, hq, hkv, tile):
+@pytest.mark.parametrize("t,hq,hkv,tile,dh", [
+    (256, 4, 4, 64, 64), (200, 6, 2, None, 64), (1100, 3, 1, 96, 64), (37, 2, 2, None, 64),
+    (130, 15, 5, None, 64),
+    # ColPali's vision tower (Dh 72, 16 heads) and Gemma text model (Dh 256, 8 on 1)
+    (256, 4, 4, None, 72), (300, 16, 16, 96, 72), (37, 2, 2, None, 72),
+    (200, 8, 1, None, 256), (1100, 8, 1, 96, 256), (45, 2, 1, None, 256)])
+def test_flash_attention_backward_matches_plain(dev, dtype, causal, t, hq, hkv, tile, dh):
     """B4 and B5 (strided q, k, v views; grouped heads up to ColSmol's 15 on
-    5; T not a multiple of 64; pads) against their plain versions, two calls
-    bit-equal, one launch each; the forward that saves lse gives the serving
-    forward's output bit for bit."""
+    5 and Gemma's 8 on 1; T not a multiple of 64; pads) against their plain
+    versions, two calls bit-equal, one launch each; the forward that saves
+    lse gives the serving forward's output bit for bit."""
     from visual_rag_tpu_torch.ops.kernels import flash_attention as fa
 
-    q, k, v, seg = _fa_inputs(dev, dtype, 2, t, hq, hkv, seed=t + hq + 7, tile=tile)
+    q, k, v, seg = _fa_inputs(dev, dtype, 2, t, hq, hkv, seed=t + hq + 7, tile=tile, dh=dh)
     do = torch.randn(q.shape, generator=torch.Generator().manual_seed(t)).to(dev, dtype)
     counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq)
     before = [f.launches for f in counters]
@@ -763,12 +768,13 @@ def test_flash_attention_backward_matches_plain(dev, dtype, causal, t, hq, hkv, 
 
 
 @pytest.mark.parametrize("dtype", [torch.float32])
-def test_autograd_function_on_card_matches_cpu(dev, dtype):
+@pytest.mark.parametrize("dh,hq,hkv", [(64, 6, 2), (72, 4, 4), (256, 8, 1)])
+def test_autograd_function_on_card_matches_cpu(dev, dtype, dh, hq, hkv):
     """The Function's forward and backward (K10 with lse, B4, B5) against the
     same autograd on the CPU (the plain versions), in f32: in bf16 the two
     forwards may round o an ulp apart, which di carries into every gradient
     (the kernels alone are held in bf16 above, on the same o and lse)."""
-    q, k, v, seg = _fa_inputs(dev, dtype, 2, 300, 6, 2, seed=5, tile=100)
+    q, k, v, seg = _fa_inputs(dev, dtype, 2, 300, hq, hkv, seed=5, tile=100, dh=dh)
     do = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(dev, dtype)
     grads = []
     for d in (dev, torch.device("cpu")):
@@ -780,9 +786,11 @@ def test_autograd_function_on_card_matches_cpu(dev, dtype):
         _assert_bwd_close(g.cpu(), w, dtype)
 
 
-def test_backward_refuses_other_head_dims_on_cuda(dev, monkeypatch):
-    """B4 and B5 exist at Dh 64: a CUDA call at Dh 72 raises by name (as does
-    the forward that saves lse) and never runs the plain version."""
+@pytest.mark.parametrize("dh", [80, 128])
+def test_backward_refuses_other_head_dims_on_cuda(dev, monkeypatch, dh):
+    """B4 and B5 exist at Dh 64, 72 and 256: a CUDA call at ColQwen2.5's 80
+    or 128 raises by name, pointing at ROADMAP B (as does the forward that
+    saves lse), and never runs the plain version."""
     import visual_rag_tpu_torch.ops.kernels.flash_attention as fa
 
     def no_plain(*a, **k):
@@ -791,14 +799,45 @@ def test_backward_refuses_other_head_dims_on_cuda(dev, monkeypatch):
     for name in ("flash_attention_bwd_dkv_plain", "flash_attention_bwd_dq_plain",
                  "flash_attention_fwd_plain"):
         monkeypatch.setattr(fa, name, no_plain)
-    q, k, v, seg = _fa_inputs(dev, torch.bfloat16, 1, 64, 2, 2, seed=4, dh=72)
+    q, k, v, seg = _fa_inputs(dev, torch.bfloat16, 1, 64, 2, 2, seed=4, dh=dh)
     lse = torch.zeros((1, 2, 64), device=dev)
-    with pytest.raises(ValueError, match=r"head dims \(64,\), got 72"):
+    refused = rf"head dims \(64, 72, 256\), got {dh} .*ROADMAP B"
+    with pytest.raises(ValueError, match=refused):
         fa.flash_attention_bwd_dkv(q, k, v, seg, q, lse, lse, causal=False)
-    with pytest.raises(ValueError, match=r"head dims \(64,\), got 72"):
+    with pytest.raises(ValueError, match=refused):
         fa.flash_attention_bwd_dq(q, k, v, seg, q, lse, lse, causal=False)
-    with pytest.raises(ValueError, match=r"head dims \(64,\), got 72"):
+    with pytest.raises(ValueError, match=refused):
         fa.flash_attention(q.detach().clone().requires_grad_(), k, v, seg, causal=False)
+
+
+def _train_step_card_vs_cpu(dev, cfg, batch, remat_on_card=False):
+    """One train step's loss and every gradient in f32 on the card (with
+    ``remat`` there if asked) against the CPU, from the same seeded weights;
+    K10 with lse, B4 and B5 launch once per attention layer (the lse forward
+    twice under remat) and the serving forward never."""
+    import dataclasses
+
+    from visual_rag_tpu_torch.models.convert import init_params
+    from visual_rag_tpu_torch.models.train import Trainer
+    from visual_rag_tpu_torch.ops.kernels import flash_attention as fa
+
+    sd = init_params(cfg, seed=2, device="cpu", param_dtype=torch.float32)
+    out = {}
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq,
+                fa.flash_attention)
+    before = [f.launches for f in counters]
+    for d, remat in ((dev, remat_on_card), ("cpu", False)):
+        trainer = Trainer(dataclasses.replace(cfg, remat=remat), lr=1e-4, warmup=0, device=d)
+        (loss, _), grads = trainer.value_and_grad(trainer.init_state(params=sd).params, batch)
+        out[str(d)] = (float(loss), {k: g.cpu() for k, g in grads.items()})
+    torch.cuda.synchronize()
+    layers = cfg.vision.layers + 2 * cfg.text.layers
+    want = [(2 if remat_on_card else 1) * layers, layers, layers, 0]
+    assert [f.launches for f in counters] == [b + n for b, n in zip(before, want)]
+    (l_card, g_card), (l_cpu, g_cpu) = out[str(dev)], out["cpu"]
+    assert abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
+    for k, w in g_cpu.items():
+        assert (g_card[k] - w).abs().max() <= 1e-3 * w.abs().max() + 1e-6, k
 
 
 def test_train_step_on_card_matches_cpu(dev):
@@ -809,9 +848,6 @@ def test_train_step_on_card_matches_cpu(dev):
     import dataclasses
 
     from visual_rag_tpu_torch.models.colvlm import ColVLMConfig
-    from visual_rag_tpu_torch.models.convert import init_params
-    from visual_rag_tpu_torch.models.train import Trainer
-    from visual_rag_tpu_torch.ops.kernels import flash_attention as fa
 
     tiny = ColVLMConfig.tiny()
     cfg = dataclasses.replace(
@@ -819,7 +855,6 @@ def test_train_step_on_card_matches_cpu(dev):
         vision=dataclasses.replace(tiny.vision, hidden=128, heads=2, pixel_shuffle=2,
                                    max_patches=2048, attn_bias=True),
         text=dataclasses.replace(tiny.text, hidden=128, heads=2, kv_heads=1))
-    sd = init_params(cfg, seed=2, device="cpu", param_dtype=torch.float32)
     rng = np.random.default_rng(3)
     n = 2 * 256
     pmask = np.ones((3, n), bool)
@@ -835,19 +870,36 @@ def test_train_step_on_card_matches_cpu(dev):
              "page_ids": ids, "page_mask": amask,
              "patches": rng.random((3, n, 48), dtype=np.float32), "patch_mask": pmask,
              "window_ids": wids}
-    out = {}
-    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq,
-                fa.flash_attention)
-    before = [f.launches for f in counters]
-    for d in (dev, "cpu"):
-        trainer = Trainer(cfg, lr=1e-4, warmup=0, device=d)
-        (loss, _), grads = trainer.value_and_grad(trainer.init_state(params=sd).params, batch)
-        out[str(d)] = (float(loss), {k: g.cpu() for k, g in grads.items()})
-    torch.cuda.synchronize()
-    layers = cfg.vision.layers + 2 * cfg.text.layers
-    # the forward that saves lse, B4 and B5 once a layer; the serving forward never
-    assert [f.launches for f in counters] == [b + n for b, n in zip(before, [layers] * 3 + [0])]
-    (l_card, g_card), (l_cpu, g_cpu) = out[str(dev)], out["cpu"]
-    assert abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
-    for k, w in g_cpu.items():
-        assert (g_card[k] - w).abs().max() <= 1e-3 * w.abs().max() + 1e-6, k
+    _train_step_card_vs_cpu(dev, cfg, batch)
+
+
+def test_colpali_train_step_on_card_matches_cpu(dev):
+    """A ColPali-shaped model (SigLIP 144 wide on 2 heads of 72 with attention
+    biases; Gemma 512 wide on 2 query heads of 256 and one kv head,
+    bidirectional, offset RMSNorm, GeGLU, the embedding scale; 256-patch
+    pages, one padded) in f32, with ``remat`` on the card: as above, at Dh
+    72 and 256."""
+    import dataclasses
+
+    from visual_rag_tpu_torch.models.colvlm import ColVLMConfig
+
+    tiny = ColVLMConfig.tiny()
+    cfg = dataclasses.replace(
+        tiny, dtype="float32", proj_bias=True, connector_bias=True, hf_layout="paligemma",
+        vision=dataclasses.replace(tiny.vision, hidden=144, heads=2, max_patches=256,
+                                   attn_bias=True),
+        text=dataclasses.replace(tiny.text, hidden=512, heads=2, kv_heads=1, mlp_hidden=1024,
+                                 rope_theta=10000.0, mlp_act="gelu_tanh", rms_offset=True,
+                                 embed_scale=True, causal=False, max_seq=512))
+    rng = np.random.default_rng(3)
+    pmask = np.ones((3, 256), bool)
+    pmask[2, 200:] = False
+    ids = rng.integers(4, 480, (3, 264)).astype(np.int32)
+    ids[:2, :256], ids[2, :200] = cfg.image_token_id, cfg.image_token_id
+    amask = np.ones((3, 264), bool)
+    amask[2, 204:] = False
+    batch = {"query_ids": rng.integers(4, 480, (3, 11)).astype(np.int32),
+             "query_mask": np.arange(11)[None] < np.array([[11], [7], [9]]),
+             "page_ids": ids, "page_mask": amask,
+             "patches": rng.random((3, 256, 48), dtype=np.float32), "patch_mask": pmask}
+    _train_step_card_vs_cpu(dev, cfg, batch, remat_on_card=True)

@@ -1,6 +1,10 @@
 """The parsers of ``visual_rag_tpu_torch/tools/sass_diff.py`` on cuobjdump and
-ptxas text in the formats CUDA 12 prints."""
+ptxas text in the formats CUDA 12 prints; the source rewrite of
+``tools/emulate_kernels.py`` on the launches and shared memory of ``csrc/``."""
 
+from pathlib import Path
+
+from visual_rag_tpu_torch.tools.emulate_kernels import emulated_source
 from visual_rag_tpu_torch.tools.sass_diff import ptxas_by_kernel, sass_by_kernel
 
 SASS = """
@@ -37,3 +41,18 @@ def test_ptxas_by_kernel_keeps_registers_and_spills():
     assert ptxas_by_kernel(PTXAS) == {"_Z1kPf": [
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "Used 124 registers, used 1 barriers"]}
+
+
+def test_emulated_source_rewrites_every_launch_and_shared_buffer():
+    csrc = Path(__file__).resolve().parents[1] / "visual_rag_tpu_torch" / "csrc"
+    text = "\n".join((csrc / name).read_text() for name in (
+        "flash_common.cuh", "flash_attention.cu", "flash_attention_bwd.cu"))
+    launches, shared = text.count("<<<"), text.count("extern __shared__")
+    assert launches == 2 and shared == 3
+    got = emulated_source(text)
+    assert "<<<" not in got and "extern __shared__" not in got
+    assert got.count("emu_launch(") == launches
+    assert got.count("float* smem = emu_smem;") == shared
+    assert ("emu_launch(dim3((cells + 127) / 128), 128, 0, seg_tile_range_kernel, seg, t_len,"
+            in got)
+    assert "emu_launch(dim3(grid), THREADS, smem, kernel, args...);" in got

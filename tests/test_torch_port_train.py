@@ -18,9 +18,12 @@ with the flax parameters carried across unrounded (``param_dtype`` f32):
 - ``ema_update`` against JAX's within one f32 ulp (both an f32 lerp; XLA
   may fuse it into an FMA);
 - loss and every gradient leaf against ``jax.value_and_grad(Trainer._loss_fn)``
-  for ``ColVLMConfig.tiny()`` and a ColSmol-shaped config (pixel shuffle 2,
-  attention biases, per-tile window ids, a padded page): f32 loss at 1e-5
-  and each leaf within 1e-4 of its largest JAX magnitude plus 1e-5 (the
+  for ``ColVLMConfig.tiny()``, a ColSmol-shaped config (pixel shuffle 2,
+  attention biases, per-tile window ids, a padded page) and a ColPali-shaped
+  one (SigLIP 144 wide on 2 heads of 72 with attention biases; Gemma 512
+  wide on 2 query heads of 256 and one kv head, bidirectional, offset
+  RMSNorm, GeGLU, the embedding scale; 256-patch pages, one padded): f32
+  loss at 1e-5 and each leaf within 1e-4 of its largest JAX magnitude plus 1e-5 (the
   key biases' exact gradient is 0, so both sides give f32 noise there);
   bf16 compute (f32 master weights on both sides) loosely: the loss within
   2e-2 relative (1% measured) and each leaf's gradient at cosine >= 0.95
@@ -29,11 +32,13 @@ with the flax parameters carried across unrounded (``param_dtype`` f32):
   50, so single elements differ by up to half the leaf's largest;
 - parameters after one and two full steps (lr 1e-4) against JAX's: within
   1e-6 where the JAX gradient (of each step so far) exceeds 1e-4 of its
-  leaf's largest and, after the global-norm clip, 1000 Adam eps; within
+  leaf's largest (1e-3 in the ColPali-shaped case, ``CLEAR_SHARE``) and,
+  after the global-norm clip, 1000 Adam eps; within
   2 lr (1 + wd) everywhere (Adam's first steps turn noise-level gradients
   into +-lr);
 - a second step on the same batch lowers the loss; ``remat=True`` gives the
-  same loss and gradients (1e-6); save, restore and continue equals the
+  same loss and gradients (1e-6) for the ColSmol- and ColPali-shaped
+  configs; save, restore and continue equals the
   live run bit for bit; the CLI trains ``--tiny --synthetic`` and
   ``--data`` on a temporary ``pairs.jsonl`` of seeded ``.npy`` pages, and
   refuses what the port does not run.
@@ -66,6 +71,7 @@ torch.set_num_threads(1)  # tier-1 runs several test workers at once
 ROOT = Path(__file__).resolve().parents[1]
 LR, WD = 1e-4, 0.01  # lr as chip_smoke.py's training phase
 TILE = 256  # patches a tile at pixel shuffle 2
+CP_PATCHES = 256  # a 16 x 16 patch page of the ColPali-shaped config
 
 
 def _tiny(cls, dtype="float32"):
@@ -104,6 +110,42 @@ def _colsmol_batch(cfg, seed=0):
     q_mask[1, 9:] = False
     return {"query_ids": q_ids, "query_mask": q_mask, "page_ids": ids, "page_mask": amask,
             "patches": patches, "patch_mask": pmask, "window_ids": wids}
+
+
+def _colpali_shaped(cls, dtype="float32"):
+    """``tests/test_torch_port_colvlm.py``'s ``_colpali_cfg``: ColPali-v1.3's
+    shape at tiny widths, keeping both of its head dims (72 and 256)."""
+    tiny = cls.tiny()
+    return dataclasses.replace(
+        tiny, dtype=dtype, proj_bias=True, connector_bias=True, hf_layout="paligemma",
+        vision=dataclasses.replace(tiny.vision, hidden=144, heads=2, max_patches=CP_PATCHES,
+                                   attn_bias=True),
+        text=dataclasses.replace(tiny.text, hidden=512, heads=2, kv_heads=1, mlp_hidden=1024,
+                                 rope_theta=10000.0, mlp_act="gelu_tanh", rms_offset=True,
+                                 embed_scale=True, causal=False, max_seq=512))
+
+
+def _colpali_batch(cfg, seed=0):
+    """Three (query, page) pairs: pages of 256 patches (the third padded
+    from 200), as many image slots and a 4-token prompt, then pads (no
+    window ids: SigLIP attends over the whole page); queries of 9-12 tokens,
+    then pads."""
+    rng = np.random.default_rng(seed)
+    b, n = 3, CP_PATCHES
+    patches = rng.random((b, n, cfg.vision.patch_pixels), dtype=np.float32)
+    pmask = np.ones((b, n), bool)
+    pmask[2, 200:] = False
+    patches[2, 200:] = 0.0
+    ids = rng.integers(4, cfg.text.vocab - 20, (b, n + 8)).astype(np.int32)
+    ids[:2, :n] = cfg.image_token_id
+    ids[2, :200] = cfg.image_token_id
+    amask = np.ones((b, n + 8), bool)
+    amask[2, 204:] = False
+    q_ids = rng.integers(4, cfg.text.vocab - 20, (b, 12)).astype(np.int32)
+    q_mask = np.ones((b, 12), bool)
+    q_mask[1, 9:] = False
+    return {"query_ids": q_ids, "query_mask": q_mask, "page_ids": ids, "page_mask": amask,
+            "patches": patches, "patch_mask": pmask}
 
 
 def _np(tree):
@@ -156,6 +198,11 @@ def tiny():
 @pytest.fixture(scope="module")
 def colsmol():
     return Case(_colsmol_shaped, _colsmol_batch)
+
+
+@pytest.fixture(scope="module")
+def colpali():
+    return Case(_colpali_shaped, _colpali_batch)
 
 
 # -- pieces -----------------------------------------------------------------------
@@ -298,7 +345,7 @@ def _assert_grads_aligned(got, want, min_cos):
             assert cos >= min_cos, (k, cos)
 
 
-@pytest.mark.parametrize("case", ["tiny", "colsmol"])
+@pytest.mark.parametrize("case", ["tiny", "colsmol", "colpali"])
 def test_loss_and_grads_match_jax(case, request):
     c = request.getfixturevalue(case)
     trainer = c.trainer()
@@ -321,14 +368,25 @@ def test_loss_and_grads_match_jax_in_bf16():
     _assert_grads_aligned(grads, c.grads, 0.95)
 
 
-def _clear(grads):
-    """Elements whose gradient stands clear of noise: above 1e-4 of its
+def _clear(grads, share=1e-4):
+    """Elements whose gradient stands clear of noise: above ``share`` of its
     leaf's largest, and, after optax's global-norm clip, above 1000 Adam eps
     (nearer eps, g / (|g| + eps) turns a gradient's last digits into a
     visible change of the update)."""
     norm = max(1.0, float(torch.sqrt(sum(g.double().square().sum() for g in grads.values()))))
-    return {k: (g.abs() > 1e-4 * g.abs().max()) & (g.abs() / norm > 1000 * 1e-8)
+    return {k: (g.abs() > share * g.abs().max()) & (g.abs() / norm > 1000 * 1e-8)
             for k, g in grads.items()}
+
+
+# the least share of the nonzero gradient elements that the 1e-6 check covers (``_clear`` in
+# both steps). The ColPali-shaped model's global gradient norm is ~516 (the others' a few),
+# so after the clip more of its elements lie within 1000 eps: 0.856 of them are clear
+COVERED = {"tiny": 0.9, "colsmol": 0.9, "colpali": 0.85}
+# ``_clear``'s share of the leaf's largest gradient. The ColPali-shaped case takes 1e-3: a
+# ``tok_embed`` element at 3.3e-4 of its leaf's largest step-2 gradient differs from JAX's by
+# 3% of itself (1e-5 of the largest, inside the gradient check's 1e-4), which the second Adam
+# step carries into 1.3e-6 of the parameter; at 1e-3 the worst is 5.6e-7
+CLEAR_SHARE = {"tiny": 1e-4, "colsmol": 1e-4, "colpali": 1e-3}
 
 
 def _assert_params_after_steps(got, want, clear):
@@ -340,15 +398,15 @@ def _assert_params_after_steps(got, want, clear):
             assert float(diff[clear[k]].max()) <= 1e-6, (k, float(diff[clear[k]].max()))
 
 
-@pytest.mark.parametrize("case", ["tiny", "colsmol"])
+@pytest.mark.parametrize("case", ["tiny", "colsmol", "colpali"])
 def test_params_after_one_and_two_steps_match_jax(case, request):
     c = request.getfixturevalue(case)
     trainer = c.trainer()
     state = c.state(trainer)
     state, m0 = trainer.train_step_once(state, c.batch)
-    clear0, clear1 = _clear(c.grads), _clear(c.grads1)
+    clear0, clear1 = _clear(c.grads, CLEAR_SHARE[case]), _clear(c.grads1, CLEAR_SHARE[case])
     nonzero = sum(int((g != 0).sum()) for g in c.grads.values())
-    assert sum(int((clear0[k] & clear1[k]).sum()) for k in clear0) >= 0.9 * nonzero
+    assert sum(int((clear0[k] & clear1[k]).sum()) for k in clear0) >= COVERED[case] * nonzero
     _assert_params_after_steps(state.params, c.params1, clear0)
     state, m1 = trainer.train_step_once(state, c.batch)
     assert state.step == 2 and state.opt_state.count == 2
@@ -357,8 +415,9 @@ def test_params_after_one_and_two_steps_match_jax(case, request):
     assert float(m1["loss"]) < float(m0["loss"])  # the second step on the batch lowers it
 
 
-def test_remat_gives_the_same_loss_and_grads(colsmol):
-    c = colsmol
+@pytest.mark.parametrize("case", ["colsmol", "colpali"])
+def test_remat_gives_the_same_loss_and_grads(case, request):
+    c = request.getfixturevalue(case)
     plain, remat = c.trainer(), PT.Trainer(dataclasses.replace(c.cfg_p, remat=True), lr=LR,
                                            warmup=0, device="cpu")
     (l0, _), g0 = plain.value_and_grad(c.state(plain).params, c.batch)

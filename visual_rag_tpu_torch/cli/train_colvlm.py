@@ -3,6 +3,8 @@
 Counterpart of ``scripts/train_colvlm.py``, on one device:
 
     python -m visual_rag_tpu_torch.cli.train_colvlm --synthetic --device cuda
+    python -m visual_rag_tpu_torch.cli.train_colvlm --model vidore/colpali-v1.3 \\
+        --synthetic --device cuda --batch-size 4
     python -m visual_rag_tpu_torch.cli.train_colvlm --data ./pairs \\
         --model vidore/colSmol-500M --batch-size 8 --steps 500 --device cuda \\
         --checkpoint-dir ckpts --save-every 100
@@ -13,9 +15,12 @@ arrays (or anything PIL opens, where PIL is installed), relative to DIR.
 Batches come from the port's ``ImageProcessor`` with its window ids, as the
 JAX CLI's ``data_batches`` builds them. ``--synthetic`` trains on one
 repeated batch: with ``--tiny`` the JAX package's ``synthetic_batch``; at a
-model's full width, random 5-tile pages and random queries through the
-processor (the JAX ``synthetic_batch`` gives a pixel-shuffle model fewer
-patches than a tile).
+model's full width, random 2048 x 512 pages (5 ColSmol tiles; ColPali's
+processor resizes them to 448 x 448, 1024 patches) and random queries
+through the processor (the JAX ``synthetic_batch`` gives a pixel-shuffle
+model fewer patches than a tile). The CLI trains without ``remat`` (the
+JAX script has no such flag): full-width ColPali-v1.3 fits one 80 GB H100
+at 4 pairs a step when no other process holds memory on the card.
 
 ``--device`` is required (``cuda`` or ``cpu``). Refused by name: a
 ``--mesh`` other than ``dp1`` (no mesh: one device), ``--scan-layers``,

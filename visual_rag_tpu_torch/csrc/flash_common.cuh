@@ -13,9 +13,13 @@ namespace vrt_fa {
 constexpr int BQ = 64;            // query rows a block
 constexpr int THREADS = 256;      // 16 x 16, a 4-row patch each
 constexpr int MAX_TILES = 16384;  // T <= 1,048,576 (in 64-row tiles): int offsets stay in range
-// the head dim of the training kernels: the forward that saves lse, B4 and B5
-// (ColSmol-500M's two towers; the other head dims are ROADMAP B work)
-constexpr int BWD_DH = 64;
+// the head dims of the training kernels, the forward that saves lse, B4 and B5:
+// ColSmol-500M's two towers (64), ColPali's SigLIP tower (72) and its Gemma text
+// model (256); 80 and 128 (ColQwen2.5) are ROADMAP B work
+constexpr bool is_bwd_head_dim(int dh) { return dh == 64 || dh == 72 || dh == 256; }
+// the longest sequence B4 and B5 take: their live-tile flags (a byte a tile) must
+// fit beside Dh 256's tiles in the 227 KB of shared memory a block may have
+constexpr int MAX_BWD_T = 524288;
 
 template <typename T>
 struct Vec;

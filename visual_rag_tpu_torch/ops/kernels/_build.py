@@ -73,6 +73,16 @@ def _declare(lib):
     lib.vrt_pooled_maxsim_scores_packed.argtypes = [
         i32, vp, i32, vp, vp, i32, i32, vp, i32, i32, i32, i32, i32, i32, vp, vp, vp, vp]
     lib.vrt_pooled_maxsim_scores_packed.restype = i32
+    _declare_flash(lib)
+    lib.vrt_error_string.argtypes = [i32]
+    lib.vrt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _declare_flash(lib):
+    """The C interfaces of K10 (``flash_attention.cu``), B4 and B5
+    (``flash_attention_bwd.cu``)."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.vrt_flash_attention.argtypes = (
         [i32, i32, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32] + [i64] * 9
         + [i32, ctypes.c_float, vp])
@@ -84,9 +94,6 @@ def _declare(lib):
     lib.vrt_flash_attention_bwd_dq.argtypes = (
         [i32, i32] + [vp] * 9 + [i32] * 5 + [strides, i32, ctypes.c_float, vp])
     lib.vrt_flash_attention_bwd_dq.restype = i32
-    lib.vrt_error_string.argtypes = [i32]
-    lib.vrt_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def load_library():

@@ -26,8 +26,11 @@ the output is in the input dtype, and a row with no allowed key is zeros.
   ``-inf`` for a row with no allowed key), then in the backward ``di =
   rowsum(dO * O)`` in f32 (plain torch, as the library computes it outside
   any kernel, ``:273-275``), B4 (:func:`flash_attention_bwd_dkv`) and B5
-  (:func:`flash_attention_bwd_dq`), ``csrc/flash_attention_bwd.cu`` at
-  ``Dh`` 64 on a CUDA tensor (their plain versions on a CPU one).
+  (:func:`flash_attention_bwd_dq`), ``csrc/flash_attention_bwd.cu`` on a
+  CUDA tensor (their plain versions on a CPU one). The three training
+  kernels take ``Dh`` 64, 72 and 256 (``BWD_HEAD_DIMS``: ColSmol-500M and
+  ColPali-v1.3); at 80 and 128 (ColQwen2.5, ROADMAP B) a CUDA tensor that
+  needs grad raises.
 - Each kernel wrapper counts its launches (``.launches``): the serving
   forward in ``flash_attention.launches``, the forward that saves lse in
   ``flash_attention_fwd.launches``.
@@ -46,10 +49,12 @@ from visual_rag_tpu_torch.ops.kernels import _build
 from visual_rag_tpu_torch.ops.kernels._checks import on_cpu, ptr, stream_ptr
 
 KERNEL_HEAD_DIMS = (64, 72, 80, 128, 256)  # the instances of csrc/flash_attention.cu
-BWD_HEAD_DIMS = (64,)  # csrc/flash_attention_bwd.cu and the forward that saves lse (BWD_DH)
+# csrc/flash_attention_bwd.cu and the forward that saves lse (is_bwd_head_dim)
+BWD_HEAD_DIMS = (64, 72, 256)
 TILE = 64  # rows a query tile
 MIN_KV_TILE = 32  # keys of the smallest kv tile (Dh 256): the tile-range scratch is sized by it
 MAX_TILES = 16384  # csrc/flash_attention.cu MAX_TILES, in query tiles
+MAX_BWD_T = 524288  # csrc/flash_common.cuh MAX_BWD_T: the longest sequence B4 and B5 take
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -80,7 +85,10 @@ def _check_kernel_inputs(named, head_dims) -> None:
         raise ValueError("the flash-attention kernels take f32 or bf16 "
                          + ", ".join(f"{n} ({x.dtype})" for n, x in named) + " of one dtype")
     if dh not in head_dims:
-        raise ValueError(f"the flash-attention kernel takes head dims {head_dims}, got {dh}")
+        todo = (" (training at the other head dims is ROADMAP B work)"
+                if head_dims == BWD_HEAD_DIMS and dh in KERNEL_HEAD_DIMS else "")
+        raise ValueError(f"the flash-attention kernel takes head dims {head_dims}, got {dh}"
+                         + todo)
     vec = 16 // q.element_size()
     for name, x in named:
         if x.stride(3) != 1 or any(s % vec for s in x.stride()[:3]) or x.data_ptr() % 16:
@@ -110,8 +118,8 @@ flash_attention.launches = 0
 def flash_attention_fwd(q, k, v, seg, *, causal: bool,
                         sm_scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse): the forward that keeps its residual for the backward. On
-    a CUDA tensor K10 with lse (``Dh`` in ``BWD_HEAD_DIMS``); on a CPU tensor
-    :func:`flash_attention_fwd_plain`."""
+    a CUDA tensor K10 with lse (``Dh`` in ``BWD_HEAD_DIMS``, else it raises);
+    on a CPU tensor :func:`flash_attention_fwd_plain`."""
     _check_args(q, k, v, seg)
     scale = _scale(q.shape[3], sm_scale)
     if on_cpu(q):
@@ -153,12 +161,14 @@ def _launch_backward(which: str, q, k, v, seg, do, lse, di, causal, scale):
         if (x.shape != (b, hq, t) or x.dtype != torch.float32 or not x.is_contiguous()
                 or x.device != q.device):
             raise ValueError(f"{name} must be a contiguous f32 [{b}, {hq}, {t}] tensor beside q")
+    if t > MAX_BWD_T:
+        raise ValueError(f"B4 and B5 take T up to {MAX_BWD_T}, got {t}")
     outs = ([torch.empty(k.shape, dtype=q.dtype, device=q.device) for _ in range(2)]
             if which == "dkv" else [torch.empty(q.shape, dtype=q.dtype, device=q.device)])
     if b == 0 or t == 0:
         return outs
     seg = seg.contiguous()
-    ranges = torch.empty((b, -(-t // TILE), 2), dtype=torch.int32, device=q.device)
+    ranges = torch.empty((b, -(-t // MIN_KV_TILE), 2), dtype=torch.int32, device=q.device)
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                        *do.stride()[:3])
     lib = _build.load_library()
