@@ -192,6 +192,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    --device cuda``, 3 steps without remat at the larger of 4 and 2 pairs
    that fits (``CLI_BATCHES``; its checkpoint written under ``build/`` and
    deleted).
+16. ColQwen2.5-v0.2 training (K10's forward with its logsumexp, B4 and B5 at
+   head dims 80 and 128). Phase 15's state is freed first (less than 1 GiB
+   may stay allocated). One batch of 4 (query, page) pairs from the port's
+   processor: random A4 pages (74 x 54 patches, padded to 4096, with their
+   window ids; page text T ~1024) and 4 random queries. First, not counted,
+   at the path's shapes -- vision in a window layer, 1 and 4 pages (16 heads
+   of 80, the processor's window ids, pads), in a full layer, 1 page; page
+   text, 4 pages (16 heads of 128 on 2 kv heads, causal, pads); 4 queries --
+   in bf16 and f32: the three kernels against their plain versions as in
+   14a, the window layer's live tile pairs beside the allowed pairs, the
+   ptxas lines of the twelve Dh 80 and 128 instances (0 spill bytes
+   required). Then at a depth cut to 8 vision layers (the eighth full) + 4
+   text layers, which fits without remat, ``remat=False`` gives the same loss
+   and gradients as ``remat=True``. Then full-width ColQwen2.5-v0.2
+   (``COLQWEN_PARAMS`` asserted; f32 master weights from seed 0 drawn on the
+   card, bf16 compute, ``remat=True``), ``Trainer(lr=1e-4, warmup=0)``: a warm
+   step in its two halves (the memory split, as 15b); then, counts at 0, the
+   main path: 5 steps (steps/s, pairs/s, peak memory below the card's; each
+   loss finite; B4 and B5 launched 104 times a step each, 32 vision + 36 page
+   text + 36 query text layers, the lse forward 208, the serving forward
+   never); a profiled step split as 15b's. Then, not counted: one step's
+   loss and gradients in f32 on the card against the CPU at full width cut
+   to 2 vision layers (the second full) + 2 text layers, 2 pairs of 448 x
+   448 pages (1024 patches), as 14c. The patch positions stay out of the
+   batch, as the trainer drops them (the JAX ``Trainer`` never passes them).
 
 The build's log gives each kernel's registers and spills (``-Xptxas=-v``).
 Every kernel entry carries ``bound_ms`` (the larger of its bytes over 3.35
@@ -203,8 +228,9 @@ the head dims it ran (64, 72, 80, 128, 256) and its launches on each
 embedding path; the entries of the forward that saves lse
 (``flash_attention_fwd``; ``library_ms``: SDPA's forward on inputs that
 need grad), B4 and B5 (``library_ms``: SDPA's whole backward) hold the
-shapes of phases 14 and 15, their ptxas lines, the head dims they ran (64,
-72, 256) and their launches on each training path (``launches_by_path``).
+shapes of phases 14, 15 and 16, their ptxas lines, the head dims they ran
+(64, 72, 80, 128, 256) and their launches on each training path
+(``launches_by_path``: colsmol, colpali, colqwen2.5).
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary. Without a CUDA device the script raises at once.
 """
@@ -695,7 +721,12 @@ def main() -> None:
 
     # -- 15. ColPali-v1.3 training: K10 with lse, B4 and B5 at Dh 72 and 256 ----------------
     colpali_train, _ = colpali_training_phase(dev, card)
-    kernels += merge_training_entries(training, colpali_train)
+    torch.cuda.empty_cache()
+
+    # -- 16. ColQwen2.5-v0.2 training: K10 with lse, B4 and B5 at Dh 80 and 128 -------------
+    colqwen_train, _ = colqwen_training_phase(dev, card)
+    kernels += merge_training_entries(training, {"colpali": colpali_train,
+                                                 "colqwen2.5": colqwen_train})
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "visual_rag_tpu"))
     if leaked:
         raise AssertionError(f"the JAX package or jax was imported: {leaked[:5]}")
@@ -2071,6 +2102,147 @@ def bwd_shape(dev, card, name, dtype, b, t, hq, hkv, dh, seg, causal, iters):
              "bound_by": b5_bound[1], **shape})
 
 
+def bwd_shapes(dev, card, shapes):
+    """``bwd_shape`` at each (b, t, hq, hkv, dh, seg, causal, iters) of
+    ``shapes`` in bf16 and f32. Returns the entries of the lse forward, B4
+    and B5, each keyed "<name> bf16" and "<name> f32"."""
+    import torch
+
+    fwd, b4, b5 = {}, {}, {}
+    for name, (b, t, hq, hkv, dh, seg, causal, iters) in shapes.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            key = f"{name} {'bf16' if dtype == torch.bfloat16 else 'f32'}"
+            fwd[key], b4[key], b5[key] = bwd_shape(dev, card, name, dtype, b, t, hq, hkv, dh,
+                                                   seg, causal, iters)
+            torch.cuda.empty_cache()
+    return fwd, b4, b5
+
+
+def remat_equality(dev, card, cut, batch, what: str) -> None:
+    """At ``cut``, a depth that fits without remat, ``remat=False`` gives the
+    same loss and gradients as ``remat=True`` from seed-0 weights on the card
+    (15b, 16b); logs both peaks."""
+    import dataclasses
+
+    import torch
+
+    from visual_rag_tpu_torch.models.train import Trainer
+
+    res = {}
+    for remat in (False, True):
+        tr = Trainer(dataclasses.replace(cut, remat=remat), lr=1e-4, warmup=0, device=dev)
+        st = tr.init_state(seed=0)
+        torch.cuda.reset_peak_memory_stats()
+        (loss, _), grads = tr.value_and_grad(st.params, batch)
+        torch.cuda.synchronize()
+        res[remat] = (float(loss), grads, torch.cuda.max_memory_allocated())
+        del tr, st, loss, grads
+    (l0, g0, m0), (l1, g1, m1) = res[False], res[True]
+    equal = l0 == l1 and all(torch.equal(g0[k], g1[k]) for k in g0)
+    rel = max(float((g1[k] - g0[k]).abs().max() / g0[k].abs().max().clamp(min=1e-30))
+              for k in g0)
+    log(f"remat at {what} on the same batch: loss {l1:.6f} against {l0:.6f} without, largest "
+        f"gradient difference {rel:.3g} of its leaf's largest, bit-equal: {equal}; peak memory "
+        f"{m1 / 2 ** 30:.2f} GiB with remat, {m0 / 2 ** 30:.2f} GiB without [{card}]")
+    if not (abs(l1 - l0) <= 1e-6 * abs(l0) and rel <= 1e-5):
+        raise AssertionError(f"remat changes the loss or the gradients: {l1} vs {l0}, {rel}")
+    del res, g0, g1
+    torch.cuda.empty_cache()
+
+
+def train_full_width(dev, card, cfg, batch, name: str, n_params_want: int):
+    """The main path of phases 15 and 16: ``cfg`` at full width, f32 master
+    weights from seed 0 drawn on the card, ``Trainer(lr=1e-4, warmup=0)``; a
+    warm step in its two halves, to split the peak memory into the state, the
+    forward and backward (activations, gradients) and the optimizer's
+    transient; then, counts at 0, 5 steps (each loss finite, the peak below
+    the card's memory; B4 and B5 launched once a step for each attention
+    layer, the lse forward twice under remat, the serving forward never);
+    one profiled step. Frees the state. Returns the launch counts and the
+    end-to-end numbers."""
+    import torch
+
+    from visual_rag_tpu_torch.models.train import Trainer
+    from visual_rag_tpu_torch.ops.kernels import flash_attention as fa
+
+    held = torch.cuda.memory_allocated()
+    if held > 2 ** 30:
+        raise AssertionError(f"{held / 2 ** 30:.2f} GiB allocated before the {name} state")
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, lr=1e-4, warmup=0, device=dev)
+    state = trainer.init_state(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.params.values())
+    state_bytes = torch.cuda.memory_allocated()
+    log(f"{name} training state: {n_params} parameters, f32 master weights and AdamW moments "
+        f"({12 * n_params / 2 ** 30:.2f} GiB; {state_bytes / 2 ** 30:.2f} GiB allocated on the "
+        f"card, {held / 2 ** 30:.3f} of it before the state), {cfg.dtype} compute, remat "
+        f"{cfg.remat}, in {time.perf_counter() - t0:.2f} s")
+    if n_params != n_params_want:
+        raise AssertionError(f"{name} has {n_params} parameters, not {n_params_want}")
+    params, opt = state.params, state.opt_state
+    torch.cuda.reset_peak_memory_stats()
+    (loss, _), grads = trainer.value_and_grad(params, batch)
+    torch.cuda.synchronize()
+    peak_fb, with_grads = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    opt = trainer.optimizer.update(grads, opt, params)
+    torch.cuda.synchronize()
+    peak_opt = torch.cuda.max_memory_allocated()
+    del grads
+    losses = [float(loss)]
+    total = torch.cuda.get_device_properties(dev).total_memory
+    memory = {"state_gib": state_bytes / 2 ** 30, "fwd_bwd_peak_gib": peak_fb / 2 ** 30,
+              "grads_gib": (with_grads - state_bytes) / 2 ** 30,
+              "opt_peak_gib": peak_opt / 2 ** 30,
+              "opt_transient_gib": (peak_opt - with_grads) / 2 ** 30}
+    log(f"memory of a {name} step (GiB): state {memory['state_gib']:.2f}; forward and backward "
+        f"peak {memory['fwd_bwd_peak_gib']:.2f} (activations and gradients "
+        f"{(peak_fb - state_bytes) / 2 ** 30:.2f}, gradients alone {memory['grads_gib']:.2f}); "
+        f"optimizer peak {memory['opt_peak_gib']:.2f} (transient "
+        f"{memory['opt_transient_gib']:.2f}); the card has {total / 2 ** 30:.2f} [{card}]")
+    step_fn = trainer.make_train_step()
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq,
+                fa.flash_attention)
+    for fn in counters:
+        fn.launches = 0
+
+    # -- the main path: 5 train steps --
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        params, opt, metrics = step_fn(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    t_steps = time.perf_counter() - t0
+    counts = {fn.__name__: fn.launches for fn in counters}
+    peak = torch.cuda.max_memory_allocated()
+    layers = cfg.vision.layers + 2 * cfg.text.layers
+    fwd_per_layer = 2 if cfg.remat else 1  # remat runs each block's forward again
+    log(f"{name}: 5 train steps after a warm one in {t_steps:.3f} s = {5 / t_steps:.3f} "
+        f"steps/s = {20 / t_steps:.2f} pairs/s; losses {losses} (the first from the warm step, "
+        f"at the initial parameters; each finite); peak memory {peak / 2 ** 30:.2f} GiB of "
+        f"{total / 2 ** 30:.2f}; launches {counts} (B4 and B5 each {layers} a step: "
+        f"{cfg.vision.layers} vision + {cfg.text.layers} page text + {cfg.text.layers} query "
+        f"text; the lse forward {fwd_per_layer} x that; the serving forward none) [{card}]")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"a {name} training loss is not finite: {losses}")
+    if not max(peak, peak_fb, peak_opt) < total:
+        raise AssertionError(f"the peak memory {peak} is not below the card's {total}")
+    for fn, n in zip(counters, (5 * fwd_per_layer * layers, 5 * layers, 5 * layers, 0)):
+        if counts[fn.__name__] != n:
+            raise AssertionError(f"{fn.__name__} launched {counts[fn.__name__]} times over 5 "
+                                 f"steps, not {n}")
+    prof = profile_batch(lambda: step_fn(params, opt, batch), f"one {name} train step of 4 "
+                         "pairs", card, groups=TRAIN_GROUPS)
+    del params, opt, state, trainer, metrics, step_fn, loss  # step_fn holds the model
+    torch.cuda.empty_cache()
+    return counts, {"steps_per_s": 5 / t_steps, "pairs_per_s": 20 / t_steps,
+                    "peak_gib": peak / 2 ** 30, "memory": memory, "profile": prof,
+                    "losses": losses}
+
+
 def training_phase(dev, card):
     """Phase 14: ColSmol-500M training (module docstring). Returns the
     kernel entries of K10's forward that saves lse, B4 and B5, and the
@@ -2099,13 +2271,7 @@ def training_phase(dev, card):
               "page text 13 tiles": (4, 896, 15, 5, 64, prefix_seg(dev, [836] * 4, 896), True,
                                      10),
               "queries": (4, 30, 15, 5, 64, prefix_seg(dev, [30, 21, 12, 25], 30), True, 10)}
-    fwd, b4, b5 = {}, {}, {}
-    for name, (b, t, hq, hkv, dh, seg, causal, iters) in shapes.items():
-        for dtype in (torch.bfloat16, torch.float32):
-            key = f"{name} {'bf16' if dtype == torch.bfloat16 else 'f32'}"
-            fwd[key], b4[key], b5[key] = bwd_shape(dev, card, name, dtype, b, t, hq, hkv, dh,
-                                                   seg, causal, iters)
-            torch.cuda.empty_cache()
+    fwd, b4, b5 = bwd_shapes(dev, card, shapes)
     ptxas = training_ptxas((64,))
 
     # 14b. full-width ColSmol-500M: f32 master weights from seed 0 drawn on the card,
@@ -2240,29 +2406,31 @@ def training_phase(dev, card):
              "profile": prof, "losses": losses})
 
 
-def merge_training_entries(training, colpali_train):
-    """Phase 14's entries of the lse forward, B4 and B5 with phase 15's shapes,
-    ptxas lines and launches added: ``launches`` over both paths, split in
-    ``launches_by_path``; the head dims and the largest errors over every
-    shape."""
+def merge_training_entries(training, paths):
+    """Phase 14's entries of the lse forward, B4 and B5 with the shapes,
+    ptxas lines and launches of the later training paths added (``paths``:
+    {path name: what its phase returned}): ``launches`` over every path,
+    split in ``launches_by_path``; the head dims and the largest errors over
+    every shape."""
     kernel_of = {"flash_attention_fwd": ("fwd", "flash_fwd_lse_kernel"),
                  "flash_attention_bwd_dkv": ("b4", "flash_bwd_dkv_kernel"),
                  "flash_attention_bwd_dq": ("b5", "flash_bwd_dq_kernel")}
     for entry in training:
         key, kernel = kernel_of[entry["name"]]
-        entry["shapes"].update(colpali_train[key])
-        entry["ptxas"].update({k: v for k, v in colpali_train["ptxas"].items() if kernel in k})
+        entry["launches_by_path"] = {"colsmol": entry["launches"]}
+        for path, res in paths.items():
+            entry["shapes"].update(res[key])
+            entry["ptxas"].update({k: v for k, v in res["ptxas"].items() if kernel in k})
+            entry["launches_by_path"][path] = res["launches"][entry["name"]]
+        entry["launches"] = sum(entry["launches_by_path"].values())
         entry["head_dims"] = sorted({v["shape"][4] for v in entry["shapes"].values()})
-        n = colpali_train["launches"][entry["name"]]
-        entry["launches_by_path"] = {"colsmol": entry["launches"], "colpali": n}
-        entry["launches"] += n
         for field, dt in (("max_abs_err", "bf16"), ("max_abs_err_f32", "f32")):
             entry[field] = max(v["max_abs_err"] for k, v in entry["shapes"].items() if dt in k)
         entry["of_limit"] = max(v["of_limit"] for v in entry["shapes"].values())
     return training
 
 
-# the device-time groups of a training step's profile (phase 15)
+# the device-time groups of a training step's profile (phases 15 and 16)
 TRAIN_GROUPS = {"B4": ("flash_bwd_dkv",), "B5": ("flash_bwd_dq",),
                 "K10 with lse": ("flash_fwd_lse",),
                 "GEMMs": ("gemm", "nvjet", "xmma", "cutlass", "sm90_")}
@@ -2275,13 +2443,9 @@ def colpali_training_phase(dev, card):
     import dataclasses
     import shutil
 
-    import torch
-
     from visual_rag_tpu_torch.cli.train_colvlm import QUERY_WORDS, processed_batch
     from visual_rag_tpu_torch.models.colvlm import ColVLMConfig
     from visual_rag_tpu_torch.models.embedder import VisualEmbedder
-    from visual_rag_tpu_torch.models.train import Trainer
-    from visual_rag_tpu_torch.ops.kernels import flash_attention as fa
 
     t_phase = time.perf_counter()
     # 15a. the lse forward, B4 and B5 at the path's shapes, Dh 72 and 256 (not counted)
@@ -2293,13 +2457,7 @@ def colpali_training_phase(dev, card):
                                             prefix_seg(dev, [1028] * 4, 1088), False, 5),
               "colpali queries 4": (4, 32, 8, 1, 256, prefix_seg(dev, [32, 21, 12, 25], 32),
                                     False, 10)}
-    fwd, b4, b5 = {}, {}, {}
-    for name, (b, t, hq, hkv, dh, seg, causal, iters) in shapes.items():
-        for dtype in (torch.bfloat16, torch.float32):
-            key = f"{name} {'bf16' if dtype == torch.bfloat16 else 'f32'}"
-            fwd[key], b4[key], b5[key] = bwd_shape(dev, card, name, dtype, b, t, hq, hkv, dh,
-                                                   seg, causal, iters)
-            torch.cuda.empty_cache()
+    fwd, b4, b5 = bwd_shapes(dev, card, shapes)
     ptxas = training_ptxas((72, 256))
 
     cfg = dataclasses.replace(ColVLMConfig.colpali_v13(), remat=True)
@@ -2318,93 +2476,11 @@ def colpali_training_phase(dev, card):
     # remat=False gives the same loss and gradients as remat=True (not counted)
     cut = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, layers=9),
                               text=dataclasses.replace(cfg.text, layers=6))
-    res = {}
-    for remat in (False, True):
-        tr = Trainer(dataclasses.replace(cut, remat=remat), lr=1e-4, warmup=0, device=dev)
-        st = tr.init_state(seed=0)
-        torch.cuda.reset_peak_memory_stats()
-        (loss, _), grads = tr.value_and_grad(st.params, batch)
-        torch.cuda.synchronize()
-        res[remat] = (float(loss), grads, torch.cuda.max_memory_allocated())
-        del tr, st, loss, grads
-    (l0, g0, m0), (l1, g1, m1) = res[False], res[True]
-    equal = l0 == l1 and all(torch.equal(g0[k], g1[k]) for k in g0)
-    rel = max(float((g1[k] - g0[k]).abs().max() / g0[k].abs().max().clamp(min=1e-30))
-              for k in g0)
-    log(f"remat at 9 + 6 layers on the same batch: loss {l1:.6f} against {l0:.6f} without, "
-        f"largest gradient difference {rel:.3g} of its leaf's largest, bit-equal: {equal}; peak "
-        f"memory {m1 / 2 ** 30:.2f} GiB with remat, {m0 / 2 ** 30:.2f} GiB without [{card}]")
-    if not (abs(l1 - l0) <= 1e-6 * abs(l0) and rel <= 1e-5):
-        raise AssertionError(f"remat changes the loss or the gradients: {l1} vs {l0}, {rel}")
-    del res, g0, g1
-    torch.cuda.empty_cache()
+    remat_equality(dev, card, cut, batch, "9 + 6 layers")
 
     # 15b. full-width ColPali-v1.3: f32 master weights from seed 0 drawn on the card, bf16
     # compute, remat
-    t0 = time.perf_counter()
-    trainer = Trainer(cfg, lr=1e-4, warmup=0, device=dev)
-    state = trainer.init_state(seed=0)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in state.params.values())
-    state_bytes = torch.cuda.memory_allocated()
-    log(f"ColPali-v1.3 training state: {n_params} parameters, f32 master weights and AdamW "
-        f"moments ({state_bytes / 2 ** 30:.2f} GiB on the card), {cfg.dtype} compute, remat, "
-        f"in {time.perf_counter() - t0:.2f} s")
-    if n_params != COLPALI_PARAMS:
-        raise AssertionError(f"ColPali-v1.3 has {n_params} parameters, not {COLPALI_PARAMS}")
-    # the warm step (not counted), in its two parts, to split the peak memory: the forward
-    # and backward (activations, gradients), then the optimizer's transient
-    params, opt = state.params, state.opt_state
-    torch.cuda.reset_peak_memory_stats()
-    (loss, _), grads = trainer.value_and_grad(params, batch)
-    torch.cuda.synchronize()
-    peak_fb, with_grads = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    opt = trainer.optimizer.update(grads, opt, params)
-    torch.cuda.synchronize()
-    peak_opt = torch.cuda.max_memory_allocated()
-    del grads
-    losses = [float(loss)]
-    log(f"memory of a step (GiB): state {state_bytes / 2 ** 30:.2f}; forward and backward peak "
-        f"{peak_fb / 2 ** 30:.2f} (activations and gradients {(peak_fb - state_bytes) / 2 ** 30:.2f}"
-        f", gradients alone {(with_grads - state_bytes) / 2 ** 30:.2f}); optimizer peak "
-        f"{peak_opt / 2 ** 30:.2f} (transient {(peak_opt - with_grads) / 2 ** 30:.2f}) [{card}]")
-    step_fn = trainer.make_train_step()
-    # the forward that saves lse (twice a layer under remat), B4 and B5; the serving forward
-    # must not run in training
-    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq,
-                fa.flash_attention)
-    for fn in counters:
-        fn.launches = 0
-
-    # -- the main path: 5 train steps --
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(5):
-        params, opt, metrics = step_fn(params, opt, batch)
-        losses.append(float(metrics["loss"]))
-    torch.cuda.synchronize()
-    t_steps = time.perf_counter() - t0
-    counts = {fn.__name__: fn.launches for fn in counters}
-    peak = torch.cuda.max_memory_allocated()
-    layers = cfg.vision.layers + 2 * cfg.text.layers
-    log(f"ColPali-v1.3: 5 train steps after a warm one in {t_steps:.3f} s = {5 / t_steps:.3f} "
-        f"steps/s = {20 / t_steps:.2f} pairs/s; losses {losses} (the first from the warm step, "
-        f"at the initial parameters; each finite); peak memory {peak / 2 ** 30:.2f} GiB; "
-        f"launches {counts} (B4 and B5 each {layers} a step: {cfg.vision.layers} vision + "
-        f"{cfg.text.layers} page text + {cfg.text.layers} query text; the lse forward twice "
-        f"that under remat; the serving forward none) [{card}]")
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"a ColPali training loss is not finite: {losses}")
-    for fn, n in zip(counters, (10 * layers, 5 * layers, 5 * layers, 0)):
-        if counts[fn.__name__] != n:
-            raise AssertionError(f"{fn.__name__} launched {counts[fn.__name__]} times over 5 "
-                                 f"steps, not {n}")
-    prof = profile_batch(lambda: step_fn(params, opt, batch), "one ColPali train step of 4 "
-                         "pairs", card, groups=TRAIN_GROUPS)
-    del params, opt, state, trainer, metrics, step_fn, loss  # step_fn holds the model
-    torch.cuda.empty_cache()
+    counts, e2e = train_full_width(dev, card, cfg, batch, "ColPali-v1.3", COLPALI_PARAMS)
 
     # 15c. the card against the CPU in f32 (not counted)
     small = dataclasses.replace(cfg, dtype="float32", remat=False,
@@ -2439,8 +2515,96 @@ def colpali_training_phase(dev, card):
         f"no remat) took {t_cli:.1f} s with its process start and checkpoint [{card}]")
     log(f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
     return ({"fwd": fwd, "b4": b4, "b5": b5, "ptxas": ptxas, "launches": counts},
-            {"steps_per_s": 5 / t_steps, "pairs_per_s": 20 / t_steps, "peak_gib": peak / 2 ** 30,
-             "profile": prof, "losses": losses, "cli_batch": cli_batch})
+            {**e2e, "cli_batch": cli_batch})
+
+
+COLQWEN_PARAMS = 3963137408  # ColQwen2.5-v0.2 (Qwen2.5-VL-3B), as the flax init counts them
+A4_PAGE = (1170, 827)  # px (height, width): 74 x 54 patches for ColQwen, phase 13's first page
+
+
+def colqwen_training_phase(dev, card):
+    """Phase 16: ColQwen2.5-v0.2 training (module docstring). Returns the
+    shapes, launches and ptxas lines of K10's forward that saves lse, B4 and
+    B5 on this path, and the path's end-to-end numbers."""
+    import dataclasses
+
+    import torch
+
+    from visual_rag_tpu_torch.cli.train_colvlm import QUERY_WORDS, processed_batch
+    from visual_rag_tpu_torch.models.attention import segment_ids
+    from visual_rag_tpu_torch.models.colvlm import ColVLMConfig
+    from visual_rag_tpu_torch.models.embedder import VisualEmbedder
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(ColVLMConfig.colqwen25_v02(), remat=True)
+    processor = VisualEmbedder("vidore/colqwen2.5-v0.2", config=cfg, device=dev).processor
+    rng = np.random.default_rng(16)
+    texts = [" ".join(rng.choice(QUERY_WORDS, int(rng.integers(4, 26)))) for _ in range(4)]
+    pages = [rng.random(A4_PAGE + (3,), dtype=np.float32) for _ in range(4)]
+    t0 = time.perf_counter()
+    batch = processed_batch(processor, pages, texts)
+    t_host = time.perf_counter() - t0
+    log(f"ColQwen training batch: 4 pairs of A4 pages, patches {batch['patches'].shape} "
+        f"({batch['patch_mask'].sum(1).tolist()} valid), window ids "
+        f"{'yes' if 'window_ids' in batch else 'no'}, page ids {batch['page_ids'].shape} "
+        f"({batch['page_mask'].sum(1).tolist()} valid), queries {batch['query_ids'].shape}; the "
+        f"host processor took {t_host:.3f} s")
+
+    # 16a. the lse forward, B4 and B5 at the path's shapes, Dh 80 and 128 (not counted)
+    valid = torch.from_numpy(batch["patch_mask"]).to(dev)
+    window = segment_ids(valid, torch.from_numpy(batch["window_ids"]).to(dev))
+    n_patches, t_text, t_q = (batch[k].shape[1] for k in ("patch_mask", "page_ids", "query_ids"))
+    heads, dv = cfg.vision.heads, cfg.vision.hidden // cfg.vision.heads
+    th, tkv, dt = cfg.text.heads, cfg.text.kv_heads, cfg.text.hidden // cfg.text.heads
+    shapes = {
+        "colqwen vision window 1 page": (1, n_patches, heads, heads, dv, window[:1], False, 10),
+        "colqwen vision window 4 pages": (4, n_patches, heads, heads, dv, window, False, 5),
+        "colqwen vision full 1 page": (1, n_patches, heads, heads, dv,
+                                       valid[:1].to(torch.int32), False, 5),
+        "colqwen page text 4 pages": (4, t_text, th, tkv, dt,
+                                      prefix_seg(dev, batch["page_mask"].sum(1).tolist(), t_text),
+                                      True, 5),
+        "colqwen queries 4": (4, t_q, th, tkv, dt,
+                              prefix_seg(dev, batch["query_mask"].sum(1).tolist(), t_q), True,
+                              10)}
+    fwd, b4, b5 = bwd_shapes(dev, card, shapes)
+    live = live_tile_pairs(window[0])
+    log(f"ColQwen window layer, one A4 page: the lse forward, B4 and B5 compute {live} of "
+        f"{(n_patches // 64) ** 2} (query tile, kv tile) pairs a head, {live * 64 * 64} key "
+        f"pairs against {allowed_pair_count(window[:1], False)} allowed")
+    for kernel in (fwd, b4, b5):
+        kernel["colqwen vision window 1 page bf16"]["live_tile_pairs"] = live
+    ptxas = training_ptxas((80, 128))
+    del window, valid, shapes
+
+    # 16b. at a depth cut to 8 vision layers (the eighth full attention) + 4 text layers,
+    # which fits without remat, remat=False gives the same loss and gradients as remat=True
+    # (not counted)
+    cut = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, layers=8,
+                                                              full_attn_layers=(7,)),
+                              text=dataclasses.replace(cfg.text, layers=4))
+    remat_equality(dev, card, cut, batch, "8 (7 window, 1 full) + 4 layers")
+
+    # 16c. full-width ColQwen2.5-v0.2: f32 master weights from seed 0 drawn on the card, bf16
+    # compute, remat
+    counts, e2e = train_full_width(dev, card, cfg, batch, "ColQwen2.5-v0.2", COLQWEN_PARAMS)
+
+    # 16d. the card against the CPU in f32 at full width, the depth cut to 2 vision layers
+    # (the second full attention) + 2 text layers, 2 pairs of 448 x 448 pages (1024 patches:
+    # the processor of a config whose tower takes 1024) (not counted)
+    small = dataclasses.replace(cfg, dtype="float32", remat=False,
+                                vision=dataclasses.replace(cfg.vision, layers=2,
+                                                           full_attn_layers=(1,),
+                                                           max_patches=1024),
+                                text=dataclasses.replace(cfg.text, layers=2))
+    small_proc = VisualEmbedder("vidore/colqwen2.5-v0.2", config=small, device=dev).processor
+    small_pages = [rng.random((448, 448, 3), dtype=np.float32) for _ in range(2)]
+    small_batch = processed_batch(small_proc, small_pages, texts[:2])
+    if small_batch["patch_mask"].sum(1).tolist() != [1024, 1024]:
+        raise AssertionError(f"the small pages have {small_batch['patch_mask'].sum(1)} patches")
+    card_vs_cpu_step(dev, small, small_batch, "2 pairs of 448 x 448 pages (1024 patches)")
+    log(f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return {"fwd": fwd, "b4": b4, "b5": b5, "ptxas": ptxas, "launches": counts}, e2e
 
 
 if __name__ == "__main__":

@@ -25,14 +25,15 @@ The backward (B4, B5):
   lse and ``attention_di``) against ``jax.grad`` of the library kernel under
   ``pltpu.force_tpu_interpret_mode()`` (its custom VJP runs the library's B4
   and B5 in interpret mode), with a random dO, segment ids and pads, causal
-  and not, at head dims 64, 72, 80, 128 and 256: dq, dk and dv within 1e-5
+  and not, at head dims 64, 72, 80 (also over ColQwen's interleaved window
+  segments), 128 and 256: dq, dk and dv within 1e-5
   of each tensor's largest magnitude in f32 (every row, pads included); in
   bf16 within 2**-6 of it plus one output ulp an element (the library rounds
   P and dS to bf16 before its products, the port keeps them f32: a few bf16
-  ulps of the largest term). Grouped heads (4 on 2, 15 on 5, and ColPali's
-  8 on 1 at Dh 256 beside its 16 heads of 72, each over one segment of valid
-  tokens then pads) against ``jnp.repeat`` followed by the library:
-  autodiff sums the repeats.
+  ulps of the largest term). Grouped heads (4 on 2, 15 on 5, ColPali's 8 on
+  1 at Dh 256 beside its 16 heads of 72, each over one segment of valid
+  tokens then pads, and ColQwen's 16 on 2 at Dh 128, causal) against
+  ``jnp.repeat`` followed by the library: autodiff sums the repeats.
 - The autograd Function on the CPU against autograd through the dense
   attention of ``mha(use_flash=False)`` on valid rows (dO zero on pads, as
   the projection mask makes it), f32 at 1e-5; the forward's lse against
@@ -339,15 +340,30 @@ def test_plain_backward_matches_the_tpu_kernels(dh, t, n_segments, causal, dtype
     # ColPali: Gemma's 8 heads of 256 on one kv head and SigLIP's 16 heads of 72, both
     # bidirectional over one segment of valid tokens, then pads
     pytest.param(8, 1, False, 256, 1, id="8-1-False-256-prefix"),
-    pytest.param(16, 16, False, 72, 1, id="16-16-False-72-prefix")])
+    pytest.param(16, 16, False, 72, 1, id="16-16-False-72-prefix"),
+    # ColQwen2.5: Qwen2.5's 16 heads of 128 on 2 kv heads, causal
+    pytest.param(16, 2, True, 128, 2, id="16-2-True-128")])
 def test_plain_backward_sums_grouped_heads_as_the_tpu_kernels(hq, hkv, causal, dh, n_segments):
     """Grouped kv heads (ColSmol's text model: 15 on 5; ColPali's Gemma: 8
-    on 1): dk and dv sum the group's query heads, as autodiff of
-    ``jnp.repeat`` does."""
+    on 1; ColQwen2.5's Qwen2.5: 16 on 2): dk and dv sum the group's query
+    heads, as autodiff of ``jnp.repeat`` does."""
     q, k, v, seg = _inputs(hq + 40, 1, 128, hq, hkv, n_segments, dh=dh)
     do = np.random.default_rng(hq).standard_normal(q.shape).astype(np.float32)
     want = _tpu_grads(q, k, v, seg, do, causal, jnp.float32)
     _assert_grads_close(_port_grads(q, k, v, seg, do, causal, torch.float32), want,
+                        torch.float32)
+
+
+def test_plain_backward_on_interleaved_window_segments_matches_the_tpu_kernels():
+    """ColQwen2.5's vision windows at Dh 80 (the pages of
+    ``test_interleaved_window_segments_match_the_tpu_kernel``: one window's
+    patches in runs of 16 over four merge-block rows, then pads to T 512),
+    bidirectional: dq, dk and dv within 1e-5 of each tensor's largest (f32)."""
+    seg = np.stack([_window_segments(20, 22, 512), _window_segments(16, 24, 512)])
+    q, k, v, _ = _inputs(37, 2, 512, 2, 2, 2, dh=80)
+    do = np.random.default_rng(80).standard_normal(q.shape).astype(np.float32)
+    want = _tpu_grads(q, k, v, seg, do, False, jnp.float32)
+    _assert_grads_close(_port_grads(q, k, v, seg, do, False, torch.float32), want,
                         torch.float32)
 
 

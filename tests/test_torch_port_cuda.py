@@ -38,15 +38,16 @@ refuses a shape (Dh 96 among them) instead of running the plain version;
 small ColSmol-, ColPali- and ColQwen2.5-shaped models on the card against
 the CPU, with one K10 launch per attention layer.
 
-B4 and B5 (K10's backward, Dh 64, 72 and 256): against their plain
-versions in f32 (1e-4 of each tensor's largest) and bf16 (one output ulp
-plus 1e-5 of the largest), causal and not, per-tile segments with pads,
-grouped heads (15 on 5, 8 on 1 at Dh 256), strided views, T not a multiple
-of 64 (nor of Dh 256's 32-key tiles); two calls bit-equal; the forward that
-saves lse gives the serving output bit for bit; the autograd Function on the
-card against the CPU at each head dim; Dh 80 and 128 refused by name with no
-plain fallback; one train step of small ColSmol- and ColPali-shaped models
-on the card against the CPU.
+B4 and B5 (K10's backward, Dh 64, 72, 80, 128 and 256): against their
+plain versions in f32 (1e-4 of each tensor's largest) and bf16 (one output
+ulp plus 1e-5 of the largest), causal and not, per-tile segments with pads,
+grouped heads (15 on 5, 8 on 1 at Dh 256, 16 on 2 at Dh 128), ColQwen2.5's
+window segments at Dh 80, strided views, T not a multiple of 64 (nor of Dh
+256's 32-key tiles); two calls bit-equal; the forward that saves lse gives
+the serving output bit for bit; the autograd Function launches the kernels
+(never a plain version) on CUDA tensors and matches the CPU at each head
+dim; one train step of small ColSmol-, ColPali- and ColQwen2.5-shaped
+models on the card against the CPU.
 """
 
 import numpy as np
@@ -768,7 +769,8 @@ def test_flash_attention_backward_matches_plain(dev, dtype, causal, t, hq, hkv, 
 
 
 @pytest.mark.parametrize("dtype", [torch.float32])
-@pytest.mark.parametrize("dh,hq,hkv", [(64, 6, 2), (72, 4, 4), (256, 8, 1)])
+@pytest.mark.parametrize("dh,hq,hkv", [(64, 6, 2), (72, 4, 4), (80, 4, 4), (128, 16, 2),
+                                       (256, 8, 1)])
 def test_autograd_function_on_card_matches_cpu(dev, dtype, dh, hq, hkv):
     """The Function's forward and backward (K10 with lse, B4, B5) against the
     same autograd on the CPU (the plain versions), in f32: in bf16 the two
@@ -786,28 +788,54 @@ def test_autograd_function_on_card_matches_cpu(dev, dtype, dh, hq, hkv):
         _assert_bwd_close(g.cpu(), w, dtype)
 
 
-@pytest.mark.parametrize("dh", [80, 128])
-def test_backward_refuses_other_head_dims_on_cuda(dev, monkeypatch, dh):
-    """B4 and B5 exist at Dh 64, 72 and 256: a CUDA call at ColQwen2.5's 80
-    or 128 raises by name, pointing at ROADMAP B (as does the forward that
-    saves lse), and never runs the plain version."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh,t,hq,hkv,causal,window", [
+    (80, 480, 16, 16, False, True), (80, 300, 2, 2, False, False),
+    (128, 200, 16, 2, True, False), (128, 1100, 4, 2, True, False)])
+def test_backward_at_colqwens_head_dims_matches_plain(dev, monkeypatch, dtype, dh, t, hq, hkv,
+                                                       causal, window):
+    """B4, B5 and the lse forward at ColQwen2.5's head dims on CUDA tensors:
+    Dh 80 over the processor's window segments of a 20 x 22 patch page (pads
+    to T 480, 16 heads) and over two segments with pads at T 300; Dh 128 with
+    16 heads on 2, causal, at T 200 and 1100 (neither a multiple of 64). The
+    kernels launch (no plain version runs for a CUDA tensor inside the
+    Function), match their plain versions, and the Function's gradients equal
+    the direct calls'."""
     import visual_rag_tpu_torch.ops.kernels.flash_attention as fa
+    from visual_rag_tpu_torch.models.attention import segment_ids
+    from visual_rag_tpu_torch.models.processors import ImageProcessor
 
-    def no_plain(*a, **k):
+    q, k, v, seg = _fa_inputs(dev, dtype, 2, t, hq, hkv, seed=t + dh, dh=dh)
+    if window:
+        page = ImageProcessor(backend="colqwen2.5", image_token_id=1, patch_pixels=12,
+                              max_visual_tokens=120).process_images(
+            [np.zeros((200, 220, 3), np.float32)])
+        seg = segment_ids(torch.from_numpy(page.patch_mask),
+                          torch.from_numpy(page.window_ids)).to(dev).repeat(2, 1)
+        assert seg.shape == (2, t) and int(seg.max()) == 9
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(dh)).to(dev, dtype)
+    got, want, (out, lse) = _bwd(dev, q, k, v, seg, do, causal)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        _assert_bwd_close(g, w, dtype)
+    _, lse_plain = fa.flash_attention_fwd_plain(q, k, v, seg, causal=causal)
+    torch.testing.assert_close(lse, lse_plain, rtol=0, atol=1e-5)
+    assert torch.equal(out, fa.flash_attention(q, k, v, seg, causal=causal))
+
+    def no_plain(*a, **kw):
         raise AssertionError("a plain version ran for a CUDA tensor")
 
     for name in ("flash_attention_bwd_dkv_plain", "flash_attention_bwd_dq_plain",
                  "flash_attention_fwd_plain"):
         monkeypatch.setattr(fa, name, no_plain)
-    q, k, v, seg = _fa_inputs(dev, torch.bfloat16, 1, 64, 2, 2, seed=4, dh=dh)
-    lse = torch.zeros((1, 2, 64), device=dev)
-    refused = rf"head dims \(64, 72, 256\), got {dh} .*ROADMAP B"
-    with pytest.raises(ValueError, match=refused):
-        fa.flash_attention_bwd_dkv(q, k, v, seg, q, lse, lse, causal=False)
-    with pytest.raises(ValueError, match=refused):
-        fa.flash_attention_bwd_dq(q, k, v, seg, q, lse, lse, causal=False)
-    with pytest.raises(ValueError, match=refused):
-        fa.flash_attention(q.detach().clone().requires_grad_(), k, v, seg, causal=False)
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq)
+    before = [f.launches for f in counters]
+    xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    fa.flash_attention(*xs, seg, causal=causal).backward(do)
+    torch.cuda.synchronize()
+    assert [f.launches for f in counters] == [b + 1 for b in before]
+    for x, g in zip(xs, got):
+        assert torch.equal(x.grad, g)
 
 
 def _train_step_card_vs_cpu(dev, cfg, batch, remat_on_card=False):
@@ -902,4 +930,36 @@ def test_colpali_train_step_on_card_matches_cpu(dev):
              "query_mask": np.arange(11)[None] < np.array([[11], [7], [9]]),
              "page_ids": ids, "page_mask": amask,
              "patches": rng.random((3, 256, 48), dtype=np.float32), "patch_mask": pmask}
+    _train_step_card_vs_cpu(dev, cfg, batch, remat_on_card=True)
+
+
+def test_colqwen_train_step_on_card_matches_cpu(dev):
+    """A ColQwen-shaped model (vision 160 wide on 2 heads of 80 with window
+    segments and one full layer between window layers; Qwen2.5 text 256 wide
+    on 2 heads of 128 and one kv head, causal, M-RoPE; 256-patch pages from
+    the processor, two of three padded, window ids; the patch positions left
+    out, as the trainer drops them) in f32, with ``remat`` on the card: as
+    above, at Dh 80 and 128."""
+    import dataclasses
+
+    from visual_rag_tpu_torch.models.colvlm import ColVLMConfig
+    from visual_rag_tpu_torch.models.processors import ImageProcessor
+
+    real = ColVLMConfig.colqwen25_v02()
+    cfg = dataclasses.replace(
+        real, dtype="float32", image_token_id=500,
+        vision=dataclasses.replace(real.vision, hidden=160, layers=3, heads=2, mlp_ratio=2.0,
+                                   patch_pixels=48, max_patches=256, full_attn_layers=(1,)),
+        text=dataclasses.replace(real.text, hidden=256, layers=2, heads=2, kv_heads=1,
+                                 mlp_hidden=512, vocab=512, max_seq=512))
+    rng = np.random.default_rng(3)
+    proc = ImageProcessor(backend="colqwen2.5", image_token_id=500, patch_pixels=48, vocab=512,
+                          max_visual_tokens=64)
+    pages = proc.process_images([rng.random(hw + (3,), dtype=np.float32)
+                                 for hw in ((200, 520), (300, 200), (120, 120))])
+    q_ids, q_mask = proc.process_queries(["what is the revenue of the third quarter",
+                                          "a chart of annual growth", "cost"])
+    batch = {"query_ids": q_ids, "query_mask": q_mask, "page_ids": pages.input_ids,
+             "page_mask": pages.attn_mask, "patches": pages.patches,
+             "patch_mask": pages.patch_mask, "window_ids": pages.window_ids}
     _train_step_card_vs_cpu(dev, cfg, batch, remat_on_card=True)

@@ -1,8 +1,17 @@
 """The parsers of ``visual_rag_tpu_torch/tools/sass_diff.py`` on cuobjdump and
 ptxas text in the formats CUDA 12 prints; the source rewrite of
-``tools/emulate_kernels.py`` on the launches and shared memory of ``csrc/``."""
+``tools/emulate_kernels.py`` on the launches and shared memory of ``csrc/``;
+the emulator itself on ColQwen2.5's head dims (the CUDA sources of the lse
+forward, B4 and B5 at Dh 80 and 128 run under g++ against their plain
+versions)."""
 
+import os
+import shutil
+import subprocess
+import sys
 from pathlib import Path
+
+import pytest
 
 from visual_rag_tpu_torch.tools.emulate_kernels import emulated_source
 from visual_rag_tpu_torch.tools.sass_diff import ptxas_by_kernel, sass_by_kernel
@@ -56,3 +65,24 @@ def test_emulated_source_rewrites_every_launch_and_shared_buffer():
     assert ("emu_launch(dim3((cells + 127) / 128), 128, 0, seg_tile_range_kernel, seg, t_len,"
             in got)
     assert "emu_launch(dim3(grid), THREADS, smem, kernel, args...);" in got
+
+
+def test_emulated_kernels_match_plain_at_colqwens_head_dims():
+    """Dh 80 over 64-row segments (window-like) with pads and T not a multiple
+    of 64, and Dh 128 with 4 heads on 2, causal: K10, its lse forward, B4
+    and B5 from the CUDA sources in f32 and bf16, each within chip_smoke.py's
+    limits (``K10_TOL``, ``LSE_ATOL``, ``BWD_TOL``)."""
+    if shutil.which("g++") is None:
+        pytest.skip("the emulator compiles the CUDA sources with g++")
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, str(root / "visual_rag_tpu_torch" / "tools" / "emulate_kernels.py"),
+         "80,200,2,2,False,64", "128,90,4,2,True,None"],
+        capture_output=True, text=True, cwd=root, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    lines = [x for x in out.stdout.splitlines() if x.startswith("Dh ")]
+    assert len(lines) == 4 and all(x.endswith("ok") for x in lines), lines
+    for x in lines:
+        assert all(name in x for name in ("lse forward vs serving", "lse", "dq", "dk", "dv"))
+    assert "all cases within their limits" in out.stdout

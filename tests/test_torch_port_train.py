@@ -72,6 +72,7 @@ ROOT = Path(__file__).resolve().parents[1]
 LR, WD = 1e-4, 0.01  # lr as chip_smoke.py's training phase
 TILE = 256  # patches a tile at pixel shuffle 2
 CP_PATCHES = 256  # a 16 x 16 patch page of the ColPali-shaped config
+CQ_PATCHES = 256  # the largest page of the ColQwen-shaped config: 16 x 16 patches
 
 
 def _tiny(cls, dtype="float32"):
@@ -148,6 +149,46 @@ def _colpali_batch(cfg, seed=0):
             "patches": patches, "patch_mask": pmask}
 
 
+def _colqwen_shaped(cls, dtype="float32"):
+    """``tests/test_torch_port_colvlm.py``'s ``_colqwen_cfg``: ColQwen2.5-v0.2's
+    shape at tiny widths, keeping both of its head dims (vision 160 wide on 2
+    heads of 80 with attention biases, window segments and the middle of its 3
+    layers full; Qwen2.5 text 256 wide on 2 query heads of 128 and one kv head,
+    causal, M-RoPE); 256-patch pages."""
+    real = cls.colqwen25_v02()
+    return dataclasses.replace(
+        real, dtype=dtype, image_token_id=500,
+        vision=dataclasses.replace(real.vision, hidden=160, layers=3, heads=2, mlp_ratio=2.0,
+                                   patch_pixels=48, max_patches=CQ_PATCHES,
+                                   full_attn_layers=(1,)),
+        text=dataclasses.replace(real.text, hidden=256, layers=2, heads=2, kv_heads=1,
+                                 mlp_hidden=512, vocab=512, max_seq=512))
+
+
+def _colqwen_batch(cfg, seed=0):
+    """Three (query, page) pairs through the port's ``colqwen2.5`` processor:
+    pages of 10 x 24, 18 x 14 and 16 x 16 patches (the first two padded to
+    256) with their window ids (2 x 3, 3 x 2 and 2 x 2 windows of 8 x 8
+    patches, interleaved in the merge-block order) and patch positions, as
+    many image slots / 4 and the prompt, then pads; queries of 3-10 tokens,
+    then pads."""
+    from visual_rag_tpu_torch.models.processors import ImageProcessor
+
+    rng = np.random.default_rng(seed)
+    proc = ImageProcessor(backend="colqwen2.5", image_token_id=cfg.image_token_id,
+                          patch_pixels=cfg.vision.patch_pixels, vocab=cfg.text.vocab,
+                          max_visual_tokens=cfg.vision.max_patches // 4)
+    pages = proc.process_images([rng.random(hw + (3,), dtype=np.float32)
+                                 for hw in ((200, 520), (300, 200), (120, 120))])
+    assert pages.patch_mask.sum(1).tolist() == [240, 252, CQ_PATCHES]
+    q_ids, q_mask = proc.process_queries(["what is the revenue of the third quarter",
+                                          "a chart of annual growth in the report", "cost"])
+    return {"query_ids": q_ids, "query_mask": q_mask, "page_ids": pages.input_ids,
+            "page_mask": pages.attn_mask, "patches": pages.patches,
+            "patch_mask": pages.patch_mask, "window_ids": pages.window_ids,
+            "patch_positions": pages.patch_positions}
+
+
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
@@ -203,6 +244,11 @@ def colsmol():
 @pytest.fixture(scope="module")
 def colpali():
     return Case(_colpali_shaped, _colpali_batch)
+
+
+@pytest.fixture(scope="module")
+def colqwen():
+    return Case(_colqwen_shaped, _colqwen_batch)
 
 
 # -- pieces -----------------------------------------------------------------------
@@ -345,7 +391,7 @@ def _assert_grads_aligned(got, want, min_cos):
             assert cos >= min_cos, (k, cos)
 
 
-@pytest.mark.parametrize("case", ["tiny", "colsmol", "colpali"])
+@pytest.mark.parametrize("case", ["tiny", "colsmol", "colpali", "colqwen"])
 def test_loss_and_grads_match_jax(case, request):
     c = request.getfixturevalue(case)
     trainer = c.trainer()
@@ -381,12 +427,12 @@ def _clear(grads, share=1e-4):
 # the least share of the nonzero gradient elements that the 1e-6 check covers (``_clear`` in
 # both steps). The ColPali-shaped model's global gradient norm is ~516 (the others' a few),
 # so after the clip more of its elements lie within 1000 eps: 0.856 of them are clear
-COVERED = {"tiny": 0.9, "colsmol": 0.9, "colpali": 0.85}
+COVERED = {"tiny": 0.9, "colsmol": 0.9, "colpali": 0.85, "colqwen": 0.9}
 # ``_clear``'s share of the leaf's largest gradient. The ColPali-shaped case takes 1e-3: a
 # ``tok_embed`` element at 3.3e-4 of its leaf's largest step-2 gradient differs from JAX's by
 # 3% of itself (1e-5 of the largest, inside the gradient check's 1e-4), which the second Adam
 # step carries into 1.3e-6 of the parameter; at 1e-3 the worst is 5.6e-7
-CLEAR_SHARE = {"tiny": 1e-4, "colsmol": 1e-4, "colpali": 1e-3}
+CLEAR_SHARE = {"tiny": 1e-4, "colsmol": 1e-4, "colpali": 1e-3, "colqwen": 1e-4}
 
 
 def _assert_params_after_steps(got, want, clear):
@@ -398,7 +444,7 @@ def _assert_params_after_steps(got, want, clear):
             assert float(diff[clear[k]].max()) <= 1e-6, (k, float(diff[clear[k]].max()))
 
 
-@pytest.mark.parametrize("case", ["tiny", "colsmol", "colpali"])
+@pytest.mark.parametrize("case", ["tiny", "colsmol", "colpali", "colqwen"])
 def test_params_after_one_and_two_steps_match_jax(case, request):
     c = request.getfixturevalue(case)
     trainer = c.trainer()
@@ -415,7 +461,7 @@ def test_params_after_one_and_two_steps_match_jax(case, request):
     assert float(m1["loss"]) < float(m0["loss"])  # the second step on the batch lowers it
 
 
-@pytest.mark.parametrize("case", ["colsmol", "colpali"])
+@pytest.mark.parametrize("case", ["colsmol", "colpali", "colqwen"])
 def test_remat_gives_the_same_loss_and_grads(case, request):
     c = request.getfixturevalue(case)
     plain, remat = c.trainer(), PT.Trainer(dataclasses.replace(c.cfg_p, remat=True), lr=LR,
@@ -424,6 +470,35 @@ def test_remat_gives_the_same_loss_and_grads(case, request):
     (l1, _), g1 = remat.value_and_grad(c.state(remat).params, c.batch)
     np.testing.assert_allclose(float(l1), float(l0), rtol=1e-6)
     _assert_grads_close(g1, g0, 1e-6)
+
+
+def test_trainer_ignores_patch_positions_as_the_jax_trainer_does(colqwen):
+    """The JAX ``Trainer._loss_fn`` never passes ``patch_positions``, so a
+    ColQwen trained there gets neither the 2-D vision rotary nor image M-RoPE
+    positions (a fault of the reference, ROADMAP C). The port's trainer keeps
+    that agreement: the batch with the processor's positions gives the loss and
+    gradients of the batch without them, bit for bit, on both sides; the model
+    itself, given them, embeds the pages otherwise."""
+    c = colqwen
+    assert "patch_positions" not in PT.BATCH_KEYS
+    without = {k: v for k, v in c.batch.items() if k != "patch_positions"}
+    trainer = c.trainer()
+    params = c.state(trainer).params
+    (l0, _), g0 = trainer.value_and_grad(params, c.batch)
+    (l1, _), g1 = trainer.value_and_grad(params, without)
+    assert float(l0) == float(l1) and all(torch.equal(g0[k], g1[k]) for k in g0)
+    mesh = make_mesh((1,), ("dp",), devices=jax.devices()[:1])
+    loss_fn = jax.jit(JT.Trainer(c.cfg_j, mesh, lr=LR, warmup=0)._loss_fn)
+    jl = [float(loss_fn(c.params, {k: jnp.asarray(v) for k, v in b.items()})[0])
+          for b in (c.batch, without)]
+    assert jl[0] == jl[1]
+    np.testing.assert_allclose(float(l0), jl[0], rtol=1e-5)
+    pages = [torch.from_numpy(c.batch[k]) for k in ("page_ids", "page_mask", "patches",
+                                                     "patch_mask", "window_ids")]
+    with torch.no_grad():
+        plain = trainer.model(*pages)
+        placed = trainer.model(*pages, torch.from_numpy(c.batch["patch_positions"]))
+    assert float((plain - placed).abs().max()) > 1e-3
 
 
 def test_save_restore_and_continue(tiny, tmp_path):
@@ -440,6 +515,22 @@ def test_save_restore_and_continue(tiny, tmp_path):
         assert torch.equal(live.opt_state.nu[k], again.opt_state.nu[k]), k
     with pytest.raises(FileNotFoundError):
         PT.restore_train_state(tmp_path / "none")
+
+
+def test_restore_runs_on_the_card_unless_asked(tiny, tmp_path, monkeypatch):
+    """Without a template the state goes to ``device``, which defaults to
+    the card as the Trainer's does: with no CUDA device that raises
+    ``resolve_device``'s error, and ``device="cpu"`` restores on the CPU."""
+    trainer = tiny.trainer()
+    state = tiny.state(trainer)
+    PT.save_train_state(state, tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PT.restore_train_state(tmp_path)
+    restored = PT.restore_train_state(tmp_path, device="cpu")
+    assert restored.step == 0
+    for k, v in state.params.items():
+        assert restored.params[k].device.type == "cpu" and torch.equal(restored.params[k], v), k
 
 
 def test_moe_is_refused():

@@ -13,8 +13,8 @@
 // j <= i. Every row allows itself, so a row's sum is never empty; a row with
 // no allowed key would write zeros. Logits, maxima and sums are f32; the
 // output is in the input dtype (f32 or bf16). For training, a second
-// __global__ over the same body (flash_fwd_lse_kernel, at the backward's head
-// dims 64, 72 and 256: is_bwd_head_dim) also writes each row's logsumexp
+// __global__ over the same body (flash_fwd_lse_kernel, at every head dim below)
+// also writes each row's logsumexp
 // lse = m + log(l) in f32, the residual that the backward kernels B4 and B5
 // (flash_attention_bwd.cu) read; the serving kernel (flash_fwd_kernel) does
 // not store it and compiles to the same code as before.
@@ -413,11 +413,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, 
     return launch_kernel(flash_fwd_kernel<T, DH>, smem, grid, stream, qt, kt, vt, seg,
                          static_cast<const int2*>(ranges), static_cast<T*>(o), t_len, n_kt, hq,
                          group, qs, ks, vs, causal, sm_scale);
-  if constexpr (is_bwd_head_dim(DH))
-    return launch_kernel(flash_fwd_lse_kernel<T, DH>, smem, grid, stream, qt, kt, vt, seg,
-                         static_cast<const int2*>(ranges), static_cast<T*>(o), lse, t_len, n_kt,
-                         hq, group, qs, ks, vs, causal, sm_scale);
-  return cudaErrorInvalidValue;  // the residual-saving forward exists at the backward's head dims
+  return launch_kernel(flash_fwd_lse_kernel<T, DH>, smem, grid, stream, qt, kt, vt, seg,
+                       static_cast<const int2*>(ranges), static_cast<T*>(o), lse, t_len, n_kt, hq,
+                       group, qs, ks, vs, causal, sm_scale);
 }
 
 template <typename T>
@@ -455,7 +453,7 @@ cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v, const
 // tile_range: scratch of batch * ceil(t_len / 32) int2; o [batch, t_len, hq,
 // dh] contiguous, written in full. dh must be 64, 72, 80, 128 or 256 and hq a
 // multiple of hkv. lse: null (serving), or f32 [batch, hq, t_len] contiguous,
-// written in full (dh 64, 72 or 256 only). Returns the cudaError_t of the launches.
+// written in full. Returns the cudaError_t of the launches.
 extern "C" int vrt_flash_attention(int device, int dtype, const void* q, const void* k,
                                    const void* v, const void* seg, void* tile_range, void* o,
                                    void* lse, int batch, int t_len, int hq, int hkv, int dh,
@@ -465,7 +463,7 @@ extern "C" int vrt_flash_attention(int device, int dtype, const void* q, const v
                                    float sm_scale, void* stream) {
   using namespace vrt_fa;
   if (batch == 0 || t_len == 0) return 0;
-  if ((dh != 64 && dh != 72 && dh != 80 && dh != 128 && dh != 256) || hkv <= 0 || hq % hkv != 0 ||
+  if (!is_head_dim(dh) || hkv <= 0 || hq % hkv != 0 ||
       (t_len + BQ - 1) / BQ > MAX_TILES || hq > 65535 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);

@@ -1,6 +1,6 @@
 // B4 and B5: the backward of K10 (flash attention with segment ids, an
-// optional causal mask and grouped kv heads), at head dims 64, 72 and 256,
-// f32 and bf16.
+// optional causal mask and grouped kv heads), at head dims 64, 72, 80, 128 and
+// 256, f32 and bf16.
 //
 // Replace the TPU kernels that jax.grad reaches through
 // visual_rag_tpu/models/attention.py::mha (:61-73): the library's
@@ -24,9 +24,10 @@
 // written in the input dtype.
 //
 // Head dims: 64 (both towers of ColSmol-500M), 72 (ColPali's SigLIP vision
-// tower, 16 heads) and 256 (ColPali's Gemma text model, 8 heads on one kv
-// head); 80 and 128 (ColQwen2.5) are ROADMAP B work. Each is an explicit
-// instance of the templated kernels (is_bwd_head_dim, flash_common.cuh).
+// tower, 16 heads), 80 (ColQwen2.5's vision tower, 16 heads, window segments),
+// 128 (ColQwen2.5's Qwen2.5 text model, 16 heads on 2 kv heads, causal) and
+// 256 (ColPali's Gemma text model, 8 heads on one kv head). Each is an
+// explicit instance of the templated kernels (is_head_dim, flash_common.cuh).
 //
 // What bounds them on the H100: arithmetic. B4 does 8 * Dh flops per allowed
 // pair and head (S, dP, dV, dK), B5 6 * Dh (S, dP, dQ), as f32 FMAs on the
@@ -59,7 +60,8 @@
 //   and, of the head dim, columns 64c + 4tx..+3 of each full 64-column chunk
 //   plus, where Dh is not a multiple of 64, column 64 * (Dh / 64) + tx: at Dh
 //   72 that fifth column reads the zero columns 72..79 for tx >= 8 and is
-//   stored only for tx < 8, as K10's forward does. Every sum runs in a fixed
+//   stored only for tx < 8, as K10's forward does; at Dh 80 it is a real
+//   column for every tx. Every sum runs in a fixed
 //   order (head dim ascending in step A, rows ascending in step B, then group
 //   heads and tiles ascending), so a call's result does not depend on
 //   scheduling.
@@ -74,10 +76,17 @@
 //     105,472 bytes; B5 Q, dO, K, V [64][68] and dS [64][68]: 88,064 bytes.
 //     Two blocks an SM (__launch_bounds__(256, 2): at most 128 registers;
 //     B4's loops are not unrolled, DKV_UNROLL, or its f32 instance spills).
-//   Dh  72 (DHP 80, BK 64, LD 84): B4 121,856 bytes, one block an SM; B5
-//     104,448 bytes. Both ask for one block an SM (at most 255 registers):
-//     the fifth column adds 8 (B4) or 4 (B5) accumulators a thread to the
-//     Dh 64 instances' 126-128 registers.
+//   Dh  72 and 80 (DHP 80, BK 64, LD 84): B4 121,856 bytes, one block an SM;
+//     B5 104,448 bytes. Both ask for one block an SM (at most 255
+//     registers): the fifth column adds 8 (B4) or 4 (B5) accumulators a
+//     thread to the Dh 64 instances' 126-128 registers. Dh 80 is Dh 72's
+//     body with no padded column: the fifth column is stored by every thread.
+//   Dh 128 (BK 64, LD 132, 8 columns a thread in step B): B4 K, V, Q, dO
+//     [64][132] and P^T, dS^T [64][68]: 171,008 bytes, each thread 4 keys x 8
+//     columns of dK and of dV (64 accumulators, as at Dh 256); B5 153,600
+//     bytes. One block an SM each. At ColQwen2.5's page text (B 4, T ~1024,
+//     2 kv heads) B4's grid is 16 x 2 x 4 = 128 blocks on 132 SMs, each
+//     walking its group's 8 query heads.
 //   Dh 256 (BK 32, LD 260): at the 64-key tiles of Dh 64 B4's four row tiles
 //     alone would take 266,240 bytes of the 232,448 a block may have, and its
 //     dK and dV 128 f32 registers a thread. So the kv tile is 32 keys, as in
@@ -101,13 +110,14 @@ struct BwdCfg {
   static constexpr int KR = BK / 16;                // keys a thread in step A
   static constexpr int QPK = BQ / BK;               // range entries (BK rows) a query tile covers
   static constexpr int FULL = DH / 64;              // 64-column chunks: 4 columns a thread each
-  static constexpr int REST = DHP / 16 - 4 * FULL;  // a fifth column a thread (Dh 72)
+  static constexpr int REST = DHP / 16 - 4 * FULL;  // a fifth column a thread (Dh 72, 80)
   static constexpr int NC = 4 * FULL + REST;        // head-dim columns a thread in step B
   static_assert(DH % 8 == 0 && REST <= 1, "whole 16-byte vectors, one column past the chunks");
   static constexpr int LDPT = BQ + 4;  // row stride of B4's P^T and dS^T, [BK][LDPT]
   static constexpr int LDS = BK + 4;   // row stride of B5's P / dS, [BQ][LDS]
   // the least blocks an SM: two at Dh 64 (at most 128 registers); one elsewhere
-  // (Dh 72's B4 and both Dh 256 kernels have the shared memory for one only)
+  // (B4 at Dh 72 and 80 and both kernels at 128 and 256 have the shared memory
+  // for one only)
   static constexpr int MIN_BLOCKS = DH == 64 ? 2 : 1;
   // steps of the inner loops unrolled: under the 128-register cap B4's f32
   // instance spilled at 2 and not at 1; B5 spills at neither and runs
@@ -131,7 +141,7 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ base, long long 
 #pragma unroll
   for (int it = 0; it < (TOTAL + THREADS - 1) / THREADS; ++it) {
     const int idx = threadIdx.x + it * THREADS;
-    if (TOTAL % THREADS != 0 && idx >= TOTAL) break;  // the remainder round (Dh 72)
+    if (TOTAL % THREADS != 0 && idx >= TOTAL) break;  // the remainder round (Dh 72; 80 in bf16)
     const int r = idx / PER_ROW, g = idx % PER_ROW;
     float x[N];
     if (row0 + r < t_len) {
@@ -148,7 +158,8 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ base, long long 
 }
 
 // Zeros in columns DH..LD of a [rows][LD] tile, which the loads never write:
-// step B's fifth column reads them (Dh 72). Nothing to do where DH % 64 == 0.
+// step B's fifth column reads them at Dh 72 (at Dh 80 nothing reads them).
+// Nothing to do where DH % 64 == 0.
 template <int DH, int LD>
 __device__ __forceinline__ void zero_pad(float* __restrict__ tile, int rows) {
   if constexpr (DH % 64 != 0) {
@@ -533,6 +544,10 @@ cudaError_t launch_bwd_dh(int dh, const BwdArgs& a, void* dq, void* dk, void* dv
       return launch_bwd<T, 64>(a, dq, dk, dv);
     case 72:
       return launch_bwd<T, 72>(a, dq, dk, dv);
+    case 80:
+      return launch_bwd<T, 80>(a, dq, dk, dv);
+    case 128:
+      return launch_bwd<T, 128>(a, dq, dk, dv);
     case 256:
       return launch_bwd<T, 256>(a, dq, dk, dv);
     default:
@@ -547,7 +562,7 @@ int bwd(int device, int dtype, const void* q, const void* k, const void* v, cons
         void* dv, int batch, int t_len, int hq, int hkv, int dh, const long long* strides,
         int causal, float sm_scale, void* stream) {
   if (batch == 0 || t_len == 0) return 0;
-  if (!is_bwd_head_dim(dh) || hkv <= 0 || hq % hkv != 0 || t_len > MAX_BWD_T || hq > 65535 ||
+  if (!is_head_dim(dh) || hkv <= 0 || hq % hkv != 0 || t_len > MAX_BWD_T || hq > 65535 ||
       batch > 65535 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
@@ -571,8 +586,8 @@ int bwd(int device, int dtype, const void* q, const void* k, const void* v, cons
 // contiguous; rows 16-byte aligned); seg [batch, t_len] int32 contiguous;
 // tile_range: scratch of batch * ceil(t_len / 32) int2; lse and di f32
 // [batch, hq, t_len] contiguous. dk, dv [batch, t_len, hkv, dh] (B4) and dq
-// [batch, t_len, hq, dh] (B5) contiguous, written in full. dh must be 64, 72
-// or 256, t_len at most MAX_BWD_T and hq a multiple of hkv. Return the
+// [batch, t_len, hq, dh] (B5) contiguous, written in full. dh must be 64, 72,
+// 80, 128 or 256, t_len at most MAX_BWD_T and hq a multiple of hkv. Return the
 // cudaError_t of the launches.
 extern "C" int vrt_flash_attention_bwd_dkv(int device, int dtype, const void* q, const void* k,
                                            const void* v, const void* dout, const void* seg,

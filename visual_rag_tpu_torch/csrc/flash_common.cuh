@@ -13,10 +13,12 @@ namespace vrt_fa {
 constexpr int BQ = 64;            // query rows a block
 constexpr int THREADS = 256;      // 16 x 16, a 4-row patch each
 constexpr int MAX_TILES = 16384;  // T <= 1,048,576 (in 64-row tiles): int offsets stay in range
-// the head dims of the training kernels, the forward that saves lse, B4 and B5:
-// ColSmol-500M's two towers (64), ColPali's SigLIP tower (72) and its Gemma text
-// model (256); 80 and 128 (ColQwen2.5) are ROADMAP B work
-constexpr bool is_bwd_head_dim(int dh) { return dh == 64 || dh == 72 || dh == 256; }
+// the head dims of every instance (K10's two forwards, B4 and B5): ColSmol-500M's
+// two towers (64), ColPali's SigLIP tower (72) and its Gemma text model (256),
+// ColQwen2.5's vision tower (80) and its Qwen2.5 text model (128)
+constexpr bool is_head_dim(int dh) {
+  return dh == 64 || dh == 72 || dh == 80 || dh == 128 || dh == 256;
+}
 // the longest sequence B4 and B5 take: their live-tile flags (a byte a tile) must
 // fit beside Dh 256's tiles in the 227 KB of shared memory a block may have
 constexpr int MAX_BWD_T = 524288;

@@ -273,11 +273,11 @@ def save_train_state(state: TrainState, directory, step: Optional[int] = None) -
 
 
 def restore_train_state(directory, step: Optional[int] = None,
-                        template: Optional[TrainState] = None, device="cpu") -> TrainState:
+                        template: Optional[TrainState] = None, device="cuda") -> TrainState:
     """The latest (or the given) step under ``directory``. Tensors go to the
     device of ``template``'s parameters if given (as the JAX template gives
-    shardings), else to ``device``; parameters come back as
-    ``nn.Parameter``s."""
+    shardings), else to ``device`` (as :class:`Trainer` takes it: the CPU only
+    when asked for); parameters come back as ``nn.Parameter``s."""
     root = Path(directory).resolve()
     if step is None:
         steps = sorted(int(p.name.split("_")[1]) for p in root.glob("step_*")
@@ -287,6 +287,7 @@ def restore_train_state(directory, step: Optional[int] = None,
         step = steps[-1]
     if template is not None:
         device = next(iter(template.params.values())).device
+    device = resolve_device(device)
     data = torch.load(_checkpoint_dir(root, step) / "state.pt", map_location=device,
                       weights_only=True)
     opt = data["opt_state"]

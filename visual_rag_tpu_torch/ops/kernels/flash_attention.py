@@ -28,9 +28,8 @@ the output is in the input dtype, and a row with no allowed key is zeros.
   any kernel, ``:273-275``), B4 (:func:`flash_attention_bwd_dkv`) and B5
   (:func:`flash_attention_bwd_dq`), ``csrc/flash_attention_bwd.cu`` on a
   CUDA tensor (their plain versions on a CPU one). The three training
-  kernels take ``Dh`` 64, 72 and 256 (``BWD_HEAD_DIMS``: ColSmol-500M and
-  ColPali-v1.3); at 80 and 128 (ColQwen2.5, ROADMAP B) a CUDA tensor that
-  needs grad raises.
+  kernels take the same five head dims (ColSmol-500M, ColPali-v1.3 and
+  ColQwen2.5-v0.2 training).
 - Each kernel wrapper counts its launches (``.launches``): the serving
   forward in ``flash_attention.launches``, the forward that saves lse in
   ``flash_attention_fwd.launches``.
@@ -48,9 +47,8 @@ import torch
 from visual_rag_tpu_torch.ops.kernels import _build
 from visual_rag_tpu_torch.ops.kernels._checks import on_cpu, ptr, stream_ptr
 
-KERNEL_HEAD_DIMS = (64, 72, 80, 128, 256)  # the instances of csrc/flash_attention.cu
-# csrc/flash_attention_bwd.cu and the forward that saves lse (is_bwd_head_dim)
-BWD_HEAD_DIMS = (64, 72, 256)
+# the instances of csrc/flash_attention.cu (both forwards) and csrc/flash_attention_bwd.cu
+KERNEL_HEAD_DIMS = (64, 72, 80, 128, 256)
 TILE = 64  # rows a query tile
 MIN_KV_TILE = 32  # keys of the smallest kv tile (Dh 256): the tile-range scratch is sized by it
 MAX_TILES = 16384  # csrc/flash_attention.cu MAX_TILES, in query tiles
@@ -77,18 +75,16 @@ def _scale(dh: int, sm_scale: Optional[float]) -> float:
     return float(dh) ** -0.5 if sm_scale is None else float(sm_scale)
 
 
-def _check_kernel_inputs(named, head_dims) -> None:
+def _check_kernel_inputs(named) -> None:
     """What every K10, B4 and B5 launch needs of its [B, T, H, Dh] inputs."""
     q = named[0][1]
     b, t, hq, dh = q.shape
     if q.dtype not in _DTYPE_CODES or any(x.dtype != q.dtype for _, x in named):
         raise ValueError("the flash-attention kernels take f32 or bf16 "
                          + ", ".join(f"{n} ({x.dtype})" for n, x in named) + " of one dtype")
-    if dh not in head_dims:
-        todo = (" (training at the other head dims is ROADMAP B work)"
-                if head_dims == BWD_HEAD_DIMS and dh in KERNEL_HEAD_DIMS else "")
-        raise ValueError(f"the flash-attention kernel takes head dims {head_dims}, got {dh}"
-                         + todo)
+    if dh not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the flash-attention kernel takes head dims {KERNEL_HEAD_DIMS}, "
+                         f"got {dh}")
     vec = 16 // q.element_size()
     for name, x in named:
         if x.stride(3) != 1 or any(s % vec for s in x.stride()[:3]) or x.data_ptr() % 16:
@@ -118,7 +114,7 @@ flash_attention.launches = 0
 def flash_attention_fwd(q, k, v, seg, *, causal: bool,
                         sm_scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse): the forward that keeps its residual for the backward. On
-    a CUDA tensor K10 with lse (``Dh`` in ``BWD_HEAD_DIMS``, else it raises);
+    a CUDA tensor K10 with lse (``Dh`` in ``KERNEL_HEAD_DIMS``, else it raises);
     on a CPU tensor :func:`flash_attention_fwd_plain`."""
     _check_args(q, k, v, seg)
     scale = _scale(q.shape[3], sm_scale)
@@ -132,8 +128,7 @@ flash_attention_fwd.launches = 0
 
 def _launch_forward(q, k, v, seg, causal, scale, save_lse: bool):
     b, t, hq, dh = q.shape
-    _check_kernel_inputs((("q", q), ("k", k), ("v", v)),
-                         BWD_HEAD_DIMS if save_lse else KERNEL_HEAD_DIMS)
+    _check_kernel_inputs((("q", q), ("k", k), ("v", v)))
     out = torch.empty((b, t, hq, dh), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, hq, t), dtype=torch.float32, device=q.device) if save_lse
            else None)
@@ -154,7 +149,7 @@ def _launch_forward(q, k, v, seg, causal, scale, save_lse: bool):
 def _launch_backward(which: str, q, k, v, seg, do, lse, di, causal, scale):
     """B4 (``which`` "dkv") or B5 ("dq") on CUDA tensors."""
     b, t, hq, dh = q.shape
-    _check_kernel_inputs((("q", q), ("k", k), ("v", v), ("do", do)), BWD_HEAD_DIMS)
+    _check_kernel_inputs((("q", q), ("k", k), ("v", v), ("do", do)))
     if do.shape != q.shape:
         raise ValueError(f"do {tuple(do.shape)} does not fit q {tuple(q.shape)}")
     for name, x in (("lse", lse), ("di", di)):

@@ -32,7 +32,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 SOURCES = ("flash_common.cuh", "flash_attention.cu", "flash_attention_bwd.cu")
 CASES = ((64, 130, 3, 1, True, None), (72, 150, 4, 4, False, None), (72, 200, 2, 2, True, 64),
-         (80, 100, 2, 2, False, None), (128, 90, 4, 2, True, None),
+         (80, 100, 2, 2, False, None), (80, 200, 2, 2, False, 64), (128, 90, 4, 2, True, None),
          (256, 100, 8, 1, False, None), (256, 150, 2, 1, True, 40))
 
 
@@ -113,23 +113,22 @@ def check(fa, dh, t, hq, hkv, causal, tile) -> bool:
         rtol, atol = K10_TOL[dt]
         errs = {"out": float(((out.float() - want.float()).abs()
                               / (atol + rtol * want.float().abs())).max())}
-        if dh in fa.BWD_HEAD_DIMS:
-            out2, lse = fa.flash_attention_fwd(q, k, v, seg, causal=causal)
-            errs["lse forward vs serving"] = 0.0 if torch.equal(out, out2) else float("inf")
-            fin = torch.isfinite(lse_p)
-            same_inf = torch.equal(torch.isinf(lse), torch.isinf(lse_p))
-            errs["lse"] = (float((lse - lse_p)[fin].abs().max()) / LSE_ATOL if same_inf
-                           else float("inf"))
-            di = fa.attention_di(out, do)
-            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, seg, do, lse, di, causal=causal)
-            dq = fa.flash_attention_bwd_dq(q, k, v, seg, do, lse, di, causal=causal)
-            wdk, wdv = fa.flash_attention_bwd_dkv_plain(q, k, v, seg, do, lse, di, causal=causal)
-            wdq = fa.flash_attention_bwd_dq_plain(q, k, v, seg, do, lse, di, causal=causal)
-            rtol, atol = BWD_TOL[dt]
-            for name, got, w in (("dq", dq, wdq), ("dk", dk, wdk), ("dv", dv, wdv)):
-                w = w.float()
-                errs[name] = float(((got.float() - w).abs()
-                                    / (atol * w.abs().max() + rtol * w.abs())).max())
+        out2, lse = fa.flash_attention_fwd(q, k, v, seg, causal=causal)
+        errs["lse forward vs serving"] = 0.0 if torch.equal(out, out2) else float("inf")
+        fin = torch.isfinite(lse_p)
+        same_inf = torch.equal(torch.isinf(lse), torch.isinf(lse_p))
+        errs["lse"] = (float((lse - lse_p)[fin].abs().max()) / LSE_ATOL if same_inf
+                       else float("inf"))
+        di = fa.attention_di(out, do)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, seg, do, lse, di, causal=causal)
+        dq = fa.flash_attention_bwd_dq(q, k, v, seg, do, lse, di, causal=causal)
+        wdk, wdv = fa.flash_attention_bwd_dkv_plain(q, k, v, seg, do, lse, di, causal=causal)
+        wdq = fa.flash_attention_bwd_dq_plain(q, k, v, seg, do, lse, di, causal=causal)
+        rtol, atol = BWD_TOL[dt]
+        for name, got, w in (("dq", dq, wdq), ("dk", dk, wdk), ("dv", dv, wdv)):
+            w = w.float()
+            errs[name] = float(((got.float() - w).abs()
+                                / (atol * w.abs().max() + rtol * w.abs())).max())
         good = all(e <= 1.0 for e in errs.values())  # NaN compares False: a fault
         ok &= good
         print(f"Dh {dh} T {t} heads {hq}/{hkv} {'causal' if causal else 'segments'} tile {tile}"
