@@ -147,8 +147,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    largest), two calls bit-equal and equal to the Function's. The
    CUDA-event ms of the three kernels, their plain versions and SDPA (its
    forward on inputs that need grad; its backward alone) with the same
-   boolean mask, and the ptxas lines of the six training instances (0 spill
-   bytes required). Then full-width
+   boolean mask, and the ptxas lines of the six training instances and of
+   B4's reduction of a split head group (0 spill bytes required); the
+   library's SASS (``cuobjdump -sass``): the ten bf16 B4 and B5 instances
+   issue HMMA (``mma.sync`` on the tensor cores), the ten f32 ones none.
+   Then full-width
    ColSmol-500M (460296512 parameters asserted; f32 master weights from
    seed 0 drawn on the card, bf16 compute), ``Trainer(lr=1e-4, warmup=0)``,
    one batch of 4 (query, page) pairs from the port's processor (17-tile
@@ -171,9 +174,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    of 72, one segment); page text, 4 pages (T 1088 of which 1028 valid, 8
    heads of 256 on one kv head, bidirectional); 4 queries (T 32) -- in bf16
    and f32: the three kernels against their plain versions as in 14a, with
-   the ptxas lines of their twelve Dh 72 and 256 instances (0 spill bytes
-   required). Then one batch of 4 (query, page) pairs from the port's
-   processor (random 448 x 448 pages, 1024 patches each, 4 random queries);
+   the ptxas lines of their twelve Dh 72 and 256 instances and the
+   reduction (0 spill bytes required). Then one batch of 4 (query, page)
+   pairs from the port's processor (random 448 x 448 pages, 1024 patches
+   each, 4 random queries);
    at a depth cut to 9 vision + 6 text layers (which fits without remat)
    ``remat=False`` gives the same loss and gradients as ``remat=True``.
    Then full-width ColPali-v1.3 (``COLPALI_PARAMS`` asserted; f32 master
@@ -202,10 +206,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    text, 4 pages (16 heads of 128 on 2 kv heads, causal, pads); 4 queries --
    in bf16 and f32: the three kernels against their plain versions as in
    14a, the window layer's live tile pairs beside the allowed pairs, the
-   ptxas lines of the twelve Dh 80 and 128 instances (0 spill bytes
-   required). Then at a depth cut to 8 vision layers (the eighth full) + 4
-   text layers, which fits without remat, ``remat=False`` gives the same loss
-   and gradients as ``remat=True``. Then full-width ColQwen2.5-v0.2
+   ptxas lines of the twelve Dh 80 and 128 instances and the reduction (0
+   spill bytes required). Then at a depth cut to 8 vision layers (the eighth
+   full) + 4 text layers, which fits without remat, ``remat=False`` gives the
+   same loss and gradients as ``remat=True``. Then full-width ColQwen2.5-v0.2
    (``COLQWEN_PARAMS`` asserted; f32 master weights from seed 0 drawn on the
    card, bf16 compute, ``remat=True``), ``Trainer(lr=1e-4, warmup=0)``: a warm
    step in its two halves (the memory split, as 15b); then, counts at 0, the
@@ -228,7 +232,8 @@ the head dims it ran (64, 72, 80, 128, 256) and its launches on each
 embedding path; the entries of the forward that saves lse
 (``flash_attention_fwd``; ``library_ms``: SDPA's forward on inputs that
 need grad), B4 and B5 (``library_ms``: SDPA's whole backward) hold the
-shapes of phases 14, 15 and 16, their ptxas lines, the head dims they ran
+shapes of phases 14, 15 and 16, their ptxas lines (B4's with its reduction),
+B4's and B5's HMMA counts by instance, the head dims they ran
 (64, 72, 80, 128, 256) and their launches on each training path
 (``launches_by_path``: colsmol, colpali, colqwen2.5).
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
@@ -1913,20 +1918,43 @@ CLI_BATCHES = (4, 2)
 
 
 def training_ptxas(head_dims) -> dict:
-    """The build log's ptxas lines of the training instances (the forward that
-    saves lse, B4 and B5, f32 and bf16) at ``head_dims``, logged; each must
+    """The build log's ptxas lines of the training instances at ``head_dims``
+    (the forward that saves lse; B4 and B5 in f32, and in bf16 on the tensor
+    cores) and of B4's reduction of a split head group, logged; each must
     spill 0 bytes."""
-    names = ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel", "flash_fwd_lse_kernel")
+    names = ("flash_bwd_dkv", "flash_bwd_dq", "flash_fwd_lse_kernel")
     ptxas = {entry: lines for entry, lines in ptxas_report().items()
-             if any(k in entry for k in names) and any(f"Li{d}E" in entry for d in head_dims)}
-    if len(ptxas) != 6 * len(head_dims):
+             if any(k in entry for k in names)
+             and ("flash_bwd_dkv_reduce" in entry or any(f"Li{d}E" in entry for d in head_dims))}
+    if len(ptxas) != 6 * len(head_dims) + 1:
         raise AssertionError(f"the build log names {len(ptxas)} training kernel instances at "
-                             f"head dims {head_dims}, not {6 * len(head_dims)}: {sorted(ptxas)}")
+                             f"head dims {head_dims} and the reduction, not "
+                             f"{6 * len(head_dims) + 1}: {sorted(ptxas)}")
     for entry, lines in ptxas.items():
         log(f"ptxas {entry}: {'; '.join(lines)}")
         if not any("0 bytes spill stores, 0 bytes spill loads" in x for x in lines):
             raise AssertionError(f"training kernel instance {entry} spills: {lines}")
     return ptxas
+
+
+def bwd_tensor_cores() -> dict:
+    """{B4 / B5 instance: its HMMA instructions} in the built library's SASS
+    (``cuobjdump -sass``), logged: each of the ten bf16 instances must issue
+    some (``mma.sync`` on the tensor cores), the ten f32 instances none."""
+    from visual_rag_tpu_torch.ops.kernels import _build
+    from visual_rag_tpu_torch.tools.sass_diff import library_sass
+
+    hmma = {name: sum("HMMA" in x for x in code)
+            for name, code in library_sass(_build.library_path()).items()
+            if "flash_bwd_dkv_" in name and "reduce" not in name or "flash_bwd_dq_" in name}
+    bf16 = {n: c for n, c in hmma.items() if "_mma_kernel" in n}
+    log("HMMA instructions in the SASS of B4 and B5: "
+        + ", ".join(f"{n} {c}" for n, c in sorted(hmma.items())))
+    if len(hmma) != 20 or len(bf16) != 10 or not all(bf16.values()) or any(
+            c for n, c in hmma.items() if n not in bf16):
+        raise AssertionError(f"B4/B5's bf16 instances must issue HMMA and the f32 ones none: "
+                             f"{hmma}")
+    return hmma
 
 
 def card_vs_cpu_step(dev, cut, batch, what: str) -> None:
@@ -2273,6 +2301,7 @@ def training_phase(dev, card):
               "queries": (4, 30, 15, 5, 64, prefix_seg(dev, [30, 21, 12, 25], 30), True, 10)}
     fwd, b4, b5 = bwd_shapes(dev, card, shapes)
     ptxas = training_ptxas((64,))
+    hmma = bwd_tensor_cores()
 
     # 14b. full-width ColSmol-500M: f32 master weights from seed 0 drawn on the card,
     # bf16 compute; one batch of 4 (query, page) pairs of 17-tile pages
@@ -2395,13 +2424,15 @@ def training_phase(dev, card):
                 **{key: main[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                               "bound_by")},
                 "shapes": shapes_,
-                "ptxas": {k: v for k, v in ptxas.items() if kernel in k}}
+                "ptxas": {k: v for k, v in ptxas.items() if kernel in k},
+                **({"hmma": {k: v for k, v in hmma.items() if kernel in k}}
+                   if kernel != "flash_fwd_lse_kernel" else {})}
 
     return ([entry("flash_attention_fwd", "flash_attention.cu", 758, "flash_fwd_lse_kernel", fwd),
-             entry("flash_attention_bwd_dkv", "flash_attention_bwd.cu", 1121,
-                   "flash_bwd_dkv_kernel", b4),
-             entry("flash_attention_bwd_dq", "flash_attention_bwd.cu", 1456,
-                   "flash_bwd_dq_kernel", b5)],
+             entry("flash_attention_bwd_dkv", "flash_attention_bwd.cu", 1121, "flash_bwd_dkv",
+                   b4),
+             entry("flash_attention_bwd_dq", "flash_attention_bwd.cu", 1456, "flash_bwd_dq",
+                   b5)],
             {"steps_per_s": 5 / t_steps, "pairs_per_s": 20 / t_steps, "peak_gib": peak / 2 ** 30,
              "profile": prof, "losses": losses})
 
@@ -2413,8 +2444,8 @@ def merge_training_entries(training, paths):
     split in ``launches_by_path``; the head dims and the largest errors over
     every shape."""
     kernel_of = {"flash_attention_fwd": ("fwd", "flash_fwd_lse_kernel"),
-                 "flash_attention_bwd_dkv": ("b4", "flash_bwd_dkv_kernel"),
-                 "flash_attention_bwd_dq": ("b5", "flash_bwd_dq_kernel")}
+                 "flash_attention_bwd_dkv": ("b4", "flash_bwd_dkv"),
+                 "flash_attention_bwd_dq": ("b5", "flash_bwd_dq")}
     for entry in training:
         key, kernel = kernel_of[entry["name"]]
         entry["launches_by_path"] = {"colsmol": entry["launches"]}

@@ -43,8 +43,10 @@ plain versions in f32 (1e-4 of each tensor's largest) and bf16 (one output
 ulp plus 1e-5 of the largest), causal and not, per-tile segments with pads,
 grouped heads (15 on 5, 8 on 1 at Dh 256, 16 on 2 at Dh 128), ColQwen2.5's
 window segments at Dh 80, strided views, T not a multiple of 64 (nor of Dh
-256's 32-key tiles); two calls bit-equal; the forward that saves lse gives
-the serving output bit for bit; the autograd Function launches the kernels
+256's 32-key tiles); bf16 B4 with its head group split over more blocks
+(16 on 2 at Dh 128, 8 on 1 at Dh 256, 15 on 5); the bf16 instances issue
+HMMA (tensor cores), the f32 ones none; two calls bit-equal; the forward
+that saves lse gives the serving output bit for bit; the autograd Function launches the kernels
 (never a plain version) on CUDA tensors and matches the CPU at each head
 dim; one train step of small ColSmol-, ColPali- and ColQwen2.5-shaped
 models on the card against the CPU.
@@ -766,6 +768,51 @@ def test_flash_attention_backward_matches_plain(dev, dtype, causal, t, hq, hkv, 
     assert torch.equal(out, fa.flash_attention(q, k, v, seg, causal=causal))
     _, lse_plain = fa.flash_attention_fwd_plain(q, k, v, seg, causal=causal)
     torch.testing.assert_close(lse, lse_plain, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,t,hq,hkv,dh,causal", [
+    (4, 1024, 16, 2, 128, True), (4, 1088, 8, 1, 256, False), (4, 300, 15, 5, 64, True)])
+def test_flash_attention_backward_split_group_matches_plain(dev, b, t, hq, hkv, dh, causal):
+    """bf16 B4 at grouped shapes where it splits each kv head's group over
+    more blocks (ColQwen2.5's page text, 16 on 2 at Dh 128; ColPali's, 8 on 1
+    at Dh 256; ColSmol's 15 on 5): the scratch holds the slices' partial sums
+    and the reduction adds them. B4 and B5 within ``BWD_TOL`` of their plain
+    versions, two calls bit-equal, one launch each."""
+    from visual_rag_tpu_torch.ops.kernels import _build
+    from visual_rag_tpu_torch.ops.kernels import flash_attention as fa
+
+    dtype = torch.bfloat16
+    ranges = (b * -(-t // 32) * 8 + 255) // 256 * 256  # the range table, 256-byte aligned
+    scratch = _build.load_library().vrt_flash_attention_bwd_dkv_scratch(
+        dev.index, 1, b, t, hq, hkv, dh)
+    assert scratch > ranges  # the group is split: partial dK and dV follow the range table
+    q, k, v, seg = _fa_inputs(dev, dtype, b, t, hq, hkv, seed=t + dh, dh=dh)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(t)).to(dev, dtype)
+    before = fa.flash_attention_bwd_dkv.launches
+    got, want, _ = _bwd(dev, q, k, v, seg, do, causal)
+    again, _, _ = _bwd(dev, q, k, v, seg, do, causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_dkv.launches == before + 2
+    for g, w, a in zip(got, want, again):
+        _assert_bwd_close(g, w, dtype)
+        assert torch.equal(g, a)
+
+
+def test_flash_attention_bwd_bf16_instances_use_tensor_cores(dev):
+    """The built library's SASS: every bf16 B4 and B5 instance (five head
+    dims each) issues HMMA (mma.sync on the tensor cores); the f32 instances
+    issue none."""
+    from visual_rag_tpu_torch.ops.kernels import _build
+    from visual_rag_tpu_torch.tools.sass_diff import library_sass
+
+    _build.load_library()
+    sass = library_sass(_build.library_path())
+    bf16 = {n: c for n, c in sass.items() if "_mma_kernel" in n}
+    f32 = {n: c for n, c in sass.items()
+           if "flash_bwd_dkv_kernel" in n or "flash_bwd_dq_kernel" in n}
+    assert len(bf16) == 10 and len(f32) == 10, (sorted(bf16), sorted(f32))
+    assert all(any("HMMA" in x for x in code) for code in bf16.values())
+    assert not any("HMMA" in x for code in f32.values() for x in code)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32])

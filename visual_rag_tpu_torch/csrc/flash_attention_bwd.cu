@@ -19,9 +19,10 @@
 // summed over the group's query heads for dK and dV (the JAX package repeats
 // the kv heads, so its autodiff sums them). Pairs that are not allowed add
 // exactly 0: P is set to 0 there (the multiplicative mask), so a row with no
-// allowed key (lse -inf) gives 0, never NaN. P and dS stay f32 (the library
-// rounds them to the input dtype before its products); dQ, dK and dV are
-// written in the input dtype.
+// allowed key (lse -inf) gives 0, never NaN. dQ, dK and dV are written in the
+// input dtype. The f32 instances keep P and dS in f32; the bf16 instances feed
+// them to the tensor cores as a bf16 pair, about 16 bits (below). The library
+// rounds them to the input dtype before its products.
 //
 // Head dims: 64 (both towers of ColSmol-500M), 72 (ColPali's SigLIP vision
 // tower, 16 heads), 80 (ColQwen2.5's vision tower, 16 heads, window segments),
@@ -29,25 +30,25 @@
 // 256 (ColPali's Gemma text model, 8 heads on one kv head). Each is an
 // explicit instance of the templated kernels (is_head_dim, flash_common.cuh).
 //
-// What bounds them on the H100: arithmetic. B4 does 8 * Dh flops per allowed
-// pair and head (S, dP, dV, dK), B5 6 * Dh (S, dP, dQ), as f32 FMAs on the
-// CUDA cores (67 TFLOP/s), not the bf16 tensor cores; mma / wgmma tiles are
-// later work, as for K10's forward.
-//
-// Design (FlashAttention-2's split, the library's too):
-// - B4: one block per (BK-key kv tile, kv head, batch row). K and V stay in
-//   shared memory; the block walks the 64-row query tiles of every query head
-//   of its kv head's group and keeps dK and dV of its BK keys in registers,
-//   so the group is summed with no atomics and two calls give the same bits.
-// - B5: one block per (64-row query tile, head, batch row). Q and dO stay in
-//   shared memory; the block walks the BK-key kv tiles and keeps dQ in
-//   registers.
-// - Both keep K10's exact skips: a tile pair whose segment-id ranges do not
-//   meet (seg_tile_range_kernel over BK-row tiles; a query tile's range is
-//   the union of the BQ / BK entries that cover its rows), or that lies
-//   wholly above the diagonal under causal, holds no allowed pair and is not
+// Both dtypes share the split (FlashAttention-2's, the library's too), the
+// skips and the fixed order of every sum:
+// - B4: one block per (BK-key kv tile, kv head, batch row); it walks the
+//   64-row query tiles of the query heads of its kv head's group (in bf16, of
+//   one slice of the group, below) and keeps dK and dV of its BK keys in
+//   registers, so the group is summed with no atomics and two calls give the
+//   same bits. B5: one block per (64-row query tile, head, batch row); it
+//   walks the BK-key kv tiles and keeps dQ in registers. BK is 64, and 32 at
+//   Dh 256.
+// - K10's exact skips: a tile pair whose segment-id ranges do not meet
+//   (seg_tile_range_kernel over BK-row tiles; a query tile's range is the
+//   union of the BQ / BK entries that cover its rows), or that lies wholly
+//   above the diagonal under causal, holds no allowed pair and is not
 //   visited. At ColSmol's 17-tile vision (T 17408, a segment per 1024-patch
 //   tile) 16 of 272 tiles are live per tile.
+//
+// The f32 instances (flash_bwd_dkv_kernel, flash_bwd_dq_kernel) run on the
+// CUDA cores, bounded by f32 FMAs (67 TFLOP/s; B4 does 8 * Dh flops per
+// allowed pair and head, B5 6 * Dh):
 // - 256 threads as 16 x 16. Step A (S and dP of a tile pair): thread (ty, tx)
 //   owns rows of the tile that stays (BK / 16 keys in B4, 4 queries in B5)
 //   and columns tx + 16c of the tile that walks (4 of the 64 queries in B4,
@@ -61,44 +62,83 @@
 //   plus, where Dh is not a multiple of 64, column 64 * (Dh / 64) + tx: at Dh
 //   72 that fifth column reads the zero columns 72..79 for tx >= 8 and is
 //   stored only for tx < 8, as K10's forward does; at Dh 80 it is a real
-//   column for every tx. Every sum runs in a fixed
-//   order (head dim ascending in step A, rows ascending in step B, then group
-//   heads and tiles ascending), so a call's result does not depend on
-//   scheduling.
+//   column for every tx. Sums run head dim ascending in step A, rows
+//   ascending in step B, then group heads and tiles ascending.
 // - Step A computes P first and dP after it, reading P back from shared
 //   memory, so that one patch of logits is live at a time beside the
 //   accumulators (with S and dP live together the Dh 64 instances spilled at
 //   128 registers).
+// - Shared memory (f32 tiles, then lse, di and segment ids; a byte a walked
+//   tile for the live flags follows, at most 16 KB at MAX_BWD_T): Dh 64 (LD
+//   68) B4 105,472 bytes, B5 88,064, two blocks an SM (__launch_bounds__(256,
+//   2), B4's loops not unrolled, DKV_UNROLL); Dh 72 and 80 (LD 84) B4 121,856,
+//   B5 104,448, one block an SM (at most 255 registers); Dh 128 (LD 132) B4
+//   171,008 with 4 keys x 8 columns of dK and of dV a thread, B5 153,600; Dh
+//   256 (BK 32, LD 260) B4 217,984 with 2 keys x 16 columns, B5 209,792.
 //
-// Shared memory (f32 tiles, then lse, di and segment ids; a byte a walked tile
-// for the live flags follows, at most 16 KB at MAX_BWD_T):
-//   Dh  64 (BK 64, LD 68): B4 K, V, Q, dO [64][68] and P^T, dS^T [64][68]:
-//     105,472 bytes; B5 Q, dO, K, V [64][68] and dS [64][68]: 88,064 bytes.
-//     Two blocks an SM (__launch_bounds__(256, 2): at most 128 registers;
-//     B4's loops are not unrolled, DKV_UNROLL, or its f32 instance spills).
-//   Dh  72 and 80 (DHP 80, BK 64, LD 84): B4 121,856 bytes, one block an SM;
-//     B5 104,448 bytes. Both ask for one block an SM (at most 255
-//     registers): the fifth column adds 8 (B4) or 4 (B5) accumulators a
-//     thread to the Dh 64 instances' 126-128 registers. Dh 80 is Dh 72's
-//     body with no padded column: the fifth column is stored by every thread.
-//   Dh 128 (BK 64, LD 132, 8 columns a thread in step B): B4 K, V, Q, dO
-//     [64][132] and P^T, dS^T [64][68]: 171,008 bytes, each thread 4 keys x 8
-//     columns of dK and of dV (64 accumulators, as at Dh 256); B5 153,600
-//     bytes. One block an SM each. At ColQwen2.5's page text (B 4, T ~1024,
-//     2 kv heads) B4's grid is 16 x 2 x 4 = 128 blocks on 132 SMs, each
-//     walking its group's 8 query heads.
-//   Dh 256 (BK 32, LD 260): at the 64-key tiles of Dh 64 B4's four row tiles
-//     alone would take 266,240 bytes of the 232,448 a block may have, and its
-//     dK and dV 128 f32 registers a thread. So the kv tile is 32 keys, as in
-//     K10's forward at Dh 256: B4 K, V [32][260], Q, dO [64][260] and P^T,
-//     dS^T [32][68]: 217,984 bytes, each thread 2 keys x 16 columns of dK and
-//     of dV (64 accumulators); B5 Q, dO [64][260], K, V [32][260] and dS
-//     [64][36]: 209,792 bytes. One block an SM each. At ColPali's page text
-//     (B 4, T 1088, one kv head) B4's grid is 34 x 1 x 4 = 136 blocks on 132
-//     SMs.
+// The bf16 instances (flash_bwd_dkv_mma_kernel, flash_bwd_dq_mma_kernel) run
+// their five products on the tensor cores: mma.sync m16n8k16 with bf16
+// operands and f32 accumulation (mma_tiles.cuh, which also gives the fragment
+// layout). What bounds them on the H100: the tensor cores' 989 TFLOP/s in
+// bf16 against 67 on the CUDA cores; mma.sync reaches a part of that (wgmma,
+// TMA and warp specialisation are later work), and the blocks a wave holds.
+// - 256 threads, 8 warps; a warp owns 16 rows of every product. S and dP of
+//   the bf16 inputs are exact products summed in f32. Before dV = P^T dO,
+//   dK = dS^T Q and dQ = dS K each f32 value x of P or dS is written as hi =
+//   bf16(x) and lo = bf16(x - hi) and both go through the tensor cores into
+//   the same accumulator: |x - hi - lo| <= 2^-18 |x|, so one pass holds
+//   BWD_TOL where one bf16 rounding (the library's) would miss its floor on
+//   near-zero elements. That is 8 products where the math has 5.
+// - B4: warp w owns keys 16 (w / WPG) .. +15 (WPG = 8 / (BK / 16) warps a
+//   key group: 2, or 4 at Dh 256). Step A: it computes S^T = K Q^T and dP^T
+//   = V dO^T for its keys and QW = 64 / WPG queries (K from ldmatrix as A,
+//   Q and dO rows as B), makes P^T and dS^T = P^T (dP^T - di) in registers
+//   and stores them as hi and lo bf16 tiles [BK][72] in shared memory. Step
+//   B: the same warp takes P^T (dS^T) rows as A by ldmatrix and dO (Q) as B
+//   by ldmatrix.trans, for its keys and NTB n8 tiles of the head dim (4 at
+//   Dh 64, 5 at Dh 72 and 80, 8 at 128 and 256): 8 NTB f32 accumulators of
+//   dK and dV a thread (32, 40, 40, 64, 64), never all Dh columns. At Dh 72
+//   the tenth n8 tile reads the zero columns 72..79 and is not stored.
+// - B5: warp w owns query rows 16 (w % 4) .. +15 and keys KW (w / 4) .. +KW-1
+//   of each kv tile (KW = BK / 2). S = Q K^T and dP = dO V^T (Q, dO as A, K,
+//   V rows as B) stay in registers; P and dS = P (dP - di) are made there,
+//   and two adjacent 16 x 8 C tiles of dS, as hi and lo bf16 pairs, are
+//   exactly one A fragment of dQ += dS K (K by ldmatrix.trans): dS never
+//   goes through shared memory. A thread holds Dh / 2 dQ accumulators (32,
+//   36, 40, 64, 128); at Dh 128 a warp takes its 32 keys as two passes of 16
+//   (MmaCfg::CK), or S and dP beside them spill under two blocks' 128
+//   registers. At the end the two key halves meet in shared memory and warps
+//   0-3 write half 0 + half 1.
+// - Tiles sit in shared memory in bf16, rows of LDB = DHP + 8 (144, 176, 176,
+//   272 or 528 bytes: 8 rows of an ldmatrix fall on distinct banks). The
+//   walked tiles (B4: Q, dO, lse, di and query segments; B5: K, V and key
+//   segments) are double buffered by cp.async: tile n + 1 is copied while
+//   tile n is computed. Rows at or past t_len and, at Dh 72, the columns
+//   72..79 that its fifth k-step reads are zero-filled by the copies
+//   themselves, so Dh 72 loads as Dh 80 does (with the pad written once at
+//   the start instead, its B4 spilled under 128 registers).
+// - Shared memory with the live flags at MAX_BWD_T: B4 (K, V, two buffers of
+//   Q and dO, four [BK][72] P/dS tiles) Dh 64 102,144 bytes, Dh 72/80
+//   114,432, both two blocks an SM (at most 128 registers); Dh 128 151,296
+//   and Dh 256 197,248, one (at most 255). B5 (Q, dO, two buffers of K and
+//   V) Dh 64 64,768, Dh 72/80 77,056, Dh 128 113,920, two blocks an SM; Dh
+//   256 152,576, one. Every instance has 0 spill bytes (ptxas -v).
+// - B4's head group split: where the grid (kv tile, kv head, batch row) has
+//   fewer than two waves of blocks (2 x the SMs x the blocks an SM) and the
+//   group is larger than 1, the group is cut into `splits` slices, the least
+//   divisor of the group (at most MAX_SPLITS, 8) that reaches two waves. The
+//   grid's y is then (kv head, slice): each block sums its slice's query
+//   heads in ascending order into an f32 partial dK / dV in the scratch
+//   ([splits, B, T, Hkv, Dh] each, after the range table), and
+//   flash_bwd_dkv_reduce_kernel adds the slices in ascending order, scales
+//   dK by sm_scale and writes bf16. No atomics: two calls give the same bits.
+//   At ColQwen2.5's page text (B 4, T ~1024, 16 on 2) the 128 blocks become
+//   512 (4 slices, 33.5 MB of scratch); at ColPali's (B 4, T 1088, 8 on 1)
+//   136 become 272 (2 slices, 17.8 MB).
 #include <math_constants.h>
 
 #include "flash_common.cuh"
+#include "mma_tiles.cuh"
 
 namespace vrt_fa {
 
@@ -502,19 +542,486 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
+// ---- the bf16 instances: tensor-core tiles (module comment) ----------------------
+
+using bf16 = __nv_bfloat16;
+
+template <int DH>
+struct MmaCfg {
+  static constexpr int DHP = BwdCfg<DH>::DHP;  // head dim padded to a k-step of 16 (72 -> 80)
+  static constexpr int LDB = DHP + 8;          // bf16 row stride of the Q, dO, K and V tiles
+  static constexpr int BK = BwdCfg<DH>::BK;    // keys a kv tile (the range table's tile)
+  static constexpr int QPK = BQ / BK;
+  static constexpr int LDP = BQ + 8;           // bf16 row stride of B4's P^T and dS^T
+  // B4: warp w owns keys 16 (w / WPG) .. +15; in step A queries QW (w % WPG) .. +QW-1,
+  // in step B the NTB n8 tiles of the head dim from NTB (w % WPG)
+  static constexpr int WPG = 8 / (BK / 16);   // warps a 16-key group: 2, or 4 at Dh 256
+  static constexpr int QW = BQ / WPG;         // 32 or 16
+  static constexpr int NTB = DHP / 8 / WPG;   // 4, 5 (72, 80), 8 (128, 256)
+  // B5: warp w owns query rows 16 (w % 4) .. +15 and keys KW (w / 4) .. +KW-1 of each tile
+  static constexpr int KW = BK / 2;           // 32, or 16 at Dh 256
+  static constexpr int NTQ = DH / 8;          // n8 tiles of dQ: 8, 9, 10, 16, 32
+  // keys a B5 warp takes in one pass: 16 at Dh 128, whose 64 dQ accumulators spilled
+  // beside 32 keys' S and dP under the 128 registers of two blocks an SM
+  static constexpr int CK = DH == 128 ? 16 : KW;
+  // the least blocks an SM (shared memory below; B4 holds 8 NTB dK/dV accumulators a
+  // thread, B5 DH / 2 of dQ)
+  static constexpr int DKV_MIN_BLOCKS = DH <= 80 ? 2 : 1;
+  static constexpr int DQ_MIN_BLOCKS = DH <= 128 ? 2 : 1;
+  static constexpr size_t TILE = sizeof(bf16) * LDB;  // bytes of a tile row
+  static constexpr size_t SMEM_DKV = TILE * (2 * BK + 4 * BQ) + sizeof(bf16) * 4 * BK * LDP +
+                                     sizeof(float) * 4 * BQ + sizeof(int) * (2 * BQ + BK);
+  static constexpr size_t SMEM_DQ =
+      TILE * (2 * BQ + 4 * BK) + sizeof(float) * 2 * BQ + sizeof(int) * (BQ + 2 * BK);
+  static_assert(sizeof(float) * 128 * 4 * NTQ <= TILE * 4 * BK,
+                "B5's two dQ halves meet in its K and V buffers");
+};
+
+// Rows [row0, row0 + ROWS) of one head (DH bf16 each) into dst[r * LDB ..] by
+// 16-byte cp.async, DHP columns a row: rows at or past t_len and the columns DH..DHP
+// (Dh 72: its fifth k-step and tenth n8 tile read them) are zero-filled, reading
+// nothing (their source is the row's, or row 0's, first chunk).
+template <int DH, int ROWS>
+__device__ __forceinline__ void cp_rows(const bf16* __restrict__ base, long long row_stride,
+                                        int row0, int t_len, bf16* __restrict__ dst) {
+  constexpr int LDB = MmaCfg<DH>::LDB, CPR = MmaCfg<DH>::DHP / 8, TOTAL = ROWS * CPR;
+  for (int idx = threadIdx.x; idx < TOTAL; idx += THREADS) {
+    const int r = idx / CPR, c = idx % CPR;
+    const bool in = row0 + r < t_len, full = in && c < DH / 8;
+    cp_async_16(dst + r * LDB + c * 8,
+                base + (in ? row0 + r : 0) * row_stride + (full ? c * 8 : 0), full);
+  }
+}
+
+__device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat162 h) {
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// (x0, x1) as a bf16 pair hi + lo: hi = bf16(x), lo = bf16(x - hi), so |x - hi -
+// lo| <= 2^-18 |x| (module comment).
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 f = __bfloat1622float2(h);
+  hi = bf16_bits(h);
+  lo = bf16_bits(__floats2bfloat162_rn(x0 - f.x, x1 - f.y));
+}
+
+// acc[n] += the warp's 16-row x 16k A fragment (as hi and lo) times B[k0..k0+15][n0 +
+// 8n ..] for N n8 tiles, B from a [k][n] bf16 tile of row stride LD by ldmatrix.trans.
+template <int N, int LD>
+__device__ __forceinline__ void mma_rows_split(float (&acc)[N][4], const uint32_t (&ahi)[4],
+                                               const uint32_t (&alo)[4],
+                                               const bf16* __restrict__ b, int k0, int n0) {
+  const int lane = threadIdx.x & 31;
+  const bf16* row = b + (k0 + (lane & 15)) * LD + n0 + (lane >> 4) * 8;
+#pragma unroll
+  for (int n = 0; n + 1 < N; n += 2) {
+    uint32_t f[4];
+    ldsm_x4_trans(f, row + n * 8);
+    mma_bf16_16816(acc[n], ahi, f[0], f[1]);
+    mma_bf16_16816(acc[n], alo, f[0], f[1]);
+    mma_bf16_16816(acc[n + 1], ahi, f[2], f[3]);
+    mma_bf16_16816(acc[n + 1], alo, f[2], f[3]);
+  }
+  if constexpr (N % 2 == 1) {
+    uint32_t f[2];
+    ldsm_x2_trans(f, b + (k0 + (lane & 15)) * LD + n0 + (N - 1) * 8);
+    mma_bf16_16816(acc[N - 1], ahi, f[0], f[1]);
+    mma_bf16_16816(acc[N - 1], alo, f[0], f[1]);
+  }
+}
+
+// acc[n] = rows r0..r0+15 of `a` . rows n0 + 8n .. of `b` over the DHP columns
+// (both [row][d] bf16 tiles of row stride LD): S or dP of a warp, N n8 tiles.
+template <int N, int DHP, int LD>
+__device__ __forceinline__ void mma_dots(float (&acc)[N][4], const bf16* __restrict__ a, int r0,
+                                         const bf16* __restrict__ b, int n0) {
+  static_assert(N % 2 == 0, "n8 tiles in pairs");
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int n = 0; n < N; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const bf16* arow = a + (r0 + (lane & 15)) * LD + (lane >> 4) * 8;
+  const bf16* brow = b + (n0 + (lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int k = 0; k < DHP; k += 16) {
+    uint32_t fa[4];
+    ldsm_x4(fa, arow + k);
+#pragma unroll
+    for (int n = 0; n < N; n += 2) {
+      uint32_t fb[4];
+      ldsm_x4(fb, brow + n * 8 * LD + k);
+      mma_bf16_16816(acc[n], fa, fb[0], fb[1]);
+      mma_bf16_16816(acc[n + 1], fa, fb[2], fb[3]);
+    }
+  }
+}
+
+// B4 in bf16 on the tensor cores: dK and dV of one BK-key tile of one kv head,
+// summed over one slice of its group's query heads (module comment). With part
+// set, the unscaled f32 sums go to part (slice-major [splits, B, T, Hkv, DH],
+// then dV's) for flash_bwd_dkv_reduce_kernel; else dk and dv are written.
+template <int DH>
+__global__ void __launch_bounds__(THREADS, MmaCfg<DH>::DKV_MIN_BLOCKS)
+flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const int* __restrict__ seg, const int2* __restrict__ tile_range,
+                         const float* __restrict__ lse, const float* __restrict__ di,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ part,
+                         int t_len, int n_qt, int n_kt, int hq, int hkv, int group, int splits,
+                         Strides qs, Strides ks, Strides vs, Strides os, int causal,
+                         float sm_scale) {
+  using C = MmaCfg<DH>;
+  constexpr int LDB = C::LDB, BK = C::BK, LDP = C::LDP, QPK = C::QPK, WPG = C::WPG, QW = C::QW,
+                NTB = C::NTB;
+  extern __shared__ __align__(16) float smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem);  // [BK][LDB]
+  bf16* v_s = k_s + BK * LDB;                 // [BK][LDB]
+  bf16* q_s = v_s + BK * LDB;                 // [2][BQ][LDB]: two buffers
+  bf16* do_s = q_s + 2 * BQ * LDB;            // [2][BQ][LDB]
+  bf16* p_s = do_s + 2 * BQ * LDB;            // [4][BK][LDP]: P^T hi, lo; dS^T hi, lo
+  float* lse_s = reinterpret_cast<float*>(p_s + 4 * BK * LDP);  // [2][BQ]
+  float* di_s = lse_s + 2 * BQ;                                  // [2][BQ]
+  int* qseg_s = reinterpret_cast<int*>(di_s + 2 * BQ);           // [2][BQ]
+  int* kseg_s = qseg_s + 2 * BQ;                                 // [BK]
+  unsigned char* live_s = reinterpret_cast<unsigned char*>(kseg_s + BK);  // [n_qt]
+
+  const int kt = blockIdx.x, kvh = blockIdx.y / splits, slice = blockIdx.y % splits;
+  const int b = blockIdx.z, k0 = kt * BK, per = group / splits;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int* segb = seg + static_cast<size_t>(b) * t_len;
+  const int2* rb = tile_range + static_cast<size_t>(b) * n_kt;
+  // the live query tiles, as in flash_bwd_dkv_kernel
+  const int first = causal ? k0 / BQ : 0;
+  const int2 kr = rb[kt];
+  for (int j = tid; j < n_qt; j += THREADS) {
+    int2 r = rb[j * QPK];
+#pragma unroll
+    for (int e = 1; e < QPK; ++e) {
+      if (j * QPK + e < n_kt) {
+        const int2 s = rb[j * QPK + e];
+        r = make_int2(min(r.x, s.x), max(r.y, s.y));
+      }
+    }
+    live_s[j] = j >= first && !(r.y < kr.x || r.x > kr.y);
+  }
+  cp_rows<DH, BK>(k + b * ks.b + kvh * ks.h, ks.t, k0, t_len, k_s);
+  cp_rows<DH, BK>(v + b * vs.b + kvh * vs.h, vs.t, k0, t_len, v_s);
+  if (tid < BK) cp_async_4(kseg_s + tid, segb + (k0 + tid < t_len ? k0 + tid : 0), k0 + tid < t_len);
+  cp_async_commit();
+  __syncthreads();  // the live flags
+
+  // the walk: (head hi of the slice, live query tile qt), heads then tiles ascending
+  auto advance = [&](int& hi, int& qt) {
+    for (;;) {
+      if (++qt >= n_qt) {
+        qt = first;
+        if (++hi >= per) return;
+      }
+      if (live_s[qt]) return;
+    }
+  };
+  // Q, dO, lse, di and the query segments of (hi, qt) into buffer `buf`
+  auto issue = [&](int hi, int qt, int buf) {
+    const int h = kvh * group + slice * per + hi, q0 = qt * BQ;
+    cp_rows<DH, BQ>(q + b * qs.b + h * qs.h, qs.t, q0, t_len, q_s + buf * BQ * LDB);
+    cp_rows<DH, BQ>(dout + b * os.b + h * os.h, os.t, q0, t_len, do_s + buf * BQ * LDB);
+    const int i = tid & (BQ - 1), row = q0 + i < t_len ? q0 + i : 0;
+    const size_t lrow = (static_cast<size_t>(b) * hq + h) * t_len + row;
+    if (tid < BQ) cp_async_4(lse_s + buf * BQ + i, lse + lrow, q0 + i < t_len);
+    else if (tid < 2 * BQ) cp_async_4(di_s + buf * BQ + i, di + lrow, q0 + i < t_len);
+    else if (tid < 3 * BQ) cp_async_4(qseg_s + buf * BQ + i, segb + row, q0 + i < t_len);
+  };
+
+  const int kg = warp / WPG, wq = warp % WPG;
+  const int g = lane >> 2, t = lane & 3, kr0 = 16 * kg + g;  // this thread's keys: kr0, kr0 + 8
+  float dk_acc[NTB][4], dv_acc[NTB][4];
+#pragma unroll
+  for (int n = 0; n < NTB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  int hi = 0, qt = first - 1, buf = 0;
+  advance(hi, qt);
+  if (hi < per) issue(hi, qt, 0);
+  cp_async_commit();
+  while (hi < per) {
+    int hn = hi, qn = qt;
+    advance(hn, qn);
+    if (hn < per) issue(hn, qn, buf ^ 1);  // the next tile's copies overlap this one
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int q0 = qt * BQ;
+    const bf16* qb = q_s + buf * BQ * LDB;
+    const bf16* ob = do_s + buf * BQ * LDB;
+    const float* lb = lse_s + buf * BQ;
+    const float* dib = di_s + buf * BQ;
+    const int* qsb = qseg_s + buf * BQ;
+
+    // step A: S^T = K Q^T and dP^T = V dO^T for keys 16 kg.. and queries QW wq..; P^T and
+    // dS^T = P^T (dP^T - di) as bf16 pairs into shared memory
+    {
+      float s[QW / 8][4], dp[QW / 8][4];
+      mma_dots<QW / 8, C::DHP, LDB>(s, k_s, 16 * kg, qb, QW * wq);
+      mma_dots<QW / 8, C::DHP, LDB>(dp, v_s, 16 * kg, ob, QW * wq);
+#pragma unroll
+      for (int n = 0; n < QW / 8; ++n) {
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int key = kr0 + 8 * h2, kp = k0 + key, kseg = kseg_s[key];
+          float pv[2], dsv[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int i = QW * wq + 8 * n + 2 * t + c, qpos = q0 + i;
+            const bool ok = qpos < t_len && kp < t_len && qsb[i] == kseg && (!causal || kp <= qpos);
+            pv[c] = ok ? expf(s[n][2 * h2 + c] * sm_scale - lb[i]) : 0.f;
+            dsv[c] = pv[c] * (dp[n][2 * h2 + c] - dib[i]);
+          }
+          const int at = key * LDP + QW * wq + 8 * n + 2 * t;
+          uint32_t hi_bits, lo_bits;
+          split_bf16(pv[0], pv[1], hi_bits, lo_bits);
+          *reinterpret_cast<uint32_t*>(p_s + at) = hi_bits;
+          *reinterpret_cast<uint32_t*>(p_s + BK * LDP + at) = lo_bits;
+          split_bf16(dsv[0], dsv[1], hi_bits, lo_bits);
+          *reinterpret_cast<uint32_t*>(p_s + 2 * BK * LDP + at) = hi_bits;
+          *reinterpret_cast<uint32_t*>(p_s + 3 * BK * LDP + at) = lo_bits;
+        }
+      }
+    }
+    __syncthreads();
+
+    // step B: dV += P^T dO and dK += dS^T Q for keys 16 kg.. and the NTB n8 tiles of
+    // the head dim from NTB wq; queries ascending, hi then lo
+#pragma unroll
+    for (int kq = 0; kq < BQ; kq += 16) {
+      const bf16* arow = p_s + (16 * kg + (lane & 15)) * LDP + kq + (lane >> 4) * 8;
+      uint32_t ahi[4], alo[4];
+      ldsm_x4(ahi, arow);
+      ldsm_x4(alo, arow + BK * LDP);
+      mma_rows_split<NTB, LDB>(dv_acc, ahi, alo, ob, kq, 8 * NTB * wq);
+      ldsm_x4(ahi, arow + 2 * BK * LDP);
+      ldsm_x4(alo, arow + 3 * BK * LDP);
+      mma_rows_split<NTB, LDB>(dk_acc, ahi, alo, qb, kq, 8 * NTB * wq);
+    }
+    __syncthreads();  // the next tile overwrites this buffer's neighbour and P^T, dS^T
+    hi = hn;
+    qt = qn;
+    buf ^= 1;
+  }
+  cp_async_wait<0>();
+
+  // dk, dv are contiguous [B, T, Hkv, DH]; the partial sums [splits][B, T, Hkv, DH]
+  const size_t n_out = static_cast<size_t>(gridDim.z) * t_len * hkv * DH;
+#pragma unroll
+  for (int n = 0; n < NTB; ++n) {
+    const int col = 8 * (NTB * wq + n) + 2 * t;
+    if (col >= DH) continue;  // Dh 72: the zero columns 72..79
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int kp = k0 + kr0 + 8 * h2;
+      if (kp >= t_len) continue;
+      const size_t at = ((static_cast<size_t>(b) * t_len + kp) * hkv + kvh) * DH + col;
+      const float k0v = dk_acc[n][2 * h2], k1v = dk_acc[n][2 * h2 + 1];
+      const float v0v = dv_acc[n][2 * h2], v1v = dv_acc[n][2 * h2 + 1];
+      if (part == nullptr) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+            __floats2bfloat162_rn(k0v * sm_scale, k1v * sm_scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) = __floats2bfloat162_rn(v0v, v1v);
+      } else {
+        float* pk = part + slice * n_out + at;
+        *reinterpret_cast<float2*>(pk) = make_float2(k0v, k1v);
+        *reinterpret_cast<float2*>(pk + splits * n_out) = make_float2(v0v, v1v);
+      }
+    }
+  }
+}
+
+// B4's second pass where the group is split: dk = sm_scale * (sum of the slices'
+// dK, slices ascending), dv the same unscaled; n elements each, 4 a thread.
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkv_reduce_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
+                            bf16* __restrict__ dv, long long n, int splits, float sm_scale) {
+  const long long i = (static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x) * 4;
+  if (i >= n) return;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
+  for (int s = 0; s < splits; ++s) {
+    const float4 x = *reinterpret_cast<const float4*>(part + s * n + i);
+    const float4 y = *reinterpret_cast<const float4*>(part + (splits + s) * n + i);
+    a = make_float4(a.x + x.x, a.y + x.y, a.z + x.z, a.w + x.w);
+    c = make_float4(c.x + y.x, c.y + y.y, c.z + y.z, c.w + y.w);
+  }
+  Vec<bf16>::store4(dk + i, a.x * sm_scale, a.y * sm_scale, a.z * sm_scale, a.w * sm_scale);
+  Vec<bf16>::store4(dv + i, c.x, c.y, c.z, c.w);
+}
+
+// B5 in bf16 on the tensor cores: dQ of one 64-row query tile of one head
+// (module comment).
+template <int DH>
+__global__ void __launch_bounds__(THREADS, MmaCfg<DH>::DQ_MIN_BLOCKS)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const int* __restrict__ seg, const int2* __restrict__ tile_range,
+                        const float* __restrict__ lse, const float* __restrict__ di,
+                        bf16* __restrict__ dq, int t_len, int n_kt, int hq, int group,
+                        Strides qs, Strides ks, Strides vs, Strides os, int causal,
+                        float sm_scale) {
+  using C = MmaCfg<DH>;
+  constexpr int LDB = C::LDB, BK = C::BK, QPK = C::QPK, KW = C::KW, NTQ = C::NTQ;
+  extern __shared__ __align__(16) float smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);  // [BQ][LDB]
+  bf16* do_s = q_s + BQ * LDB;                // [BQ][LDB]
+  bf16* k_s = do_s + BQ * LDB;                // [2][BK][LDB]: two buffers
+  bf16* v_s = k_s + 2 * BK * LDB;             // [2][BK][LDB]
+  float* lse_s = reinterpret_cast<float*>(v_s + 2 * BK * LDB);  // [BQ]
+  float* di_s = lse_s + BQ;                                      // [BQ]
+  int* qseg_s = reinterpret_cast<int*>(di_s + BQ);               // [BQ]
+  int* kseg_s = qseg_s + BQ;                                     // [2][BK]
+  unsigned char* live_s = reinterpret_cast<unsigned char*>(kseg_s + 2 * BK);  // [n_kt]
+
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, q0 = qt * BQ;
+  const int kvh = h / group;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int* segb = seg + static_cast<size_t>(b) * t_len;
+  const int2* rb = tile_range + static_cast<size_t>(b) * n_kt;
+  // the live kv tiles, as in flash_bwd_dq_kernel
+  const int q_last = min(n_kt - 1, qt * QPK + QPK - 1);
+  int2 qr = rb[qt * QPK];
+  for (int j = qt * QPK + 1; j <= q_last; ++j) {
+    const int2 r = rb[j];
+    qr = make_int2(min(qr.x, r.x), max(qr.y, r.y));
+  }
+  const int last = causal ? q_last + 1 : n_kt;
+  for (int j = tid; j < last; j += THREADS) {
+    const int2 r = rb[j];
+    live_s[j] = !(r.y < qr.x || r.x > qr.y);
+  }
+  cp_rows<DH, BQ>(q + b * qs.b + h * qs.h, qs.t, q0, t_len, q_s);
+  cp_rows<DH, BQ>(dout + b * os.b + h * os.h, os.t, q0, t_len, do_s);
+  {
+    const int i = tid & (BQ - 1), row = q0 + i < t_len ? q0 + i : 0;
+    const size_t lrow = (static_cast<size_t>(b) * hq + h) * t_len + row;
+    if (tid < BQ) cp_async_4(lse_s + i, lse + lrow, q0 + i < t_len);
+    else if (tid < 2 * BQ) cp_async_4(di_s + i, di + lrow, q0 + i < t_len);
+    else if (tid < 3 * BQ) cp_async_4(qseg_s + i, segb + row, q0 + i < t_len);
+  }
+  cp_async_commit();
+  __syncthreads();  // the live flags
+
+  const bf16* kb = k + b * ks.b + kvh * ks.h;
+  const bf16* vb = v + b * vs.b + kvh * vs.h;
+  auto next_live = [&](int j) {
+    while (++j < last && !live_s[j]) {
+    }
+    return j;
+  };
+  // K, V and the key segments of kv tile jt into buffer `buf`
+  auto issue = [&](int jt, int buf) {
+    const int k0 = jt * BK;
+    cp_rows<DH, BK>(kb, ks.t, k0, t_len, k_s + buf * BK * LDB);
+    cp_rows<DH, BK>(vb, vs.t, k0, t_len, v_s + buf * BK * LDB);
+    if (tid < BK)
+      cp_async_4(kseg_s + buf * BK + tid, segb + (k0 + tid < t_len ? k0 + tid : 0),
+                 k0 + tid < t_len);
+  };
+
+  const int wr = warp & 3, kh = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  float dq_acc[NTQ][4];
+#pragma unroll
+  for (int n = 0; n < NTQ; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
+
+  int jt = next_live(-1), buf = 0;
+  if (jt < last) issue(jt, 0);
+  cp_async_commit();
+  while (jt < last) {
+    const int jn = next_live(jt);
+    if (jn < last) issue(jn, buf ^ 1);  // the next tile's copies overlap this one
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int k0 = jt * BK;
+    const bf16* kt_s = k_s + buf * BK * LDB;
+    const bf16* vt_s = v_s + buf * BK * LDB;
+    const int* ksb = kseg_s + buf * BK;
+
+    // S = Q K^T and dP = dO V^T for rows 16 wr.. and keys KW kh.., CK at a time; then P
+    // and dS = P (dP - di) in registers, which are dQ's A fragments: dQ += dS K, keys
+    // ascending, hi then lo
+#pragma unroll 1
+    for (int c0 = KW * kh; c0 < KW * (kh + 1); c0 += C::CK) {
+      float s[C::CK / 8][4], dp[C::CK / 8][4];
+      mma_dots<C::CK / 8, C::DHP, LDB>(s, q_s, 16 * wr, kt_s, c0);
+      mma_dots<C::CK / 8, C::DHP, LDB>(dp, do_s, 16 * wr, vt_s, c0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 16 * wr + g + 8 * (e >> 1), qpos = q0 + i, qseg = qseg_s[i];
+        const float li = lse_s[i], dii = di_s[i];
+#pragma unroll
+        for (int n = 0; n < C::CK / 8; ++n) {
+          const int j = c0 + 8 * n + 2 * t + (e & 1), kp = k0 + j;
+          const bool ok = qpos < t_len && kp < t_len && ksb[j] == qseg && (!causal || kp <= qpos);
+          const float p = ok ? expf(s[n][e] * sm_scale - li) : 0.f;
+          dp[n][e] = p * (dp[n][e] - dii);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < C::CK / 16; ++kk) {
+        uint32_t ahi[4], alo[4];
+        split_bf16(dp[2 * kk][0], dp[2 * kk][1], ahi[0], alo[0]);
+        split_bf16(dp[2 * kk][2], dp[2 * kk][3], ahi[1], alo[1]);
+        split_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1], ahi[2], alo[2]);
+        split_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3], ahi[3], alo[3]);
+        mma_rows_split<NTQ, LDB>(dq_acc, ahi, alo, kt_s, c0 + 16 * kk, 0);
+      }
+    }
+    __syncthreads();  // the next tile overwrites this buffer's neighbour
+    jt = jn;
+    buf ^= 1;
+  }
+  cp_async_wait<0>();
+
+  // the two key halves meet in the K and V buffers: warps 4..7 put their sums there,
+  // warps 0..3 add them to theirs (half 0 + half 1) and write dq [B, T, Hq, DH]
+  float* red = reinterpret_cast<float*>(k_s);
+  if (kh == 1) {
+#pragma unroll
+    for (int n = 0; n < NTQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[(4 * n + e) * 128 + tid - 128] = dq_acc[n][e];
+  }
+  __syncthreads();
+  if (kh == 0) {
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int qpos = q0 + 16 * wr + g + 8 * h2;
+      if (qpos >= t_len) continue;
+      bf16* row = dq + ((static_cast<size_t>(b) * t_len + qpos) * hq + h) * DH;
+#pragma unroll
+      for (int n = 0; n < NTQ; ++n) {
+        const float x = dq_acc[n][2 * h2] + red[(4 * n + 2 * h2) * 128 + tid];
+        const float y = dq_acc[n][2 * h2 + 1] + red[(4 * n + 2 * h2 + 1) * 128 + tid];
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * n + 2 * t) =
+            __floats2bfloat162_rn(x * sm_scale, y * sm_scale);
+      }
+    }
+  }
+}
+
 struct BwdArgs {
   const void *q, *k, *v, *dout;
   const int* seg;
   int2* ranges;
   const float *lse, *di;
-  int batch, t_len, hq, hkv;
+  int device, batch, t_len, hq, hkv;
   Strides qs, ks, vs, os;
   int causal;
   float sm_scale;
   cudaStream_t stream;
 };
 
-// B5 when dq is set, else B4 (dk, dv), at one head dim: the range table over
+// f32 B5 when dq is set, else B4 (dk, dv), at one head dim: the range table over
 // BK-row tiles first, then the kernel.
 template <typename T, int DH>
 cudaError_t launch_bwd(const BwdArgs& a, void* dq, void* dk, void* dv) {
@@ -537,19 +1044,103 @@ cudaError_t launch_bwd(const BwdArgs& a, void* dq, void* dk, void* dv) {
                        a.hkv, a.hq / a.hkv, a.qs, a.ks, a.vs, a.os, a.causal, a.sm_scale);
 }
 
-template <typename T>
-cudaError_t launch_bwd_dh(int dh, const BwdArgs& a, void* dq, void* dk, void* dv) {
+constexpr int MAX_SPLITS = 8;  // slices of a head group in bf16 B4, at most
+
+// The slices bf16 B4 splits each kv head's group into: the least divisor of the
+// group (at most MAX_SPLITS) at which the grid has two waves of blocks on the
+// card's SMs, else the largest such divisor; 1 where the group is 1.
+template <int DH>
+int dkv_splits(int device, int batch, int t_len, int hq, int hkv) {
+  const int group = hq / hkv, bk = MmaCfg<DH>::BK;
+  int sms = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    sms = 132;
+  const long long blocks = static_cast<long long>((t_len + bk - 1) / bk) * hkv * batch;
+  const long long want = 2LL * sms * MmaCfg<DH>::DKV_MIN_BLOCKS;
+  int splits = 1;
+  for (int c = 2; c <= group && c <= MAX_SPLITS && blocks * splits < want; ++c)
+    if (group % c == 0) splits = c;
+  return splits;
+}
+
+int dkv_splits_dh(int dh, int device, int batch, int t_len, int hq, int hkv) {
   switch (dh) {
     case 64:
-      return launch_bwd<T, 64>(a, dq, dk, dv);
+      return dkv_splits<64>(device, batch, t_len, hq, hkv);
     case 72:
-      return launch_bwd<T, 72>(a, dq, dk, dv);
+      return dkv_splits<72>(device, batch, t_len, hq, hkv);
     case 80:
-      return launch_bwd<T, 80>(a, dq, dk, dv);
+      return dkv_splits<80>(device, batch, t_len, hq, hkv);
     case 128:
-      return launch_bwd<T, 128>(a, dq, dk, dv);
+      return dkv_splits<128>(device, batch, t_len, hq, hkv);
+    default:
+      return dkv_splits<256>(device, batch, t_len, hq, hkv);
+  }
+}
+
+// The range table's share of the scratch: batch * ceil(t_len / 32) int2, rounded
+// up to 256 bytes; in bf16 B4 with a split group the f32 partial dK and dV follow,
+// 2 * splits * batch * t_len * hkv * dh floats.
+size_t ranges_bytes(int batch, int t_len) {
+  return (sizeof(int2) * batch * ((t_len + 31) / 32) + 255) / 256 * 256;
+}
+
+size_t parts_bytes(int splits, int batch, int t_len, int hkv, int dh) {
+  return splits == 1 ? 0
+                     : sizeof(float) * 2 * splits * batch * static_cast<size_t>(t_len) * hkv * dh;
+}
+
+// bf16 B5 when dq is set, else B4 (with its reduction where the group is split).
+template <int DH>
+cudaError_t launch_bwd_mma(const BwdArgs& a, void* dq, void* dk, void* dv) {
+  using C = MmaCfg<DH>;
+  const int n_qt = (a.t_len + BQ - 1) / BQ, n_kt = (a.t_len + C::BK - 1) / C::BK;
+  cudaError_t err =
+      launch_seg_tile_range(a.seg, a.t_len, n_kt, C::BK, a.batch, a.ranges, a.stream);
+  if (err != cudaSuccess) return err;
+  const bf16 *q = static_cast<const bf16*>(a.q), *k = static_cast<const bf16*>(a.k),
+             *v = static_cast<const bf16*>(a.v), *dout = static_cast<const bf16*>(a.dout);
+  const int2* ranges = a.ranges;
+  if (dq != nullptr)
+    return launch_kernel(flash_bwd_dq_mma_kernel<DH>, BwdCfg<DH>::smem_bytes(C::SMEM_DQ, n_kt),
+                         dim3(n_qt, a.hq, a.batch), a.stream, q, k, v, dout, a.seg, ranges,
+                         a.lse, a.di, static_cast<bf16*>(dq), a.t_len, n_kt, a.hq,
+                         a.hq / a.hkv, a.qs, a.ks, a.vs, a.os, a.causal, a.sm_scale);
+  const int splits = dkv_splits<DH>(a.device, a.batch, a.t_len, a.hq, a.hkv);
+  float* part = splits == 1 ? nullptr
+                            : reinterpret_cast<float*>(reinterpret_cast<char*>(a.ranges) +
+                                                       ranges_bytes(a.batch, a.t_len));
+  err = launch_kernel(flash_bwd_dkv_mma_kernel<DH>, BwdCfg<DH>::smem_bytes(C::SMEM_DKV, n_qt),
+                      dim3(n_kt, a.hkv * splits, a.batch), a.stream, q, k, v, dout, a.seg, ranges,
+                      a.lse, a.di, static_cast<bf16*>(dk), static_cast<bf16*>(dv), part, a.t_len,
+                      n_qt, n_kt, a.hq, a.hkv, a.hq / a.hkv, splits, a.qs, a.ks, a.vs, a.os,
+                      a.causal, a.sm_scale);
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long n = static_cast<long long>(a.batch) * a.t_len * a.hkv * DH;
+  return launch_kernel(flash_bwd_dkv_reduce_kernel, 0,
+                       dim3(static_cast<unsigned>((n / 4 + THREADS - 1) / THREADS)), a.stream,
+                       static_cast<const float*>(part), static_cast<bf16*>(dk),
+                       static_cast<bf16*>(dv), n, splits, a.sm_scale);
+}
+
+// f32 on the CUDA cores, bf16 on the tensor cores, at one head dim.
+template <int DH>
+cudaError_t launch_bwd_at(int dtype, const BwdArgs& a, void* dq, void* dk, void* dv) {
+  return dtype == 0 ? launch_bwd<float, DH>(a, dq, dk, dv) : launch_bwd_mma<DH>(a, dq, dk, dv);
+}
+
+cudaError_t launch_bwd_dh(int dh, int dtype, const BwdArgs& a, void* dq, void* dk, void* dv) {
+  switch (dh) {
+    case 64:
+      return launch_bwd_at<64>(dtype, a, dq, dk, dv);
+    case 72:
+      return launch_bwd_at<72>(dtype, a, dq, dk, dv);
+    case 80:
+      return launch_bwd_at<80>(dtype, a, dq, dk, dv);
+    case 128:
+      return launch_bwd_at<128>(dtype, a, dq, dk, dv);
     case 256:
-      return launch_bwd<T, 256>(a, dq, dk, dv);
+      return launch_bwd_at<256>(dtype, a, dq, dk, dv);
     default:
       return cudaErrorInvalidValue;
   }
@@ -569,12 +1160,11 @@ int bwd(int device, int dtype, const void* q, const void* k, const void* v, cons
   if (set != cudaSuccess) return static_cast<int>(set);
   const long long* s = strides;
   const BwdArgs a{q, k, v, dout, static_cast<const int*>(seg), static_cast<int2*>(tile_range),
-                  static_cast<const float*>(lse), static_cast<const float*>(di), batch, t_len,
-                  hq, hkv, Strides{s[0], s[1], s[2]}, Strides{s[3], s[4], s[5]},
+                  static_cast<const float*>(lse), static_cast<const float*>(di), device, batch,
+                  t_len, hq, hkv, Strides{s[0], s[1], s[2]}, Strides{s[3], s[4], s[5]},
                   Strides{s[6], s[7], s[8]}, Strides{s[9], s[10], s[11]}, causal, sm_scale,
                   static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(dtype == 0 ? launch_bwd_dh<float>(dh, a, dq, dk, dv)
-                                     : launch_bwd_dh<__nv_bfloat16>(dh, a, dq, dk, dv));
+  return static_cast<int>(launch_bwd_dh(dh, dtype, a, dq, dk, dv));
 }
 
 }  // namespace vrt_fa
@@ -588,7 +1178,8 @@ int bwd(int device, int dtype, const void* q, const void* k, const void* v, cons
 // [batch, hq, t_len] contiguous. dk, dv [batch, t_len, hkv, dh] (B4) and dq
 // [batch, t_len, hq, dh] (B5) contiguous, written in full. dh must be 64, 72,
 // 80, 128 or 256, t_len at most MAX_BWD_T and hq a multiple of hkv. Return the
-// cudaError_t of the launches.
+// cudaError_t of the launches. B4's tile_range must hold
+// vrt_flash_attention_bwd_dkv_scratch bytes, 256-byte aligned.
 extern "C" int vrt_flash_attention_bwd_dkv(int device, int dtype, const void* q, const void* k,
                                            const void* v, const void* dout, const void* seg,
                                            void* tile_range, const void* lse, const void* di,
@@ -597,6 +1188,18 @@ extern "C" int vrt_flash_attention_bwd_dkv(int device, int dtype, const void* q,
                                            float sm_scale, void* stream) {
   return vrt_fa::bwd(device, dtype, q, k, v, dout, seg, tile_range, lse, di, nullptr, dk, dv,
                      batch, t_len, hq, hkv, dh, strides, causal, sm_scale, stream);
+}
+
+// The scratch bytes vrt_flash_attention_bwd_dkv needs at these arguments: the
+// range table, and in bf16 the f32 partial sums of a split head group.
+extern "C" long long vrt_flash_attention_bwd_dkv_scratch(int device, int dtype, int batch,
+                                                         int t_len, int hq, int hkv, int dh) {
+  const size_t ranges = vrt_fa::ranges_bytes(batch, t_len);
+  if (dtype != 1 || !vrt_fa::is_head_dim(dh) || hkv <= 0 || hq % hkv != 0 || batch <= 0 ||
+      t_len <= 0)
+    return static_cast<long long>(ranges);  // f32, or arguments the launch refuses
+  const int splits = vrt_fa::dkv_splits_dh(dh, device, batch, t_len, hq, hkv);
+  return static_cast<long long>(ranges + vrt_fa::parts_bytes(splits, batch, t_len, hkv, dh));
 }
 
 extern "C" int vrt_flash_attention_bwd_dq(int device, int dtype, const void* q, const void* k,

@@ -94,6 +94,8 @@ def _declare_flash(lib):
     lib.vrt_flash_attention_bwd_dq.argtypes = (
         [i32, i32] + [vp] * 9 + [i32] * 5 + [strides, i32, ctypes.c_float, vp])
     lib.vrt_flash_attention_bwd_dq.restype = i32
+    lib.vrt_flash_attention_bwd_dkv_scratch.argtypes = [i32] * 7
+    lib.vrt_flash_attention_bwd_dkv_scratch.restype = ctypes.c_longlong
 
 
 def load_library():

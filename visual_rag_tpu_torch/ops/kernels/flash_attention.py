@@ -33,8 +33,12 @@ the output is in the input dtype, and a row with no allowed key is zeros.
 - Each kernel wrapper counts its launches (``.launches``): the serving
   forward in ``flash_attention.launches``, the forward that saves lse in
   ``flash_attention_fwd.launches``.
-- Declared difference: the backward keeps P and dS in f32 where the library
-  rounds them to the input dtype before its products.
+- Declared difference: the library rounds P and dS to the input dtype before
+  its products. The f32 backward keeps them in f32; the bf16 backward (B4
+  and B5 on the tensor cores) feeds them in as a bf16 pair hi + lo, about
+  16 significant bits. In bf16, B4 may split each kv head's group of query
+  heads over more blocks; its scratch (the range table, then the slices'
+  f32 partial sums) is sized by ``vrt_flash_attention_bwd_dkv_scratch``.
 """
 
 from __future__ import annotations
@@ -163,13 +167,18 @@ def _launch_backward(which: str, q, k, v, seg, do, lse, di, causal, scale):
     if b == 0 or t == 0:
         return outs
     seg = seg.contiguous()
-    ranges = torch.empty((b, -(-t // MIN_KV_TILE), 2), dtype=torch.int32, device=q.device)
+    lib = _build.load_library()
+    if which == "dkv":  # the range table, and bf16's partial sums of a split head group
+        scratch = torch.empty(lib.vrt_flash_attention_bwd_dkv_scratch(
+            q.device.index, _DTYPE_CODES[q.dtype], b, t, hq, k.shape[2], dh),
+            dtype=torch.uint8, device=q.device)
+    else:
+        scratch = torch.empty((b, -(-t // MIN_KV_TILE), 2), dtype=torch.int32, device=q.device)
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                        *do.stride()[:3])
-    lib = _build.load_library()
     fn = lib.vrt_flash_attention_bwd_dkv if which == "dkv" else lib.vrt_flash_attention_bwd_dq
     err = fn(q.device.index, _DTYPE_CODES[q.dtype], ptr(q), ptr(k), ptr(v), ptr(do), ptr(seg),
-             ptr(ranges), ptr(lse), ptr(di), *(ptr(x) for x in outs), b, t, hq, k.shape[2], dh,
+             ptr(scratch), ptr(lse), ptr(di), *(ptr(x) for x in outs), b, t, hq, k.shape[2], dh,
              strides, int(bool(causal)), scale, stream_ptr(q.device))
     _build.check(err, f"flash_attention_bwd_{which} launch")
     (flash_attention_bwd_dkv if which == "dkv" else flash_attention_bwd_dq).launches += 1

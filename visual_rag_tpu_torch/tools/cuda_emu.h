@@ -1,26 +1,42 @@
 // A CPU model of the CUDA launch, for running the kernels of csrc/ under g++
 // (tools/emulate_kernels.py). It checks indexing, not speed:
-// - a block's threads are std::threads; __syncthreads is a std::barrier over
-//   the block; the blocks of a grid run one after another;
+// - a block's threads are fibers (ucontext) that one OS thread runs in turn,
+//   thread 0 first: __syncthreads is a switch to the next fiber, so a pass over
+//   the block takes every thread from one barrier to the next (the kernels
+//   here reach every barrier with every thread); the blocks of a grid run one
+//   after another. A run is deterministic, and a barrier costs one pass of
+//   context switches, not a wake-up of 256 OS threads;
 // - __shfl_xor_sync goes through a block-wide buffer between two barriers, so
 //   every thread of the block must reach it, as in the kernels here;
 // - dynamic shared memory is a fresh heap buffer of exactly the launch's size,
 //   filled with NaN: a read of a word no thread wrote shows in the output, and
 //   under -fsanitize=address a read past the end stops the run;
-// - bf16 converts with round-to-nearest-even, fmaf is std::fma, as on the card.
+// - bf16 converts with round-to-nearest-even, fmaf is std::fma, as on the card;
+// - the tensor-core building blocks of csrc/mma_tiles.cuh (mma.sync m16n8k16 in
+//   bf16 with f32 accumulation, ldmatrix plain and .trans, cp.async): mma and
+//   ldmatrix exchange fragments (or row addresses) through a block-wide buffer
+//   after a barrier, as __shfl_xor_sync does, so every thread of the block must
+//   reach them, as in the kernels; cp.async is a synchronous copy that honours
+//   src-size (zeros where it is 0), and commit_group / wait_group do nothing.
 // emulate_kernels.py rewrites each `k<<<grid, block, smem, stream>>>(args)` into
 // emu_launch(dim3(grid), block, smem, k, args) and `extern __shared__ ... smem[]`
-// into a pointer to the launch's buffer.
+// into a pointer to the launch's buffer, and builds the kernels with this file
+// in place of csrc/mma_tiles.cuh.
 #pragma once
+#include <ucontext.h>
+
 #include <algorithm>
-#include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <functional>
 #include <limits>
-#include <thread>
+#include <memory>
 #include <vector>
+#if defined(__SANITIZE_ADDRESS__)
+#include <sanitizer/common_interface_defs.h>
+#endif
 
 #define __global__
 #define __device__
@@ -50,7 +66,12 @@ inline int2 make_int2(int a, int b) { return {a, b}; }
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 2 };
+enum {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 2,
+  cudaDevAttrMultiProcessorCount = 3
+};
 constexpr int EMU_MAX_SMEM = 232448;  // the H100's dynamic shared memory a block
 template <typename K>
 cudaError_t cudaFuncSetAttribute(K, int, int bytes) {
@@ -58,19 +79,63 @@ cudaError_t cudaFuncSetAttribute(K, int, int bytes) {
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* value, int, int) {
+  *value = 132;  // the H100 SXM's SMs
+  return cudaSuccess;
+}
 
-inline thread_local dim3 threadIdx;
-inline dim3 blockIdx, blockDim, gridDim;
-inline std::barrier<>* emu_barrier = nullptr;
+inline dim3 threadIdx, blockIdx, blockDim, gridDim;  // threadIdx: the running fiber's
 inline float* emu_smem = nullptr;
 inline float emu_shfl[1024];
 
-inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+// The fibers of the running block, and the context of the launch that runs them.
+struct EmuFiber {
+  ucontext_t ctx;
+  bool done;
+};
+inline EmuFiber emu_fibers[1024];
+inline ucontext_t emu_launcher;
+inline std::function<void()> emu_body;  // the kernel with its arguments
+// the stack that a switch goes to, for AddressSanitizer's fiber annotations
+inline const void* emu_launcher_stack = nullptr;
+inline size_t emu_launcher_stack_size = 0;
+
+inline void emu_start_switch(void** fake_stack, const void* bottom, size_t size) {
+#if defined(__SANITIZE_ADDRESS__)
+  __sanitizer_start_switch_fiber(fake_stack, bottom, size);
+#else
+  (void)fake_stack, (void)bottom, (void)size;
+#endif
+}
+
+inline void emu_finish_switch(void* fake_stack, const void** bottom, size_t* size) {
+#if defined(__SANITIZE_ADDRESS__)
+  __sanitizer_finish_switch_fiber(fake_stack, bottom, size);
+#else
+  (void)fake_stack, (void)bottom, (void)size;
+#endif
+}
+
+// A barrier: back to the launch, which runs the other threads up to theirs.
+inline void __syncthreads() {
+  void* fake = nullptr;
+  emu_start_switch(&fake, emu_launcher_stack, emu_launcher_stack_size);
+  swapcontext(&emu_fibers[threadIdx.x].ctx, &emu_launcher);
+  emu_finish_switch(fake, &emu_launcher_stack, &emu_launcher_stack_size);
+}
+
+inline void emu_fiber_main() {
+  emu_finish_switch(nullptr, &emu_launcher_stack, &emu_launcher_stack_size);
+  emu_body();
+  emu_fibers[threadIdx.x].done = true;
+  emu_start_switch(nullptr, emu_launcher_stack, emu_launcher_stack_size);  // this fiber ends
+}
+
 inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   const int t = threadIdx.x;
-  emu_barrier->arrive_and_wait();
+  __syncthreads();
   emu_shfl[t] = v;
-  emu_barrier->arrive_and_wait();
+  __syncthreads();
   return emu_shfl[(t & ~31) | ((t & 31) ^ lane_mask)];
 }
 inline float fmaf(float a, float b, float c) { return std::fma(a, b, c); }
@@ -100,10 +165,83 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
   return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)};
 }
 
+// The tensor-core building blocks (csrc/mma_tiles.cuh). A call publishes this
+// thread's words in one of two slots, which alternate from call to call, and
+// waits for the block; it then reads the words of its warp's lanes. One barrier
+// suffices: a thread can rewrite a slot only after the next call's barrier,
+// which every thread reaches after reading this call's.
+inline uint64_t emu_xchg[2][1024][6];
+inline unsigned emu_xchg_calls[1024];  // a thread's calls in this block
+
+inline uint64_t (*emu_exchange(const uint64_t* words, int n))[6] {
+  uint64_t(*slot)[6] = emu_xchg[emu_xchg_calls[threadIdx.x]++ & 1];
+  std::memcpy(slot[threadIdx.x], words, sizeof(uint64_t) * n);
+  __syncthreads();
+  return slot;
+}
+
+inline float emu_bf16_half(uint64_t word, int high) {
+  return emu_bf16_to_float({uint16_t(word >> (16 * high))});
+}
+
+// d += a b over the warp's fragments (layout in csrc/mma_tiles.cuh); each D
+// element is summed exactly in double (the products of bf16 are exact) and
+// rounded to f32 once.
+inline void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  const uint64_t words[6] = {a[0], a[1], a[2], a[3], b0, b1};
+  uint64_t(*slot)[6] = emu_exchange(words, 6);
+  const int warp = threadIdx.x & ~31, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + 8 * (i >> 1), col = 2 * t + (i & 1);
+    double acc = d[i];
+    for (int k = 0; k < 16; ++k) {
+      // A[row][k]: lane (row % 8, (k % 8) / 2), register row / 8 + 2 (k / 8), half k % 2
+      const float x = emu_bf16_half(
+          slot[warp + (row & 7) * 4 + ((k & 7) >> 1)][(row >> 3) + 2 * (k >> 3)], k & 1);
+      // B[k][col]: lane (col, (k % 8) / 2), register k / 8, half k % 2
+      const float y = emu_bf16_half(slot[warp + col * 4 + ((k & 7) >> 1)][4 + (k >> 3)], k & 1);
+      acc += double(x) * double(y);
+    }
+    d[i] = float(acc);
+  }
+}
+
+// ldmatrix m8n8 of N matrices (b16), transposed if TRANS.
+template <int N, bool TRANS>
+inline void emu_ldsm(uint32_t* r, const void* p) {
+  const uint64_t words[1] = {reinterpret_cast<uintptr_t>(p)};
+  uint64_t(*slot)[6] = emu_exchange(words, 1);
+  const int warp = threadIdx.x & ~31, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  auto at = [&](int i, int row, int col) {
+    return uint32_t(reinterpret_cast<const uint16_t*>(slot[warp + 8 * i + row][0])[col]);
+  };
+  for (int i = 0; i < N; ++i)
+    r[i] = TRANS ? at(i, 2 * t, g) | at(i, 2 * t + 1, g) << 16
+                 : at(i, g, 2 * t) | at(i, g, 2 * t + 1) << 16;
+}
+inline void ldsm_x4(uint32_t (&r)[4], const void* p) { emu_ldsm<4, false>(r, p); }
+inline void ldsm_x4_trans(uint32_t (&r)[4], const void* p) { emu_ldsm<4, true>(r, p); }
+inline void ldsm_x2_trans(uint32_t (&r)[2], const void* p) { emu_ldsm<2, true>(r, p); }
+
+inline void cp_async_16(void* dst, const void* src, bool full) {
+  if (full) std::memcpy(dst, src, 16);
+  else std::memset(dst, 0, 16);
+}
+inline void cp_async_4(void* dst, const void* src, bool full) {
+  if (full) std::memcpy(dst, src, 4);
+  else std::memset(dst, 0, 4);
+}
+inline void cp_async_commit() {}
+template <int N>
+inline void cp_async_wait() {}
+
 template <typename K, typename... Args>
 void emu_launch(dim3 grid, int threads, size_t smem, K kernel, Args... args) {
+  constexpr size_t STACK = 1 << 18;  // bytes of a fiber's stack
   gridDim = grid;
   blockDim = dim3(threads);
+  emu_body = [=]() { kernel(args...); };
+  std::unique_ptr<char[]> stacks(new char[STACK * threads]);
   const size_t words = (smem + 3) / 4;
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
@@ -111,14 +249,27 @@ void emu_launch(dim3 grid, int threads, size_t smem, K kernel, Args... args) {
         blockIdx = dim3(x, y, z);
         std::vector<float> buf(words, std::numeric_limits<float>::quiet_NaN());
         emu_smem = buf.data();
-        std::barrier<> bar(threads);
-        emu_barrier = &bar;
-        std::vector<std::thread> team;
-        for (int t = 0; t < threads; ++t)
-          team.emplace_back([=]() {
+        for (int t = 0; t < threads; ++t) {
+          EmuFiber& f = emu_fibers[t];
+          getcontext(&f.ctx);
+          f.ctx.uc_stack.ss_sp = stacks.get() + STACK * t;
+          f.ctx.uc_stack.ss_size = STACK;
+          f.ctx.uc_link = &emu_launcher;
+          makecontext(&f.ctx, emu_fiber_main, 0);
+          f.done = false;
+          emu_xchg_calls[t] = 0;
+        }
+        for (int alive = threads; alive > 0;) {  // passes over the block, thread 0 first
+          alive = 0;
+          for (int t = 0; t < threads; ++t) {
+            if (emu_fibers[t].done) continue;
             threadIdx = dim3(t);
-            kernel(args...);
-          });
-        for (auto& th : team) th.join();
+            void* fake = nullptr;
+            emu_start_switch(&fake, stacks.get() + STACK * t, STACK);
+            swapcontext(&emu_launcher, &emu_fibers[t].ctx);
+            emu_finish_switch(fake, nullptr, nullptr);
+            alive += !emu_fibers[t].done;
+          }
+        }
       }
 }

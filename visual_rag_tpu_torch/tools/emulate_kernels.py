@@ -4,20 +4,29 @@
 
 compiles ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` with
 g++ against ``tools/cuda_emu.h`` (a CPU model of the CUDA launch: threads,
-barriers, shuffles, NaN-filled shared memory of the launch's exact size) into
-``build/kernels/emu/``, points the wrappers of
+barriers, shuffles, NaN-filled shared memory of the launch's exact size, and
+of the tensor-core building blocks of ``csrc/mma_tiles.cuh``: ``mma.sync``
+m16n8k16 in bf16 with the PTX fragment layout, ``ldmatrix`` plain and
+``.trans``, ``cp.async`` with zero-fill) into ``build/kernels/emu/``, points
+the wrappers of
 ``ops/kernels/flash_attention.py`` at that library for CPU tensors, and holds
 K10 (serving and with lse), B4 and B5 against their plain versions in f32
 and bf16, at the limits of ``chip_smoke.py`` (``K10_TOL``, ``BWD_TOL``,
 ``LSE_ATOL``). Each case is ``DH,T,HQ,HKV,CAUSAL,TILE`` (TILE: rows a
 segment, or None for two segments; then pads), as in
 ``tests/test_torch_port_cuda.py``; the default cases cover every instance.
+In bf16 the grouped cases split B4's head groups over more blocks, as
+``csrc/flash_attention_bwd.cu`` does on the H100's 132 SMs (the last two at
+the 8-head groups of ColPali's and ColQwen2.5's text).
 ``--asan`` builds with AddressSanitizer, which must be preloaded:
 ``LD_PRELOAD=$(gcc -print-file-name=libasan.so) ASAN_OPTIONS=detect_leaks=0``.
 
 It checks indexing, tile skips and numerics before a kernel's first call on
 the card; it says nothing of registers, spills, speed or whether nvcc takes
-the source. Small shapes only: a block's 256 threads are OS threads.
+the source. Small shapes only: a block's 256 threads are fibers that one OS
+thread runs in turn, and every ``mma``, ``ldmatrix`` and barrier is a pass
+of context switches over the block. Each line also says how many slices bf16
+B4 split each head group into.
 """
 
 from __future__ import annotations
@@ -33,7 +42,8 @@ ROOT = Path(__file__).resolve().parents[2]
 SOURCES = ("flash_common.cuh", "flash_attention.cu", "flash_attention_bwd.cu")
 CASES = ((64, 130, 3, 1, True, None), (72, 150, 4, 4, False, None), (72, 200, 2, 2, True, 64),
          (80, 100, 2, 2, False, None), (80, 200, 2, 2, False, 64), (128, 90, 4, 2, True, None),
-         (256, 100, 8, 1, False, None), (256, 150, 2, 1, True, 40))
+         (256, 100, 8, 1, False, None), (256, 150, 2, 1, True, 40),
+         (256, 150, 8, 1, False, None), (128, 300, 16, 2, True, None))
 
 
 def emulated_source(text: str) -> str:
@@ -53,13 +63,14 @@ def build(asan: bool) -> Path:
     for name in SOURCES:
         text = (ROOT / "visual_rag_tpu_torch" / "csrc" / name).read_text()
         (out / "src" / name).write_text(emulated_source(text))
-    for header in ("cuda_runtime.h", "cuda_bf16.h", "math_constants.h"):
+    # the CUDA headers, and the tensor-core building blocks, are cuda_emu.h's models
+    for header in ("cuda_runtime.h", "cuda_bf16.h", "math_constants.h", "mma_tiles.cuh"):
         (out / "src" / header).write_text('#pragma once\n#include "cuda_emu.h"\n')
     (out / "src" / "errors.cpp").write_text(
         'extern "C" const char* vrt_error_string(int) { return "emulated launch refused"; }\n')
     lib = out / ("libemu_asan.so" if asan else "libemu.so")
     flags = ["-fsanitize=address", "-fno-omit-frame-pointer"] if asan else []
-    cmd = ["g++", "-std=c++20", "-O2", "-g", "-fPIC", "-shared", "-pthread",
+    cmd = ["g++", "-std=c++20", "-O2", "-g", "-fPIC", "-shared",
            "-fno-strict-aliasing", *flags, "-I", str(out / "src"),
            "-I", str(Path(__file__).resolve().parent), "-o", str(lib), "-x", "c++",
            str(out / "src" / "flash_attention.cu"), str(out / "src" / "flash_attention_bwd.cu"),
@@ -76,7 +87,7 @@ def use_library(lib_path: Path):
     lib = ctypes.CDLL(str(lib_path))
     _build._declare_flash(lib)
     for fn in (lib.vrt_flash_attention, lib.vrt_flash_attention_bwd_dkv,
-               lib.vrt_flash_attention_bwd_dq):
+               lib.vrt_flash_attention_bwd_dq, lib.vrt_flash_attention_bwd_dkv_scratch):
         fn.argtypes = [ctypes.c_void_p, *fn.argtypes[1:]]  # a CPU tensor's device index: None
     lib.vrt_error_string.argtypes = [ctypes.c_int]
     lib.vrt_error_string.restype = ctypes.c_char_p
@@ -84,6 +95,20 @@ def use_library(lib_path: Path):
     fa.on_cpu = lambda t: False
     fa.stream_ptr = lambda device: ctypes.c_void_p(None)
     return fa
+
+
+def b4_slices(dtype, b, t, hq, hkv, dh) -> int:
+    """The slices B4 splits each head group into at these arguments: its scratch
+    beyond the range table holds two f32 partial sums of dk's size a slice."""
+    import torch
+
+    from visual_rag_tpu_torch.ops.kernels import _build
+
+    code = 0 if dtype == torch.float32 else 1
+    scratch = _build.load_library().vrt_flash_attention_bwd_dkv_scratch(
+        None, code, b, t, hq, hkv, dh)
+    ranges = (8 * b * -(-t // 32) + 255) // 256 * 256
+    return max(1, (scratch - ranges) // (2 * 4 * b * t * hkv * dh))
 
 
 def check(fa, dh, t, hq, hkv, causal, tile) -> bool:
@@ -133,8 +158,8 @@ def check(fa, dh, t, hq, hkv, causal, tile) -> bool:
         ok &= good
         print(f"Dh {dh} T {t} heads {hq}/{hkv} {'causal' if causal else 'segments'} tile {tile}"
               f" {dt}: " + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
-              + f" of the limit ({time.perf_counter() - t0:.1f} s) {'ok' if good else 'FAIL'}",
-              flush=True)
+              + f" of the limit; B4 in {b4_slices(dtype, 2, t, hq, hkv, dh)} slices"
+              f" ({time.perf_counter() - t0:.1f} s) {'ok' if good else 'FAIL'}", flush=True)
     return ok
 
 

@@ -35,6 +35,16 @@ def sass_by_kernel(text: str) -> dict:
     return out
 
 
+def library_sass(path) -> dict:
+    """``sass_by_kernel`` of a built object or shared library, by ``cuobjdump -sass``
+    from the toolkit of the build's nvcc."""
+    from visual_rag_tpu_torch.ops.kernels._build import find_nvcc
+
+    cuobjdump = str(Path(find_nvcc()).parent / "cuobjdump")
+    return sass_by_kernel(subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True,
+                                         text=True, check=True).stdout)
+
+
 def ptxas_by_kernel(log: str) -> dict:
     out, entry = {}, None
     for line in log.splitlines():
@@ -50,7 +60,6 @@ def main(source: str, trees: dict) -> int:
     from visual_rag_tpu_torch.ops.kernels._build import BUILD_DIR, NVCC_FLAGS, find_nvcc
 
     nvcc = find_nvcc()
-    cuobjdump = str(Path(nvcc).parent / "cuobjdump")
     out = BUILD_DIR / "sass"
     out.mkdir(parents=True, exist_ok=True)
     procs = {tag: subprocess.Popen(
@@ -64,9 +73,7 @@ def main(source: str, trees: dict) -> int:
             print(f"{tag}: nvcc failed ({proc.returncode})\n{log}")
             return 1
         ptxas[tag] = ptxas_by_kernel(log)
-        dump = subprocess.run([cuobjdump, "-sass", str(out / f"{tag}.o")], capture_output=True,
-                              text=True, check=True).stdout
-        sass[tag] = sass_by_kernel(dump)
+        sass[tag] = library_sass(out / f"{tag}.o")
     first, *others = trees
     for name, code in sorted(sass[first].items()):
         verdicts = []
