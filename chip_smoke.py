@@ -5,7 +5,10 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. Header: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, then the kernels built from ``visual_rag_tpu_torch/csrc``.
+   versions, then the kernels built from ``visual_rag_tpu_torch/csrc``, with
+   the build log's ptxas lines and the library's SASS (``cuobjdump -sass``):
+   the twenty bf16 instances of K10's two forwards, B4 and B5 issue HMMA
+   (``mma.sync`` on the tensor cores), the twenty f32 ones none.
 2. Each kernel against its plain PyTorch version on the card, at the main
    path's shapes on the 3k-doc bf16 corpus (rerank: 32 queries x 200
    candidates with some -1; scan: 64 packed queries x every doc; tokens
@@ -118,8 +121,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    1024, causal); 64 queries (T 32) -- in bf16 and f32 at phase 11's
    limits, two calls bit-equal, with the CUDA-event ms of K10, the plain
    version and SDPA, and the ptxas registers and spills of the Dh 80 and
-   128 instances (0 spill bytes required). Then ColPali's model is freed
-   and, counts at 0, the main path: full-width ColQwen2.5-v0.2 in bf16
+   128 serving instances (0 spill bytes required). Then ColPali's model is
+   freed and, counts at 0, the main path: full-width ColQwen2.5-v0.2 in bf16
    (3963137408 parameters, asserted), random weights from seed 0 drawn on
    the card, embeds 32 pages of ColPali's four aspect ratios in batches of 8
    (every page padded to 4096 patches) and 64 queries in one batch, after a
@@ -147,11 +150,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    largest), two calls bit-equal and equal to the Function's. The
    CUDA-event ms of the three kernels, their plain versions and SDPA (its
    forward on inputs that need grad; its backward alone) with the same
-   boolean mask, and the ptxas lines of the six training instances and of
-   B4's reduction of a split head group (0 spill bytes required); the
-   library's SASS (``cuobjdump -sass``): the ten bf16 B4 and B5 instances
-   issue HMMA (``mma.sync`` on the tensor cores), the ten f32 ones none.
-   Then full-width
+   boolean mask, and the ptxas lines of the eight flash instances (K10's
+   two forwards, B4 and B5, f32 and bf16) and of B4's reduction of a split
+   head group (0 spill bytes required). Then full-width
    ColSmol-500M (460296512 parameters asserted; f32 master weights from
    seed 0 drawn on the card, bf16 compute), ``Trainer(lr=1e-4, warmup=0)``,
    one batch of 4 (query, page) pairs from the port's processor (17-tile
@@ -174,7 +175,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    of 72, one segment); page text, 4 pages (T 1088 of which 1028 valid, 8
    heads of 256 on one kv head, bidirectional); 4 queries (T 32) -- in bf16
    and f32: the three kernels against their plain versions as in 14a, with
-   the ptxas lines of their twelve Dh 72 and 256 instances and the
+   the ptxas lines of the sixteen Dh 72 and 256 flash instances and the
    reduction (0 spill bytes required). Then one batch of 4 (query, page)
    pairs from the port's processor (random 448 x 448 pages, 1024 patches
    each, 4 random queries);
@@ -206,10 +207,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    text, 4 pages (16 heads of 128 on 2 kv heads, causal, pads); 4 queries --
    in bf16 and f32: the three kernels against their plain versions as in
    14a, the window layer's live tile pairs beside the allowed pairs, the
-   ptxas lines of the twelve Dh 80 and 128 instances and the reduction (0
-   spill bytes required). Then at a depth cut to 8 vision layers (the eighth
-   full) + 4 text layers, which fits without remat, ``remat=False`` gives the
-   same loss and gradients as ``remat=True``. Then full-width ColQwen2.5-v0.2
+   ptxas lines of the sixteen Dh 80 and 128 flash instances and the
+   reduction (0 spill bytes required). Then at a depth cut to 8 vision
+   layers (the eighth full) + 4 text layers, which fits without remat,
+   ``remat=False`` gives the same loss and gradients as ``remat=True``. Then full-width ColQwen2.5-v0.2
    (``COLQWEN_PARAMS`` asserted; f32 master weights from seed 0 drawn on the
    card, bf16 compute, ``remat=True``), ``Trainer(lr=1e-4, warmup=0)``: a warm
    step in its two halves (the memory split, as 15b); then, counts at 0, the
@@ -228,12 +229,13 @@ TB/s and its operations over the peak rate of their type: 989 TFLOP/s bf16,
 67 TFLOP/s f32, 1979 TOP/s int8), ``bound_by``, and ``library_ms`` (SDPA for
 K10; null for the MaxSim kernels, which no single PyTorch call computes).
 K10's one entry holds every shape of phases 11, 12 and 13 under ``shapes``,
-the head dims it ran (64, 72, 80, 128, 256) and its launches on each
-embedding path; the entries of the forward that saves lse
+the head dims it ran (64, 72, 80, 128, 256), its launches on each
+embedding path and the ptxas lines and HMMA counts of its serving instances;
+the entries of the forward that saves lse
 (``flash_attention_fwd``; ``library_ms``: SDPA's forward on inputs that
 need grad), B4 and B5 (``library_ms``: SDPA's whole backward) hold the
 shapes of phases 14, 15 and 16, their ptxas lines (B4's with its reduction),
-B4's and B5's HMMA counts by instance, the head dims they ran
+their HMMA counts by instance, the head dims they ran
 (64, 72, 80, 128, 256) and their launches on each training path
 (``launches_by_path``: colsmol, colpali, colqwen2.5).
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
@@ -416,6 +418,7 @@ def main() -> None:
     for entry, lines in ptxas_report().items():  # registers and spills, by mangled name
         for line in lines:
             log(f"  ptxas {entry}: {line}")
+    hmma = flash_tensor_cores()
 
     # -- 2. kernels against their plain versions -----------------------------------
     t0 = time.perf_counter()
@@ -710,13 +713,14 @@ def main() -> None:
     colqwen = colqwen_phase(dev, card, rerank_fns, entry_points[1:])
 
     # -- 14. ColSmol-500M training: K10 with lse, B4 and B5 ---------------------------------
-    training, _ = training_phase(dev, card)
+    training, _ = training_phase(dev, card, hmma)
     k10["launches_by_path"] = {"colsmol": k10["launches"], "colpali": colpali["launches"],
                                "colqwen2.5": colqwen["launches"]}
     k10["launches"] += colpali["launches"] + colqwen["launches"]
     k10["shapes"].update(colpali["shapes"])
     k10["shapes"].update(colqwen["shapes"])
-    k10["ptxas"] = colqwen["ptxas"]
+    k10["ptxas"] = {k: v for k, v in ptxas_report().items() if serving_instance(k)}
+    k10["hmma"] = {k: v for k, v in hmma.items() if serving_instance(k)}
     k10["head_dims"] = sorted({v["shape"][4] for v in k10["shapes"].values()})
     k10["max_abs_err"] = max(v["max_abs_err"] for k, v in k10["shapes"].items() if "bf16" in k)
     k10["max_abs_err_f32"] = max(v["max_abs_err"] for k, v in k10["shapes"].items()
@@ -1755,7 +1759,7 @@ def colqwen_phase(dev, card, rerank_fns, search_fns):
         f"{live * 64 * 64} key pairs against {allowed_pair_count(window, False)} allowed")
     k10["colqwen vision window 1 page bf16"]["live_tile_pairs"] = live
     ptxas = {entry: lines for entry, lines in ptxas_report().items()
-             if "flash_fwd_kernel" in entry and ("Li80E" in entry or "Li128E" in entry)}
+             if serving_instance(entry) and ("Li80E" in entry or "Li128E" in entry)}
     if len(ptxas) != 4:  # Dh 80 and 128, f32 and bf16
         raise AssertionError(f"the build log names {len(ptxas)} K10 instances at Dh 80 and "
                              f"128, not 4: {sorted(ptxas)}")
@@ -1897,7 +1901,7 @@ def colqwen_phase(dev, card, rerank_fns, search_fns):
     torch.cuda.empty_cache()
     log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
     return {"shapes": k10, "launches": k10_launches, "pages_per_s": 32 / t_pages,
-            "queries_per_s": 64 / t_queries, "profile": prof, "ptxas": ptxas}
+            "queries_per_s": 64 / t_queries, "profile": prof}
 
 
 # (rtol, atol as a share of the tensor's largest |want|) for B4 and B5 against their plain
@@ -1917,43 +1921,52 @@ COLPALI_PARAMS = 2943532928  # ColPali-v1.3 (PaliGemma-3B), as the flax init cou
 CLI_BATCHES = (4, 2)
 
 
+def serving_instance(entry: str) -> bool:
+    """Whether a mangled kernel name is one of K10's serving instances (f32 on
+    the CUDA cores, bf16 on the tensor cores)."""
+    return "flash_fwd_kernel" in entry or "flash_fwd_mma_kernel" in entry
+
+
 def training_ptxas(head_dims) -> dict:
-    """The build log's ptxas lines of the training instances at ``head_dims``
-    (the forward that saves lse; B4 and B5 in f32, and in bf16 on the tensor
-    cores) and of B4's reduction of a split head group, logged; each must
-    spill 0 bytes."""
-    names = ("flash_bwd_dkv", "flash_bwd_dq", "flash_fwd_lse_kernel")
+    """The build log's ptxas lines of the flash instances at ``head_dims``
+    (K10's serving forward and the forward that saves lse, B4 and B5; in f32,
+    and in bf16 on the tensor cores) and of B4's reduction of a split head
+    group, logged; each must spill 0 bytes."""
+    names = ("flash_bwd_dkv", "flash_bwd_dq", "flash_fwd_")
     ptxas = {entry: lines for entry, lines in ptxas_report().items()
              if any(k in entry for k in names)
              and ("flash_bwd_dkv_reduce" in entry or any(f"Li{d}E" in entry for d in head_dims))}
-    if len(ptxas) != 6 * len(head_dims) + 1:
-        raise AssertionError(f"the build log names {len(ptxas)} training kernel instances at "
+    if len(ptxas) != 8 * len(head_dims) + 1:
+        raise AssertionError(f"the build log names {len(ptxas)} flash kernel instances at "
                              f"head dims {head_dims} and the reduction, not "
-                             f"{6 * len(head_dims) + 1}: {sorted(ptxas)}")
+                             f"{8 * len(head_dims) + 1}: {sorted(ptxas)}")
     for entry, lines in ptxas.items():
         log(f"ptxas {entry}: {'; '.join(lines)}")
         if not any("0 bytes spill stores, 0 bytes spill loads" in x for x in lines):
-            raise AssertionError(f"training kernel instance {entry} spills: {lines}")
+            raise AssertionError(f"flash kernel instance {entry} spills: {lines}")
     return ptxas
 
 
-def bwd_tensor_cores() -> dict:
-    """{B4 / B5 instance: its HMMA instructions} in the built library's SASS
-    (``cuobjdump -sass``), logged: each of the ten bf16 instances must issue
-    some (``mma.sync`` on the tensor cores), the ten f32 instances none."""
+def flash_tensor_cores() -> dict:
+    """{K10 / B4 / B5 instance: its HMMA instructions} in the built library's
+    SASS (``cuobjdump -sass``), logged: each of the twenty bf16 instances (K10's
+    serving forward and the forward that saves lse, B4 and B5, at five head
+    dims each) must issue some (``mma.sync`` on the tensor cores), the twenty
+    f32 instances none."""
     from visual_rag_tpu_torch.ops.kernels import _build
     from visual_rag_tpu_torch.tools.sass_diff import library_sass
 
     hmma = {name: sum("HMMA" in x for x in code)
             for name, code in library_sass(_build.library_path()).items()
-            if "flash_bwd_dkv_" in name and "reduce" not in name or "flash_bwd_dq_" in name}
+            if "flash_fwd_" in name or "flash_bwd_dkv_" in name and "reduce" not in name
+            or "flash_bwd_dq_" in name}
     bf16 = {n: c for n, c in hmma.items() if "_mma_kernel" in n}
-    log("HMMA instructions in the SASS of B4 and B5: "
+    log("HMMA instructions in the SASS of K10, B4 and B5: "
         + ", ".join(f"{n} {c}" for n, c in sorted(hmma.items())))
-    if len(hmma) != 20 or len(bf16) != 10 or not all(bf16.values()) or any(
+    if len(hmma) != 40 or len(bf16) != 20 or not all(bf16.values()) or any(
             c for n, c in hmma.items() if n not in bf16):
-        raise AssertionError(f"B4/B5's bf16 instances must issue HMMA and the f32 ones none: "
-                             f"{hmma}")
+        raise AssertionError(f"the flash kernels' bf16 instances must issue HMMA and the f32 "
+                             f"ones none: {hmma}")
     return hmma
 
 
@@ -2271,10 +2284,11 @@ def train_full_width(dev, card, cfg, batch, name: str, n_params_want: int):
                     "losses": losses}
 
 
-def training_phase(dev, card):
-    """Phase 14: ColSmol-500M training (module docstring). Returns the
-    kernel entries of K10's forward that saves lse, B4 and B5, and the
-    training path's end-to-end numbers."""
+def training_phase(dev, card, hmma):
+    """Phase 14: ColSmol-500M training (module docstring); ``hmma`` are the
+    flash instances' HMMA counts (phase 1). Returns the kernel entries of K10's
+    forward that saves lse, B4 and B5, and the training path's end-to-end
+    numbers."""
     import dataclasses
     import shutil
 
@@ -2301,7 +2315,6 @@ def training_phase(dev, card):
               "queries": (4, 30, 15, 5, 64, prefix_seg(dev, [30, 21, 12, 25], 30), True, 10)}
     fwd, b4, b5 = bwd_shapes(dev, card, shapes)
     ptxas = training_ptxas((64,))
-    hmma = bwd_tensor_cores()
 
     # 14b. full-width ColSmol-500M: f32 master weights from seed 0 drawn on the card,
     # bf16 compute; one batch of 4 (query, page) pairs of 17-tile pages
@@ -2425,10 +2438,9 @@ def training_phase(dev, card):
                                               "bound_by")},
                 "shapes": shapes_,
                 "ptxas": {k: v for k, v in ptxas.items() if kernel in k},
-                **({"hmma": {k: v for k, v in hmma.items() if kernel in k}}
-                   if kernel != "flash_fwd_lse_kernel" else {})}
+                "hmma": {k: v for k, v in hmma.items() if kernel in k}}
 
-    return ([entry("flash_attention_fwd", "flash_attention.cu", 758, "flash_fwd_lse_kernel", fwd),
+    return ([entry("flash_attention_fwd", "flash_attention.cu", 758, "flash_fwd_lse", fwd),
              entry("flash_attention_bwd_dkv", "flash_attention_bwd.cu", 1121, "flash_bwd_dkv",
                    b4),
              entry("flash_attention_bwd_dq", "flash_attention_bwd.cu", 1456, "flash_bwd_dq",
@@ -2443,7 +2455,7 @@ def merge_training_entries(training, paths):
     {path name: what its phase returned}): ``launches`` over every path,
     split in ``launches_by_path``; the head dims and the largest errors over
     every shape."""
-    kernel_of = {"flash_attention_fwd": ("fwd", "flash_fwd_lse_kernel"),
+    kernel_of = {"flash_attention_fwd": ("fwd", "flash_fwd_lse"),
                  "flash_attention_bwd_dkv": ("b4", "flash_bwd_dkv"),
                  "flash_attention_bwd_dq": ("b5", "flash_bwd_dq")}
     for entry in training:

@@ -32,8 +32,9 @@ K10 (flash attention), at head dims 64, 72, 80, 128 and 256: against its
 plain version in f32 and bf16, causal and not, per-tile segments with pads,
 ColQwen2.5's interleaved window segments, grouped kv heads (8 on 1 at Dh
 256, 16 on 2 at Dh 128), T not a multiple of 64, strided q/k/v views, and
-rows whose only allowed key is themselves (output = v exactly); two calls
-bit-equal; launch counts; ``mha`` on CUDA tensors raises when the kernel
+rows whose only allowed key is themselves (output = v exactly); the bf16
+instances (serving and with lse) issue HMMA (tensor cores), the f32 ones
+none; two calls bit-equal; launch counts; ``mha`` on CUDA tensors raises when the kernel
 refuses a shape (Dh 96 among them) instead of running the plain version;
 small ColSmol-, ColPali- and ColQwen2.5-shaped models on the card against
 the CPU, with one K10 launch per attention layer.
@@ -799,18 +800,18 @@ def test_flash_attention_backward_split_group_matches_plain(dev, b, t, hq, hkv, 
 
 
 def test_flash_attention_bwd_bf16_instances_use_tensor_cores(dev):
-    """The built library's SASS: every bf16 B4 and B5 instance (five head
-    dims each) issues HMMA (mma.sync on the tensor cores); the f32 instances
-    issue none."""
+    """The built library's SASS: every bf16 instance of K10's serving forward,
+    its forward that saves lse, B4 and B5 (five head dims each) issues HMMA
+    (mma.sync on the tensor cores); the f32 instances issue none."""
     from visual_rag_tpu_torch.ops.kernels import _build
     from visual_rag_tpu_torch.tools.sass_diff import library_sass
 
     _build.load_library()
     sass = library_sass(_build.library_path())
     bf16 = {n: c for n, c in sass.items() if "_mma_kernel" in n}
-    f32 = {n: c for n, c in sass.items()
-           if "flash_bwd_dkv_kernel" in n or "flash_bwd_dq_kernel" in n}
-    assert len(bf16) == 10 and len(f32) == 10, (sorted(bf16), sorted(f32))
+    f32 = {n: c for n, c in sass.items() if any(k in n for k in (
+        "flash_fwd_kernel", "flash_fwd_lse_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"))}
+    assert len(bf16) == 20 and len(f32) == 20, (sorted(bf16), sorted(f32))
     assert all(any("HMMA" in x for x in code) for code in bf16.values())
     assert not any("HMMA" in x for code in f32.values() for x in code)
 

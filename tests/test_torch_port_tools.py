@@ -4,10 +4,13 @@ ptxas text in the formats CUDA 12 prints; the source rewrite of
 the emulator's models of the tensor-core building blocks
 (``tools/cuda_emu.h``: ``mma.sync`` m16n8k16 in bf16, ``ldmatrix`` plain and
 ``.trans``, ``cp.async`` with zero-fill) against numpy on one warp, element
-by element, with the PTX ISA's fragment layout written out here; the
-emulator itself on ColQwen2.5's head dims and on a split head group (the
-CUDA sources of the lse forward, B4 and B5 run under g++ against their plain
-versions)."""
+by element, with the PTX ISA's fragment layout written out here, and
+``csrc/flash_mma.cuh``'s repacking of a logit tile's C fragments into the A
+fragment of the next product as a bf16 pair hi + lo; the emulator itself on
+ColQwen2.5's head dims and on a split head group (the CUDA sources of the lse
+forward, B4 and B5 run under g++ against their plain versions), and the bf16
+K10 (serving and with lse) on the tensor-core body at Dh 64 and 72 in this
+process."""
 
 import ctypes
 import os
@@ -19,7 +22,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from visual_rag_tpu_torch.tools.emulate_kernels import emulated_source
+from visual_rag_tpu_torch.tools.emulate_kernels import emulated_source, write_sources
 from visual_rag_tpu_torch.tools.sass_diff import ptxas_by_kernel, sass_by_kernel
 
 SASS = """
@@ -63,9 +66,9 @@ def test_emulated_source_rewrites_every_launch_and_shared_buffer():
     text = "\n".join((csrc / name).read_text() for name in (
         "flash_common.cuh", "mma_tiles.cuh", "flash_attention.cu", "flash_attention_bwd.cu"))
     # two launch sites: launch_kernel (K10, B4, B5 and B4's reduction) and the range table's
-    # kernel; five shared buffers: K10, then B4 and B5 in f32 and in bf16
+    # kernel; six shared buffers: K10, B4 and B5, each in f32 and in bf16
     launches, shared = text.count("<<<"), text.count("extern __shared__")
-    assert launches == 2 and shared == 5
+    assert launches == 2 and shared == 6
     assert "launch_kernel(flash_bwd_dkv_reduce_kernel," in text
     got = emulated_source(text)
     assert "<<<" not in got and "extern __shared__" not in got
@@ -73,11 +76,12 @@ def test_emulated_source_rewrites_every_launch_and_shared_buffer():
     assert got.count("float* smem = emu_smem;") == shared
     assert ("emu_launch(dim3((cells + 127) / 128), 128, 0, seg_tile_range_kernel, seg, t_len,"
             in got)
-    assert "emu_launch(dim3(grid), THREADS, smem, kernel, args...);" in got
+    assert "emu_launch(dim3(grid), NT, smem, kernel, args...);" in got
 
 
 PROBE = r"""
 #include "cuda_emu.h"
+#include "flash_mma.cuh"
 
 static void mma_kernel(const uint32_t* a, const uint32_t* b, const float* c, float* d) {
   const int l = threadIdx.x;
@@ -105,6 +109,30 @@ extern "C" void run_ldsm(const uint16_t* m, int ld, int kind, uint32_t* out) {
   emu_launch(dim3(1), 32, 0, ldsm_kernel, m, ld, kind, out);
 }
 
+// lane l's C fragments of two n8 tiles (c[8l..8l+3], c[8l+4..8l+7]) as the A fragment of
+// one k-step, hi and lo; then d = hi . b + lo . b, as K10's O += P V
+static void repack_kernel(const float* c, const uint32_t* b, uint32_t* hi, uint32_t* lo,
+                          float* d) {
+  const int l = threadIdx.x;
+  const float c0[4] = {c[8 * l], c[8 * l + 1], c[8 * l + 2], c[8 * l + 3]};
+  const float c1[4] = {c[8 * l + 4], c[8 * l + 5], c[8 * l + 6], c[8 * l + 7]};
+  uint32_t h[4], o[4];
+  vrt_fa::c_to_a_split(c0, c1, h, o);
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_bf16_16816(acc, h, b[2 * l], b[2 * l + 1]);
+  mma_bf16_16816(acc, o, b[2 * l], b[2 * l + 1]);
+  for (int i = 0; i < 4; ++i) {
+    hi[4 * l + i] = h[i];
+    lo[4 * l + i] = o[i];
+    d[4 * l + i] = acc[i];
+  }
+}
+
+extern "C" void run_repack(const float* c, const uint32_t* b, uint32_t* hi, uint32_t* lo,
+                           float* d) {
+  emu_launch(dim3(1), 32, 0, repack_kernel, c, b, hi, lo, d);
+}
+
 extern "C" void run_cp_async(void* dst, const void* src, int bytes, int full) {
   if (bytes == 16) cp_async_16(dst, src, full);
   else cp_async_4(dst, src, full);
@@ -116,14 +144,17 @@ extern "C" void run_cp_async(void* dst, const void* src, int bytes, int full) {
 
 @pytest.fixture(scope="module")
 def emu_models(tmp_path_factory):
-    """The models of ``tools/cuda_emu.h`` behind a small C interface, built with g++."""
+    """The models of ``tools/cuda_emu.h`` and the tile helpers of
+    ``csrc/flash_mma.cuh`` over them, behind a small C interface, built with g++."""
     if shutil.which("g++") is None:
         pytest.skip("the emulator's models compile with g++")
     out = tmp_path_factory.mktemp("emu_models")
+    write_sources(out / "src")
     (out / "probe.cpp").write_text(PROBE)
     tools = Path(__file__).resolve().parents[1] / "visual_rag_tpu_torch" / "tools"
-    subprocess.run(["g++", "-std=c++20", "-O1", "-fPIC", "-shared", "-I", str(tools), "-o",
-                    str(out / "probe.so"), str(out / "probe.cpp")], check=True, timeout=120)
+    subprocess.run(["g++", "-std=c++20", "-O1", "-fPIC", "-shared", "-I", str(out / "src"),
+                    "-I", str(tools), "-o", str(out / "probe.so"), str(out / "probe.cpp")],
+                   check=True, timeout=120)
     return ctypes.CDLL(str(out / "probe.so"))
 
 
@@ -194,6 +225,59 @@ def test_emulated_ldmatrix_matches_the_ptx_layout(emu_models, kind, n, trans):
             assert out[lane, i] == want, (lane, i)
 
 
+def _bf16_rne(x):
+    """float32 values rounded to bf16 (nearest, ties to even), as float32."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    bits = ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16 << 16).astype(np.uint32)
+    return bits.view(np.float32)
+
+
+def test_emulated_logit_repacking_is_the_a_fragment_as_hi_and_lo(emu_models):
+    """``c_to_a_split`` (``csrc/flash_mma.cuh``): a 16 x 16 f32 tile P handed
+    to the lanes as the C fragments of two n8 tiles (columns 0-7, 8-15; lane
+    (g, t) holds rows g, g + 8 and columns 2t, 2t + 1 of each) comes out, lane
+    by lane, as the A fragment of one k-step in the PTX layout, with hi =
+    bf16(P) and lo = bf16(P - hi) bit for bit; and hi . B + lo . B through the
+    emulated ``mma`` is P @ B within 2**-16 of sum |P| |B| (one bf16 rounding
+    of P alone is 2**-9). P spans 1e-8..1e2, with a few values that bf16 holds
+    exactly (lo = 0) and zeros."""
+    rng = np.random.default_rng(3)
+    p = (rng.standard_normal((16, 16)) * 10.0 ** rng.uniform(-8, 2, (16, 16))).astype(np.float32)
+    p[0, :4] = [1.0, 0.0, -0.375, 2.0 ** -20]
+    b = _bf16_rne(rng.standard_normal((16, 8)).astype(np.float32))
+    c = np.zeros((32, 8), np.float32)
+    frag_b = np.zeros((32, 2), np.uint32)
+    bb = _bf16_bits(b)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for tile in range(2):
+            cols = 8 * tile + 2 * t
+            c[lane, 4 * tile:4 * tile + 4] = (p[g, cols], p[g, cols + 1], p[g + 8, cols],
+                                              p[g + 8, cols + 1])
+        for reg, row in enumerate((2 * t, 2 * t + 8)):
+            frag_b[lane, reg] = bb[row, g] | bb[row + 1, g] << 16
+    hi, lo = np.zeros((32, 4), np.uint32), np.zeros((32, 4), np.uint32)
+    d = np.zeros((32, 4), np.float32)
+    emu_models.run_repack(_np_ptr(c), _np_ptr(frag_b), _np_ptr(hi), _np_ptr(lo), _np_ptr(d))
+    p_hi = _bf16_rne(p)
+    p_lo = _bf16_rne(p - p_hi)
+    hb, lb = _bf16_bits(p_hi), _bf16_bits(p_lo)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for reg, (row, col) in enumerate(((g, 2 * t), (g + 8, 2 * t), (g, 2 * t + 8),
+                                          (g + 8, 2 * t + 8))):
+            assert hi[lane, reg] == hb[row, col] | hb[row, col + 1] << 16, (lane, reg)
+            assert lo[lane, reg] == lb[row, col] | lb[row, col + 1] << 16, (lane, reg)
+    got = np.zeros((16, 8), np.float32)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        got[g, 2 * t], got[g, 2 * t + 1], got[g + 8, 2 * t], got[g + 8, 2 * t + 1] = d[lane]
+    p64, b64 = p.astype(np.float64), b.astype(np.float64)
+    assert (np.abs(got - p64 @ b64) <= 2.0 ** -16 * (np.abs(p64) @ np.abs(b64))).all()
+    assert not (np.abs(_bf16_rne(p).astype(np.float64) @ b64 - p64 @ b64)
+                <= 2.0 ** -16 * (np.abs(p64) @ np.abs(b64))).all()
+
+
 @pytest.mark.parametrize("nbytes", [4, 16])
 def test_emulated_cp_async_copies_or_zero_fills(emu_models, nbytes):
     """``cp_async_16`` and ``cp_async_4``: the bytes of src where src-size is
@@ -246,3 +330,64 @@ def test_emulated_backward_splits_a_head_group():
     assert len(lines) == 2 and all(x.endswith("ok") for x in lines), lines
     assert "f32:" in lines[0] and "B4 in 1 slices" in lines[0]
     assert "bf16:" in lines[1] and "B4 in 8 slices" in lines[1]
+
+
+@pytest.fixture(scope="module")
+def emulated_library(tmp_path_factory):
+    """The CUDA sources of ``csrc/`` built with g++ against ``tools/cuda_emu.h``
+    (``emulate_kernels.build``), in a directory of this module's own."""
+    if shutil.which("g++") is None:
+        pytest.skip("the emulator compiles the CUDA sources with g++")
+    from visual_rag_tpu_torch.tools.emulate_kernels import build
+
+    return build(asan=False, out=tmp_path_factory.mktemp("emu_k10"))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dh", [64, 72])
+def test_emulated_bf16_k10_tensor_core_body(emulated_library, monkeypatch, dh, causal):
+    """The bf16 K10 from the CUDA source (its tensor-core body, 4 warps of 16
+    rows, ``mma`` tiles, P as hi + lo in registers, a two-stage ``cp.async``
+    ring) at Dh 64 and Dh 72 (padded to 80 by zero-filled copies): T 150 (not
+    a multiple of 64), 4 heads on 2 kv heads read in place from strided
+    views, two segments with pads, and one row in a segment of its own,
+    whose only key is itself. The serving output holds ``K10_TOL`` against
+    the plain version, the lse forward's lse ``LSE_ATOL`` with the same -inf
+    rows, its output equals the serving one bit for bit, two calls are
+    bit-equal, and the lone row's output is its v exactly (P = 1 is hi = 1,
+    lo = 0)."""
+    import torch
+
+    from chip_smoke import K10_TOL, LSE_ATOL
+    from visual_rag_tpu_torch.ops.kernels import _build
+    from visual_rag_tpu_torch.ops.kernels import flash_attention as fa
+    from visual_rag_tpu_torch.tools.emulate_kernels import use_library
+
+    for module, name in ((_build, "load_library"), (fa, "on_cpu"), (fa, "stream_ptr")):
+        monkeypatch.setattr(module, name, getattr(module, name))  # undone after the test
+    use_library(emulated_library)
+    rng = np.random.default_rng(dh + causal)
+    b, t, hq, hkv, lone = 2, 150, 4, 2, 77
+    qkv = torch.from_numpy(rng.standard_normal((b, t, hq + 2 * hkv, dh)).astype(np.float32))
+    qkv = qkv.to(torch.bfloat16)
+    q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
+    seg = np.zeros((b, t), np.int32)
+    seg[0, :140] = 1 + (np.arange(140) >= 60)
+    seg[1, :] = 1
+    seg[0, lone] = 9  # its only allowed key is itself
+    seg = torch.from_numpy(seg)
+    before = (fa.flash_attention.launches, fa.flash_attention_fwd.launches)
+    with torch.no_grad():
+        out, again = (fa.flash_attention(q, k, v, seg, causal=causal) for _ in range(2))
+    out_lse, lse = fa.flash_attention_fwd(q, k, v, seg, causal=causal)
+    assert (fa.flash_attention.launches, fa.flash_attention_fwd.launches) == (
+        before[0] + 2, before[1] + 1)
+    want, lse_p = fa.flash_attention_fwd_plain(q, k, v, seg, causal=causal)
+    rtol, atol = K10_TOL["bf16"]
+    diff = (out.float() - want.float()).abs()
+    assert (diff <= atol + rtol * want.float().abs()).all(), float(diff.max())
+    assert torch.equal(out, again) and torch.equal(out, out_lse)
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_p))
+    fin = torch.isfinite(lse_p)
+    assert float((lse - lse_p)[fin].abs().max()) <= LSE_ATOL
+    assert torch.equal(out[0, lone], v[0, lone].repeat_interleave(hq // hkv, 0))

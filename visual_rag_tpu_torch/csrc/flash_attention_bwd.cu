@@ -79,7 +79,8 @@
 // The bf16 instances (flash_bwd_dkv_mma_kernel, flash_bwd_dq_mma_kernel) run
 // their five products on the tensor cores: mma.sync m16n8k16 with bf16
 // operands and f32 accumulation (mma_tiles.cuh, which also gives the fragment
-// layout). What bounds them on the H100: the tensor cores' 989 TFLOP/s in
+// layout; the tile products they share with K10's forward are in flash_mma.cuh).
+// What bounds them on the H100: the tensor cores' 989 TFLOP/s in
 // bf16 against 67 on the CUDA cores; mma.sync reaches a part of that (wgmma,
 // TMA and warp specialisation are later work), and the blocks a wave holds.
 // - 256 threads, 8 warps; a warp owns 16 rows of every product. S and dP of
@@ -138,7 +139,7 @@
 #include <math_constants.h>
 
 #include "flash_common.cuh"
-#include "mma_tiles.cuh"
+#include "flash_mma.cuh"
 
 namespace vrt_fa {
 
@@ -544,12 +545,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
 // ---- the bf16 instances: tensor-core tiles (module comment) ----------------------
 
-using bf16 = __nv_bfloat16;
-
 template <int DH>
 struct MmaCfg {
-  static constexpr int DHP = BwdCfg<DH>::DHP;  // head dim padded to a k-step of 16 (72 -> 80)
-  static constexpr int LDB = DHP + 8;          // bf16 row stride of the Q, dO, K and V tiles
+  static constexpr int DHP = MmaTile<DH>::DHP;  // head dim padded to a k-step of 16 (72 -> 80)
+  static constexpr int LDB = MmaTile<DH>::LDB;  // bf16 row stride of the Q, dO, K and V tiles
   static constexpr int BK = BwdCfg<DH>::BK;    // keys a kv tile (the range table's tile)
   static constexpr int QPK = BQ / BK;
   static constexpr int LDP = BQ + 8;           // bf16 row stride of B4's P^T and dS^T
@@ -576,85 +575,6 @@ struct MmaCfg {
   static_assert(sizeof(float) * 128 * 4 * NTQ <= TILE * 4 * BK,
                 "B5's two dQ halves meet in its K and V buffers");
 };
-
-// Rows [row0, row0 + ROWS) of one head (DH bf16 each) into dst[r * LDB ..] by
-// 16-byte cp.async, DHP columns a row: rows at or past t_len and the columns DH..DHP
-// (Dh 72: its fifth k-step and tenth n8 tile read them) are zero-filled, reading
-// nothing (their source is the row's, or row 0's, first chunk).
-template <int DH, int ROWS>
-__device__ __forceinline__ void cp_rows(const bf16* __restrict__ base, long long row_stride,
-                                        int row0, int t_len, bf16* __restrict__ dst) {
-  constexpr int LDB = MmaCfg<DH>::LDB, CPR = MmaCfg<DH>::DHP / 8, TOTAL = ROWS * CPR;
-  for (int idx = threadIdx.x; idx < TOTAL; idx += THREADS) {
-    const int r = idx / CPR, c = idx % CPR;
-    const bool in = row0 + r < t_len, full = in && c < DH / 8;
-    cp_async_16(dst + r * LDB + c * 8,
-                base + (in ? row0 + r : 0) * row_stride + (full ? c * 8 : 0), full);
-  }
-}
-
-__device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat162 h) {
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// (x0, x1) as a bf16 pair hi + lo: hi = bf16(x), lo = bf16(x - hi), so |x - hi -
-// lo| <= 2^-18 |x| (module comment).
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 f = __bfloat1622float2(h);
-  hi = bf16_bits(h);
-  lo = bf16_bits(__floats2bfloat162_rn(x0 - f.x, x1 - f.y));
-}
-
-// acc[n] += the warp's 16-row x 16k A fragment (as hi and lo) times B[k0..k0+15][n0 +
-// 8n ..] for N n8 tiles, B from a [k][n] bf16 tile of row stride LD by ldmatrix.trans.
-template <int N, int LD>
-__device__ __forceinline__ void mma_rows_split(float (&acc)[N][4], const uint32_t (&ahi)[4],
-                                               const uint32_t (&alo)[4],
-                                               const bf16* __restrict__ b, int k0, int n0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* row = b + (k0 + (lane & 15)) * LD + n0 + (lane >> 4) * 8;
-#pragma unroll
-  for (int n = 0; n + 1 < N; n += 2) {
-    uint32_t f[4];
-    ldsm_x4_trans(f, row + n * 8);
-    mma_bf16_16816(acc[n], ahi, f[0], f[1]);
-    mma_bf16_16816(acc[n], alo, f[0], f[1]);
-    mma_bf16_16816(acc[n + 1], ahi, f[2], f[3]);
-    mma_bf16_16816(acc[n + 1], alo, f[2], f[3]);
-  }
-  if constexpr (N % 2 == 1) {
-    uint32_t f[2];
-    ldsm_x2_trans(f, b + (k0 + (lane & 15)) * LD + n0 + (N - 1) * 8);
-    mma_bf16_16816(acc[N - 1], ahi, f[0], f[1]);
-    mma_bf16_16816(acc[N - 1], alo, f[0], f[1]);
-  }
-}
-
-// acc[n] = rows r0..r0+15 of `a` . rows n0 + 8n .. of `b` over the DHP columns
-// (both [row][d] bf16 tiles of row stride LD): S or dP of a warp, N n8 tiles.
-template <int N, int DHP, int LD>
-__device__ __forceinline__ void mma_dots(float (&acc)[N][4], const bf16* __restrict__ a, int r0,
-                                         const bf16* __restrict__ b, int n0) {
-  static_assert(N % 2 == 0, "n8 tiles in pairs");
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int n = 0; n < N; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const bf16* arow = a + (r0 + (lane & 15)) * LD + (lane >> 4) * 8;
-  const bf16* brow = b + (n0 + (lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int k = 0; k < DHP; k += 16) {
-    uint32_t fa[4];
-    ldsm_x4(fa, arow + k);
-#pragma unroll
-    for (int n = 0; n < N; n += 2) {
-      uint32_t fb[4];
-      ldsm_x4(fb, brow + n * 8 * LD + k);
-      mma_bf16_16816(acc[n], fa, fb[0], fb[1]);
-      mma_bf16_16816(acc[n + 1], fa, fb[2], fb[3]);
-    }
-  }
-}
 
 // B4 in bf16 on the tensor cores: dK and dV of one BK-key tile of one kv head,
 // summed over one slice of its group's query heads (module comment). With part
@@ -969,10 +889,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int kk = 0; kk < C::CK / 16; ++kk) {
         uint32_t ahi[4], alo[4];
-        split_bf16(dp[2 * kk][0], dp[2 * kk][1], ahi[0], alo[0]);
-        split_bf16(dp[2 * kk][2], dp[2 * kk][3], ahi[1], alo[1]);
-        split_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1], ahi[2], alo[2]);
-        split_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3], ahi[3], alo[3]);
+        c_to_a_split(dp[2 * kk], dp[2 * kk + 1], ahi, alo);
         mma_rows_split<NTQ, LDB>(dq_acc, ahi, alo, kt_s, c0 + 16 * kk, 0);
       }
     }

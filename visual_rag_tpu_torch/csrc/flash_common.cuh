@@ -1,7 +1,7 @@
 // What K10's forward (flash_attention.cu) and its backward, B4 and B5
 // (flash_attention_bwd.cu), share: the block shape, the 16-byte row loads and
-// stores of f32 and bf16, strides, and the launcher of the segment-range
-// kernel that both use for their exact tile skips.
+// stores of f32 (and bf16's 4-value store), strides, the launch, and the launcher
+// of the segment-range kernel that both use for their exact tile skips.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -11,7 +11,7 @@
 namespace vrt_fa {
 
 constexpr int BQ = 64;            // query rows a block
-constexpr int THREADS = 256;      // 16 x 16, a 4-row patch each
+constexpr int THREADS = 256;      // a block of every kernel but bf16 K10's (128)
 constexpr int MAX_TILES = 16384;  // T <= 1,048,576 (in 64-row tiles): int offsets stay in range
 // the head dims of every instance (K10's two forwards, B4 and B5): ColSmol-500M's
 // two towers (64), ColPali's SigLIP tower (72) and its Gemma text model (256),
@@ -39,19 +39,9 @@ struct Vec<float> {
   __device__ static void store1(float* p, float a) { *p = a; }
 };
 
+// bf16 tiles go through flash_mma.cuh (cp.async); B4's reduction stores 4 values at once
 template <>
 struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
   __device__ static void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
     __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
     uint2 u;
@@ -59,7 +49,6 @@ struct Vec<__nv_bfloat16> {
     u.y = *reinterpret_cast<uint32_t*>(&hi);
     *reinterpret_cast<uint2*>(p) = u;
   }
-  __device__ static void store1(__nv_bfloat16* p, float a) { *p = __float2bfloat16_rn(a); }
 };
 
 struct Strides {
@@ -67,15 +56,16 @@ struct Strides {
 };
 
 // Sets the kernel's dynamic shared-memory limit (above 48 KB it must be asked
-// for), launches it with THREADS threads a block on `stream`, and returns the
-// launch's error: a refused launch never runs and a synchronize would not say so.
-template <typename Kernel, typename... Args>
+// for), launches it with NT threads a block (THREADS unless given) on `stream`, and
+// returns the launch's error: a refused launch never runs and a synchronize would
+// not say so.
+template <int NT = THREADS, typename Kernel, typename... Args>
 cudaError_t launch_kernel(Kernel kernel, size_t smem, dim3 grid, cudaStream_t stream,
                           Args... args) {
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, THREADS, smem, stream>>>(args...);
+  kernel<<<grid, NT, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 

@@ -1,9 +1,10 @@
-// Warp-level tensor-core building blocks for the bf16 instances of B4 and B5
-// (flash_attention_bwd.cu): the bf16 mma.sync m16n8k16 with f32 accumulation,
-// ldmatrix (plain and .trans) and cp.async with zero-fill. Each is one small
-// device function over fragment registers, so that tools/cuda_emu.h can model
-// it on the CPU: tools/emulate_kernels.py builds the kernels against that model
-// in place of this header.
+// Warp-level tensor-core building blocks for the bf16 instances of K10's forward
+// (flash_attention.cu) and of B4 and B5 (flash_attention_bwd.cu): the bf16
+// mma.sync m16n8k16 with f32 accumulation, ldmatrix (plain and .trans),
+// cp.async with zero-fill, and the MUFU's 2^x. Each is one small device function over fragment
+// registers, so that tools/cuda_emu.h can model it on the CPU:
+// tools/emulate_kernels.py builds the kernels against that model in place of
+// this header.
 //
 // Fragment layout of mma.m16n8k16 with bf16 operands (PTX ISA, "Matrix
 // fragments for mma.m16n8k16", floating-point types). g = lane >> 2, t = lane &
@@ -75,6 +76,15 @@ __device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool full
 // Closes this thread's group of copies issued since the last commit.
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// 2^x on the MUFU unit alone (ex2.approx.ftz: relative error about 2^-22, results
+// below 2^-126 flushed to 0, 2^-inf = 0); exp2f adds a range check and two scalings
+// to keep such results subnormal.
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Waits until at most N of this thread's committed groups are in flight.

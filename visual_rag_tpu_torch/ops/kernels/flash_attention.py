@@ -34,9 +34,9 @@ the output is in the input dtype, and a row with no allowed key is zeros.
   forward in ``flash_attention.launches``, the forward that saves lse in
   ``flash_attention_fwd.launches``.
 - Declared difference: the library rounds P and dS to the input dtype before
-  its products. The f32 backward keeps them in f32; the bf16 backward (B4
-  and B5 on the tensor cores) feeds them in as a bf16 pair hi + lo, about
-  16 significant bits. In bf16, B4 may split each kv head's group of query
+  its products. The f32 kernels keep them in f32; the bf16 kernels (K10's
+  forward, B4 and B5 on the tensor cores) feed them in as a bf16 pair hi +
+  lo, about 16 significant bits. In bf16, B4 may split each kv head's group of query
   heads over more blocks; its scratch (the range table, then the slices'
   f32 partial sums) is sized by ``vrt_flash_attention_bwd_dkv_scratch``.
 """

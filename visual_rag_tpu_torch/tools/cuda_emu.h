@@ -17,7 +17,8 @@
 //   ldmatrix exchange fragments (or row addresses) through a block-wide buffer
 //   after a barrier, as __shfl_xor_sync does, so every thread of the block must
 //   reach them, as in the kernels; cp.async is a synchronous copy that honours
-//   src-size (zeros where it is 0), and commit_group / wait_group do nothing.
+//   src-size (zeros where it is 0), and commit_group / wait_group do nothing;
+//   ex2.approx is std::exp2 (the card's rounds within about 2^-22).
 // emulate_kernels.py rewrites each `k<<<grid, block, smem, stream>>>(args)` into
 // emu_launch(dim3(grid), block, smem, k, args) and `extern __shared__ ... smem[]`
 // into a pointer to the launch's buffer, and builds the kernels with this file
@@ -231,6 +232,7 @@ inline void cp_async_4(void* dst, const void* src, bool full) {
   if (full) std::memcpy(dst, src, 4);
   else std::memset(dst, 0, 4);
 }
+inline float ex2_approx(float x) { return std::exp2(x); }  // the card's rounds within 2^-22
 inline void cp_async_commit() {}
 template <int N>
 inline void cp_async_wait() {}

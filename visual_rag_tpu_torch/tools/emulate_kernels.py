@@ -39,7 +39,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
-SOURCES = ("flash_common.cuh", "flash_attention.cu", "flash_attention_bwd.cu")
+SOURCES = ("flash_common.cuh", "flash_mma.cuh", "flash_attention.cu", "flash_attention_bwd.cu")
 CASES = ((64, 130, 3, 1, True, None), (72, 150, 4, 4, False, None), (72, 200, 2, 2, True, 64),
          (80, 100, 2, 2, False, None), (80, 200, 2, 2, False, 64), (128, 90, 4, 2, True, None),
          (256, 100, 8, 1, False, None), (256, 150, 2, 1, True, 40),
@@ -56,16 +56,21 @@ def emulated_source(text: str) -> str:
                         "float* smem = emu_smem;")
 
 
-def build(asan: bool) -> Path:
-    """The emulated library: the sources with their launches rewritten."""
-    out = ROOT / "build" / "kernels" / "emu"
-    (out / "src").mkdir(parents=True, exist_ok=True)
+def write_sources(dst: Path) -> None:
+    """The sources as g++ builds them into ``dst``: their launches rewritten, and
+    the CUDA headers and the tensor-core building blocks (``mma_tiles.cuh``) as
+    ``cuda_emu.h``'s models; compile with ``-I dst -I tools``."""
+    dst.mkdir(parents=True, exist_ok=True)
     for name in SOURCES:
         text = (ROOT / "visual_rag_tpu_torch" / "csrc" / name).read_text()
-        (out / "src" / name).write_text(emulated_source(text))
-    # the CUDA headers, and the tensor-core building blocks, are cuda_emu.h's models
+        (dst / name).write_text(emulated_source(text))
     for header in ("cuda_runtime.h", "cuda_bf16.h", "math_constants.h", "mma_tiles.cuh"):
-        (out / "src" / header).write_text('#pragma once\n#include "cuda_emu.h"\n')
+        (dst / header).write_text('#pragma once\n#include "cuda_emu.h"\n')
+
+
+def build(asan: bool, out: Path = ROOT / "build" / "kernels" / "emu") -> Path:
+    """The emulated library, built in ``out``."""
+    write_sources(out / "src")
     (out / "src" / "errors.cpp").write_text(
         'extern "C" const char* vrt_error_string(int) { return "emulated launch refused"; }\n')
     lib = out / ("libemu_asan.so" if asan else "libemu.so")
