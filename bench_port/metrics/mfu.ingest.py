@@ -1,0 +1,9 @@
+"""``mfu.ingest``: model FLOPs of the window's page batches (2 x matmul
+parameters x tokens, plus 4 x dh x heads per allowed attention pair) over
+the window's seconds x the bf16 peak (``lib/model_work.py``)."""
+
+from bench_port.lib.readers import mfu_pct
+
+
+def read(facts):
+    return mfu_pct(facts)
