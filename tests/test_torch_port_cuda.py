@@ -51,7 +51,14 @@ that saves lse gives the serving output bit for bit; the autograd Function launc
 (never a plain version) on CUDA tensors and matches the CPU at each head
 dim; one train step of small ColSmol-, ColPali- and ColQwen2.5-shaped
 models on the card against the CPU.
+
+Spans (``tracing.py``): under a CUDA-only profiler they record; a span
+given the card sets ``device_ms`` (no more than the host span of one that
+ends in a synchronise), one given none leaves it None; and they add no
+device operation to the trace.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -1011,3 +1018,47 @@ def test_colqwen_train_step_on_card_matches_cpu(dev):
              "page_mask": pages.attn_mask, "patches": pages.patches,
              "patch_mask": pages.patch_mask, "window_ids": pages.window_ids}
     _train_step_card_vs_cpu(dev, cfg, batch, remat_on_card=True)
+
+
+def test_spans_time_the_device_and_add_no_device_operation(dev):
+    """Under a CUDA-only profiler (the benchmark's traced windows) spans
+    record; ``device_ms`` of a span given the card is the stream's time
+    between its two events, no more than the host span of one that ends in
+    a synchronise; a span given no device has none; and a window with spans
+    holds the same device operations as one without."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from visual_rag_tpu_torch import tracing
+
+    a = torch.randn(4096, 4096, device=dev) / 64
+    a @ a  # cuBLAS set up outside the windows
+
+    def window(with_spans):
+        def sp(name, **kw):
+            return tracing.span(name, **kw) if with_spans else contextlib.nullcontext()
+
+        tracing.clear()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with sp("work", device=a.device):
+                b = a
+                for _ in range(4):
+                    b = b @ a
+                torch.cuda.synchronize()
+            with sp("enqueue", device=a.device), sp("host"):
+                b = b @ a
+            torch.cuda.synchronize()
+        return sorted(ev.name() for ev in prof.profiler.kineto_results.events()
+                      if ev.device_type() == DeviceType.CUDA and ev.duration_ns() > 0)
+
+    plain = window(False)
+    assert tracing.spans() == []
+    traced = window(True)
+    work, host, enqueue = tracing.spans()
+    assert traced == plain and len(plain) >= 5
+    host_ms = (work.end_ns - work.start_ns) / 1e6
+    assert work.device_ms is not None and 0 < work.device_ms <= host_ms
+    assert enqueue.device_ms is not None and enqueue.device_ms > 0
+    assert host.name == "host" and host.device_ms is None
+    tracing.clear()

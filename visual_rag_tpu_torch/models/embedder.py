@@ -44,6 +44,7 @@ from visual_rag_tpu_torch.models.convert import build_model, init_params
 from visual_rag_tpu_torch.models.processors import ImageProcessor
 from visual_rag_tpu_torch.models.tokenizer import load_tokenizer
 from visual_rag_tpu_torch.ops import pooling as pool_ops
+from visual_rag_tpu_torch.tracing import span
 
 logger = logging.getLogger(__name__)
 
@@ -231,13 +232,15 @@ class VisualEmbedder:
 
         pending = None
         for s in range(0, len(images), batch_size):
-            proc = self.processor.process_images(list(images[s : s + batch_size]))
-            # f16 wire for the patches, as the JAX embedder ships them: pixels
-            # rounded to f16 on the host, cast to the model dtype on the device
-            host = [proc.input_ids, proc.attn_mask, proc.patches.astype(np.float16),
-                    proc.patch_mask]
-            extra = [proc.window_ids, proc.patch_positions]  # either may be None
-            dev = self._to_device(host + [a for a in extra if a is not None])
+            pages = list(images[s : s + batch_size])
+            proc = self.processor.process_images(pages)
+            with span("embed.to_device", pages=len(pages)):
+                # f16 wire for the patches, as the JAX embedder ships them: pixels
+                # rounded to f16 on the host, cast to the model dtype on the device
+                host = [proc.input_ids, proc.attn_mask, proc.patches.astype(np.float16),
+                        proc.patch_mask]
+                extra = [proc.window_ids, proc.patch_positions]  # either may be None
+                dev = self._to_device(host + [a for a in extra if a is not None])
             it = iter(dev[4:])
             wids, ppos = (None if a is None else next(it) for a in extra)
             with torch.inference_mode():

@@ -28,6 +28,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from visual_rag_tpu_torch.tracing import span
+
 from .tokenizer import HashTokenizer, HFTokenizer, load_tokenizer  # noqa: F401
 
 PATCHES_PER_TILE = 64  # ColSmol contract (reference pooling.py:35-98)
@@ -245,69 +247,70 @@ class ImageProcessor:
     def process_images(self, images: Sequence,
                        prompt: str = "Describe the image.",
                        pooled: bool = False) -> ProcessedImages:
-        per_image = []
-        for img in images:
-            # rescale (1/255, in _to_array) then HF normalize (x - mean)/std
-            arr = (_to_array(img) - self.image_mean) / self.image_std
-            if self.backend == "colsmol":
-                per_image.append(self._image_tokens_colsmol(arr))
-            elif self.backend in ("colqwen2.5", "colqwen2"):
-                per_image.append(self._image_tokens_colqwen(arr))
+        with span("processor.images", pages=len(images)):
+            per_image = []
+            for img in images:
+                # rescale (1/255, in _to_array) then HF normalize (x - mean)/std
+                arr = (_to_array(img) - self.image_mean) / self.image_std
+                if self.backend == "colsmol":
+                    per_image.append(self._image_tokens_colsmol(arr))
+                elif self.backend in ("colqwen2.5", "colqwen2"):
+                    per_image.append(self._image_tokens_colqwen(arr))
+                else:
+                    per_image.append(self._image_tokens_colpali(arr))
+            # Bucket the padded batch shapes to multiples of 128/64 so the jitted
+            # model forward compiles once per bucket, not once per page geometry
+            # (per-shape recompiles dominated ingest time on TPU otherwise).
+            # The bucket is capped at the vision tower's patch capacity.
+            n_act = max(p.shape[0] for p, _ in per_image)
+            if self.backend in ("colqwen2.5", "colqwen2"):
+                ratio = 4  # 2x2 spatial merge: patches per visual token
             else:
-                per_image.append(self._image_tokens_colpali(arr))
-        # Bucket the padded batch shapes to multiples of 128/64 so the jitted
-        # model forward compiles once per bucket, not once per page geometry
-        # (per-shape recompiles dominated ingest time on TPU otherwise).
-        # The bucket is capped at the vision tower's patch capacity.
-        n_act = max(p.shape[0] for p, _ in per_image)
-        if self.backend in ("colqwen2.5", "colqwen2"):
-            ratio = 4  # 2x2 spatial merge: patches per visual token
-        else:
-            ratio = self.pixel_shuffle * self.pixel_shuffle
-        patch_capacity = self.max_visual_tokens * ratio
-        bucket = 128 if self.pixel_shuffle <= 1 else (8 * self.pixel_shuffle) ** 2
-        n_patches = max(n_act, min(_round_up(n_act, bucket), patch_capacity))
-        prompt_ids = self.tokenizer.encode(prompt)
-        b = len(images)
-        # image tokens after merge (colqwen merges 4 patches -> 1 token)
-        n_img_tokens = [info["num_visual_tokens"] for _, info in per_image]
-        seq = _round_up(max(n_img_tokens) + len(prompt_ids), 64)
-        del pooled  # the JAX host-buffer pool is not ported: plain allocations
+                ratio = self.pixel_shuffle * self.pixel_shuffle
+            patch_capacity = self.max_visual_tokens * ratio
+            bucket = 128 if self.pixel_shuffle <= 1 else (8 * self.pixel_shuffle) ** 2
+            n_patches = max(n_act, min(_round_up(n_act, bucket), patch_capacity))
+            prompt_ids = self.tokenizer.encode(prompt)
+            b = len(images)
+            # image tokens after merge (colqwen merges 4 patches -> 1 token)
+            n_img_tokens = [info["num_visual_tokens"] for _, info in per_image]
+            seq = _round_up(max(n_img_tokens) + len(prompt_ids), 64)
+            del pooled  # the JAX host-buffer pool is not ported: plain allocations
 
-        def buf(shape, dtype, fill=None):
-            return np.full(shape, 0 if fill is None else fill, dtype)
+            def buf(shape, dtype, fill=None):
+                return np.full(shape, 0 if fill is None else fill, dtype)
 
-        patches = buf((b, n_patches, self.patch_pixels), np.float32)
-        patch_mask = buf((b, n_patches), bool, fill=False)
-        input_ids = buf((b, seq), np.int32, fill=0)
-        attn_mask = buf((b, seq), bool, fill=False)
-        has_segments = any(info.get("_window_ids") is not None for _, info in per_image)
-        window_ids = (buf((b, n_patches), np.int32, fill=-1)
-                      if has_segments else None)
-        has_pos = any(info.get("_patch_positions") is not None for _, info in per_image)
-        patch_positions = (buf((b, n_patches, 2), np.int32, fill=0)
-                           if has_pos else None)
-        infos = []
-        for i, (p, info) in enumerate(per_image):
-            patches[i, : p.shape[0]] = p
-            patches[i, p.shape[0]:] = 0.0
-            patch_mask[i, : p.shape[0]] = True
-            if window_ids is not None and info.get("_window_ids") is not None:
-                window_ids[i, : p.shape[0]] = info.pop("_window_ids")
-            if patch_positions is not None and info.get("_patch_positions") is not None:
-                patch_positions[i, : p.shape[0]] = info.pop("_patch_positions")
-            nv = info["num_visual_tokens"]
-            input_ids[i, :nv] = self.image_token_id
-            input_ids[i, nv : nv + len(prompt_ids)] = prompt_ids
-            attn_mask[i, : nv + len(prompt_ids)] = True
-            info = dict(info)
-            info.pop("_window_ids", None)
-            info.pop("_patch_positions", None)
-            info["visual_token_indices"] = list(range(nv))
-            infos.append(info)
-        return ProcessedImages(patches, patch_mask, input_ids, attn_mask, infos,
-                               window_ids=window_ids,
-                               patch_positions=patch_positions)
+            patches = buf((b, n_patches, self.patch_pixels), np.float32)
+            patch_mask = buf((b, n_patches), bool, fill=False)
+            input_ids = buf((b, seq), np.int32, fill=0)
+            attn_mask = buf((b, seq), bool, fill=False)
+            has_segments = any(info.get("_window_ids") is not None for _, info in per_image)
+            window_ids = (buf((b, n_patches), np.int32, fill=-1)
+                          if has_segments else None)
+            has_pos = any(info.get("_patch_positions") is not None for _, info in per_image)
+            patch_positions = (buf((b, n_patches, 2), np.int32, fill=0)
+                               if has_pos else None)
+            infos = []
+            for i, (p, info) in enumerate(per_image):
+                patches[i, : p.shape[0]] = p
+                patches[i, p.shape[0]:] = 0.0
+                patch_mask[i, : p.shape[0]] = True
+                if window_ids is not None and info.get("_window_ids") is not None:
+                    window_ids[i, : p.shape[0]] = info.pop("_window_ids")
+                if patch_positions is not None and info.get("_patch_positions") is not None:
+                    patch_positions[i, : p.shape[0]] = info.pop("_patch_positions")
+                nv = info["num_visual_tokens"]
+                input_ids[i, :nv] = self.image_token_id
+                input_ids[i, nv : nv + len(prompt_ids)] = prompt_ids
+                attn_mask[i, : nv + len(prompt_ids)] = True
+                info = dict(info)
+                info.pop("_window_ids", None)
+                info.pop("_patch_positions", None)
+                info["visual_token_indices"] = list(range(nv))
+                infos.append(info)
+            return ProcessedImages(patches, patch_mask, input_ids, attn_mask, infos,
+                                   window_ids=window_ids,
+                                   patch_positions=patch_positions)
 
     def process_queries(self, texts: Sequence[str], max_len: Optional[int] = None):
         ids, mask = self.tokenizer.batch_encode(

@@ -41,6 +41,7 @@ from visual_rag_tpu_torch.device import resolve_device
 from visual_rag_tpu_torch.models.colvlm import ColVLM, ColVLMConfig
 from visual_rag_tpu_torch.models.convert import init_params
 from visual_rag_tpu_torch.ops.maxsim import maxsim_matrix_padded
+from visual_rag_tpu_torch.tracing import span
 
 Params = Dict[str, torch.Tensor]
 
@@ -228,8 +229,10 @@ class Trainer:
         metrics)``; params and opt_state are updated in place."""
 
         def train_step(params: Params, opt_state: AdamWState, batch):
-            (_, metrics), grads = self.value_and_grad(params, batch)
-            opt_state = self.optimizer.update(grads, opt_state, params)
+            with span("train.step"):
+                (_, metrics), grads = self.value_and_grad(params, batch)
+                with span("train.optimizer"):
+                    opt_state = self.optimizer.update(grads, opt_state, params)
             return params, opt_state, metrics
 
         return train_step

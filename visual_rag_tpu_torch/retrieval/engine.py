@@ -58,6 +58,7 @@ from visual_rag_tpu_torch.index.store import (
 from visual_rag_tpu_torch.ops.kernels.maxsim_sweep import _ceil32, sweep_supported
 from visual_rag_tpu_torch.retrieval import plans, wire
 from visual_rag_tpu_torch.retrieval.local import NEG_INF
+from visual_rag_tpu_torch.tracing import span
 
 STAGE1_MODES = (
     "pooled_query_vs_standard_pooling",
@@ -368,66 +369,68 @@ class RetrievalEngine:
             raise ValueError(f"Unknown mode: {mode}. Choose one of {SEARCH_MODES}")
         if return_arrays and with_payload:
             raise ValueError("return_arrays=True requires with_payload=False")
-        d = self.index.num_docs
-        if d == 0 or not len(query_embeddings):
-            return ("empty", len(query_embeddings), with_payload, return_arrays, {})
-        queries, n_real, b = self._bucket_batch(query_embeddings)
-        ragged = self._fused_arrays(self.full_vector_name)
-        dim = ragged["flat"].shape[1]
-        packed = self._use_packed(b)
-        if packed:
-            arrays, nq, _ = wire.pack_queries_grouped(queries, dim)
-            q1, q2, q3 = wire.to_device(arrays, self.device)
-        else:
-            arrays = wire.pad_queries_raw(queries, dim)
-            q1, q2 = wire.to_device(arrays, self.device)
-            q3, nq = None, arrays[0].shape[1]
-        doc_mask = self._doc_mask(filter_obj)
-        common = dict(wire="packed" if packed else "padded", b=b, nq=nq)
+        with span("search.dispatch"):
+            d = self.index.num_docs
+            if d == 0 or not len(query_embeddings):
+                return ("empty", len(query_embeddings), with_payload, return_arrays, {})
+            queries, n_real, b = self._bucket_batch(query_embeddings)
+            ragged = self._fused_arrays(self.full_vector_name)
+            dim = ragged["flat"].shape[1]
+            packed = self._use_packed(b)
+            if packed:
+                arrays, nq, _ = wire.pack_queries_grouped(queries, dim)
+                q1, q2, q3 = wire.to_device(arrays, self.device)
+            else:
+                arrays = wire.pad_queries_raw(queries, dim)
+                q1, q2 = wire.to_device(arrays, self.device)
+                q3, nq = None, arrays[0].shape[1]
+            doc_mask = self._doc_mask(filter_obj)
+            common = dict(wire="packed" if packed else "padded", b=b, nq=nq)
 
-        if mode.startswith("single_"):
-            kind, name = self._single_stage(mode)
-            vals, idx = plans.single_plan(
-                self._fused_arrays(name), ragged, doc_mask, q1, q2, q3, kind=kind,
-                k=max(1, min(int(top_k), d)), **common)
-            return ("done", n_real, with_payload, return_arrays, {"idx": idx, "score": vals})
+            if mode.startswith("single_"):
+                kind, name = self._single_stage(mode)
+                vals, idx = plans.single_plan(
+                    self._fused_arrays(name), ragged, doc_mask, q1, q2, q3, kind=kind,
+                    k=max(1, min(int(top_k), d)), **common)
+                return ("done", n_real, with_payload, return_arrays, {"idx": idx, "score": vals})
 
-        if mode == "two_stage":
-            if prefetch_k is None:
-                prefetch_k = max(100, top_k * 10)  # reference default (two_stage.py:128-129)
-            kind, name = self._fused_stage1(stage1_mode)
-            pk = max(1, min(int(prefetch_k), d))
-            vals, idx = plans.two_stage_plan(
-                self._fused_arrays(name), ragged, doc_mask, q1, q2, q3, kind=kind, pk=pk,
-                k=max(1, min(int(top_k), pk)), impl=self._rerank_impl(b, pk, packed),
-                **common)
+            if mode == "two_stage":
+                if prefetch_k is None:
+                    prefetch_k = max(100, top_k * 10)  # reference default (two_stage.py:128-129)
+                kind, name = self._fused_stage1(stage1_mode)
+                pk = max(1, min(int(prefetch_k), d))
+                vals, idx = plans.two_stage_plan(
+                    self._fused_arrays(name), ragged, doc_mask, q1, q2, q3, kind=kind, pk=pk,
+                    k=max(1, min(int(top_k), pk)), impl=self._rerank_impl(b, pk, packed),
+                    **common)
+                return ("done", n_real, with_payload, return_arrays,
+                        {"idx": idx, "score_stage2": vals, "score_final": vals})
+
+            s1k = max(1, min(int(stage1_k or 1000), d))
+            s2k = max(1, min(int(stage2_k or 300), d))
+            vals, idx, s1_at, s2_at = plans.three_stage_plan(
+                self._fused_arrays(self.global_vector_name),
+                self._fused_arrays(self.experimental_vector_name), ragged, doc_mask, q1, q2, q3,
+                s1k=s1k, s2k=s2k, k=max(1, min(int(top_k), s2k)),
+                impl=self._rerank_impl(b, s2k, packed), **common)
             return ("done", n_real, with_payload, return_arrays,
-                    {"idx": idx, "score_stage2": vals, "score_final": vals})
-
-        s1k = max(1, min(int(stage1_k or 1000), d))
-        s2k = max(1, min(int(stage2_k or 300), d))
-        vals, idx, s1_at, s2_at = plans.three_stage_plan(
-            self._fused_arrays(self.global_vector_name),
-            self._fused_arrays(self.experimental_vector_name), ragged, doc_mask, q1, q2, q3,
-            s1k=s1k, s2k=s2k, k=max(1, min(int(top_k), s2k)),
-            impl=self._rerank_impl(b, s2k, packed), **common)
-        return ("done", n_real, with_payload, return_arrays,
-                {"idx": idx, "score_stage3": vals, "score_final": vals,
-                 "score_stage1": s1_at, "score_stage2": s2_at})
+                    {"idx": idx, "score_stage3": vals, "score_final": vals,
+                     "score_stage1": s1_at, "score_stage2": s2_at})
 
     def _finish_batch(self, pending):
         tag, n_real, with_payload, return_arrays, arrays = pending
-        if tag == "empty":
+        with span("search.finish"):
+            if tag == "empty":
+                if return_arrays:
+                    z = np.zeros((n_real, 0))
+                    return BatchResultArrays(ids=z.astype(object), scores=z.astype(np.float32),
+                                             valid=z.astype(bool), indices=z.astype(np.int32))
+                return [[] for _ in range(n_real)]
+            arrays = {k: v.cpu().numpy() for k, v in arrays.items()}
             if return_arrays:
-                z = np.zeros((n_real, 0))
-                return BatchResultArrays(ids=z.astype(object), scores=z.astype(np.float32),
-                                         valid=z.astype(bool), indices=z.astype(np.int32))
-            return [[] for _ in range(n_real)]
-        arrays = {k: v.cpu().numpy() for k, v in arrays.items()}
-        if return_arrays:
-            return self._finish_arrays(n_real, arrays)
-        idx = arrays.pop("idx")
-        return self._batch_results(idx, with_payload, **arrays)[:n_real]
+                return self._finish_arrays(n_real, arrays)
+            idx = arrays.pop("idx")
+            return self._batch_results(idx, with_payload, **arrays)[:n_real]
 
     # -- result assembly -----------------------------------------------------------
 

@@ -23,6 +23,7 @@ from visual_rag_tpu_torch.retrieval.local import (
     local_stage1,
     refine_topk,
 )
+from visual_rag_tpu_torch.tracing import span
 
 
 def _prep_wire(q1, q2, q3, wire: str, b: int, nq: int):
@@ -86,7 +87,8 @@ def single_plan(s1: Dict, ragged: Dict, doc_mask, q1, q2, q3=None, *, kind: str,
     ``single_full`` on an ``int8_refined`` store cuts the int8 scan to the
     refine window and re-scores it (JAX ``plans.py:114-118``)."""
     tokens, qmask, pooled, packed = _prep_wire(q1, q2, q3, wire, b, nq)
-    scores = local_stage1(kind, s1, ragged, tokens, qmask, pooled, packed, b)
+    with span("search.stage1", device=tokens.device):
+        scores = local_stage1(kind, s1, ragged, tokens, qmask, pooled, packed, b)
     if kind == "tokens_ragged" and ragged.get("res4") is not None:
         vals8, cand = _topk_masked(scores, refine_window(k, scores.shape[1]), doc_mask)
         return refine_topk(ragged, tokens, qmask, cand, vals8, k)
@@ -99,8 +101,9 @@ def two_stage_plan(s1: Dict, ragged: Dict, doc_mask, q1, q2, q3=None, *, kind: s
     """``two_stage``: stage-1 scores, exact top-``pk`` cut, exact MaxSim
     rerank of the candidates (refined on ``int8_refined``), final top-``k``."""
     tokens, qmask, pooled, packed = _prep_wire(q1, q2, q3, wire, b, nq)
-    scores = local_stage1(kind, s1, ragged, tokens, qmask, pooled, packed, b,
-                          s1_prefetch=True)
+    with span("search.stage1", device=tokens.device):
+        scores = local_stage1(kind, s1, ragged, tokens, qmask, pooled, packed, b,
+                              s1_prefetch=True)
     _, cand = _topk_masked(scores, pk, doc_mask)
     rr = local_rerank(ragged, tokens, qmask, cand, impl, packed, b)
     return refine_topk(ragged, tokens, qmask, cand, rr, k)
@@ -117,7 +120,8 @@ def three_stage_plan(gstore: Dict, estore: Dict, ragged: Dict, doc_mask, q1, q2,
     in stage-2 order, so each winner's stage-2 score is found by matching
     its id in the stage-2 candidates (JAX ``plans.py:163-175``)."""
     tokens, qmask, pooled, packed = _prep_wire(q1, q2, q3, wire, b, nq)
-    s1 = local_stage1("pooled_single", gstore, ragged, tokens, qmask, pooled, packed, b)
+    with span("search.stage1", device=tokens.device):
+        s1 = local_stage1("pooled_single", gstore, ragged, tokens, qmask, pooled, packed, b)
     _, c1 = _topk_masked(s1, s1k, doc_mask)
     s2c = gathered_tokens_padded(estore, tokens, qmask, c1)  # [B, s1k]
     s2k = min(s2k, s1k)
