@@ -14,7 +14,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    candidates with some -1; scan: 64 packed queries x every doc; tokens
    stage-1: 64 packed queries (K5) and 16 padded queries (K6, K7) x the
    P = 10 pooled store, and again x a P = 76 store with mask holes and two
-   docs with no valid row), within atol 1e-3, two calls bit-equal; then the
+   docs with no valid row), within atol 1e-3, two calls bit-equal; the pooled
+   stage-1 kernel (``pooled_stage1_scores_ref`` beside it) on bf16, f16 and
+   int8 stores (``pooled_stage1_phase``), then timed at the search cell's
+   shape (1024 queries x 200k docs, P 32, bf16) and at one query; then the
    engine on a small f32 corpus with all four stores and payloads, on the
    card against the same index on the CPU, in every search mode, every
    stage-1 mode and with a filter.
@@ -26,7 +29,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    queries.
 6. Serving: the port's SearchServer answers 8 concurrent POST /search with
    the ids a direct ``search_embedded_batch`` gives.
-7. Launch counts of K2, K3 and the scan over phases 3-6; each must be > 0.
+7. Launch counts of K2, K3, the scan and the pooled stage-1 over phases 3-6;
+   each must be > 0.
 8. The tokens stage-1 path (``stage1_mode="tokens_vs_standard_pooling"``),
    with the counts set to 0 first: K5 once against its plain version at
    the 100k bs 1024 shape (before the reset), then ``two_stage`` at 3k bs 16
@@ -394,6 +398,7 @@ def main() -> None:
         pooled_maxsim_scores_packed,
         pooled_maxsim_scores_packed_ref,
         pooled_maxsim_scores_qbatch,
+        pooled_stage1_scores,
     )
     from visual_rag_tpu_torch.retrieval import plans, wire
     from visual_rag_tpu_torch.retrieval.engine import SEARCH_MODES, STAGE1_MODES
@@ -523,6 +528,9 @@ def main() -> None:
                         **maxsim_bound("pooled_packed" if line == 212 else "pooled_padded",
                                        args)})
 
+    stage1_entry = pooled_stage1_phase(dev, card)
+    torch.cuda.empty_cache()
+
     # float32: queries normalised on the card and on the CPU differ in the last
     # f32 bit, which a cast to a 2-byte store dtype can turn into a whole ulp
     small = synthetic_index(200, min_tokens=64, max_tokens=300, pooled_rows=10,
@@ -551,7 +559,7 @@ def main() -> None:
 
     # -- 3. main path at the bench protocol ----------------------------------------
     for fn in (rerank_candidates, rerank_candidates_dedup, rerank_candidates_sweep,
-               exhaustive_scores_packed):
+               exhaustive_scores_packed, pooled_stage1_scores):
         fn.launches = 0
     qs = queries(1, 2048)
     rungs = {}
@@ -615,7 +623,8 @@ def main() -> None:
     # -- 7. launch counts ----------------------------------------------------------
     counts = {"rerank_candidates": rerank_candidates.launches,
               "rerank_candidates_dedup": rerank_candidates_dedup.launches,
-              "exhaustive_scores_packed": exhaustive_scores_packed.launches}
+              "exhaustive_scores_packed": exhaustive_scores_packed.launches,
+              "pooled_stage1_scores": pooled_stage1_scores.launches}
     log(f"launches over phases 3-6: {counts}")
     for name, n in counts.items():
         if n <= 0:
@@ -689,10 +698,12 @@ def main() -> None:
 
     counts8 = {fn.__name__: fn.launches for fn in entry_points}
     log(f"launches over phase 8: {counts8}")
+    stage1_entry["launches"] = counts["pooled_stage1_scores"]
     for k in kernels:
         k["launches"] = counts.get(k["name"], counts8[k["name"]])
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on its path")
+    kernels.append(stage1_entry)
 
     # -- 9. int8 storage ---------------------------------------------------------------
     kernels += int8_phase(dev, card, idx3k, eng3k, qs, entry_points)
@@ -1029,6 +1040,82 @@ def int8_phase(dev, card, idx3k, eng3k, qs, entry_points):
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on phase 9's path")
     return out
+
+
+def pooled_stage1_phase(dev, card):
+    """The pooled stage-1 kernel (``pooled_stage1_scores``, ``csrc/pooled_stage1.cu``)
+    against its plain version, then timed. First bf16, f16 and int8 stores (int8
+    with its scales) at P 32 x 3000 docs x 1030 queries, P 76 with holes x 64
+    queries and P 10 x 1000 docs x 1 query: within ATOL, two calls bit-equal,
+    docs with no valid row 0. Then the search cell's shape (1024 queries x
+    200k docs, P 32 of which 28-32 valid, bf16) and one query on it: CUDA-event
+    ms of the kernel and of the plain version, and the bound (the store read
+    once, 2 * dim operations a query and valid pooled row). Not counted: the
+    entry's launches are the engine's, phase 7."""
+    import torch
+
+    from visual_rag_tpu_torch.index.quantize import quantize_rows_int8
+    from visual_rag_tpu_torch.ops.kernels.prefetch_topk import (
+        pooled_stage1_scores,
+        pooled_stage1_scores_ref,
+    )
+
+    fn, ref = pooled_stage1_scores, pooled_stage1_scores_ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+
+    def unit(*shape):
+        return torch.nn.functional.normalize(
+            torch.randn(shape, generator=gen, device=dev), dim=-1)
+
+    err = 0.0
+    for p, d, b in ((32, 3000, 1030), (76, 3000, 64), (10, 1000, 1)):
+        v, q = unit(p, d, 128), unit(b, 128)
+        m = torch.rand((p, d), generator=gen, device=dev) > 0.3
+        m[:, [17, d - 1]] = False
+        codes, scales = quantize_rows_int8(v)
+        for what, args in (("bf16", (v.bfloat16(), m, q)), ("f16", (v.half(), m, q)),
+                           ("int8", (codes, m, q, scales))):
+            got, again, want = fn(*args), fn(*args), ref(*args)
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            if not torch.allclose(got, want, rtol=0, atol=ATOL):
+                raise AssertionError(f"pooled_stage1_scores {what} P {p} B {b}: {e}")
+            if not torch.equal(got, again) or not (got[:, ~m.any(dim=0)] == 0).all():
+                raise AssertionError(f"pooled_stage1_scores {what} P {p} B {b}: not "
+                                     "deterministic, or a doc with no valid row not 0")
+            err = max(err, e)
+    del v, q, m, codes, scales, got, again, want
+
+    p, d, b = 32, 200000, 1024
+    vals = torch.empty((p, d, 128), dtype=torch.bfloat16, device=dev)
+    for s in range(0, d, 25000):
+        vals[:, s:s + 25000] = unit(p, min(25000, d - s), 128).bfloat16()
+    valid = torch.randint(28, 33, (d,), generator=gen, device=dev)
+    mask = torch.arange(p, device=dev)[:, None] < valid[None, :]
+    q = unit(b, 128)
+    got, want = fn(vals, mask, q), ref(vals, mask, q)
+    torch.cuda.synchronize()
+    e = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=0, atol=ATOL):
+        raise AssertionError(f"pooled_stage1_scores at the search cell's shape: {e}")
+    del got, want
+    ms, ms1 = cuda_ms(lambda: fn(vals, mask, q)), cuda_ms(lambda: fn(vals, mask, q[:1]))
+    plain_ms, plain1 = (cuda_ms(lambda: ref(vals, mask, q), iters=2),
+                        cuda_ms(lambda: ref(vals, mask, q[:1]), iters=2))
+    nbytes = _nb(vals) + _nb(mask) + b * 128 * 4 + b * d * 4
+    bound_ms, by = bound(nbytes, 2.0 * 128 * b * float(mask.sum()), "bf16")
+    bound1, by1 = bound(nbytes - (b - 1) * (128 + d) * 4, 2.0 * 128 * float(mask.sum()), "bf16")
+    log(f"pooled_stage1_scores [{b} x {d} docs, P {p} (28-32 valid), bf16]: max_abs_err "
+        f"{max(err, e):.3g} kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
+        f"({by}); 1 query: kernel {ms1:.4f} ms plain {plain1:.4f} ms bound {bound1:.4f} ms "
+        f"({by1}) [{card}]")
+    return {"name": "pooled_stage1_scores", "route": "cuda",
+            "source": "visual_rag_tpu_torch/csrc/pooled_stage1.cu",
+            "replaces": "none (XLA's fusion of visual_rag_tpu/parallel/sharded.py:341-351)",
+            "max_abs_err": max(err, e), "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": by, "ms_1q": ms1, "plain_ms_1q": plain1,
+            "bound_ms_1q": bound1}
 
 
 def timed_once(fn):

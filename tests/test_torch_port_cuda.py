@@ -14,6 +14,14 @@ K7): P = 4, 13 and 76 pooled rows, mask holes, docs with no valid row
 (scored 0), a doc count that is not a multiple of the 64-doc block, pad
 rows, groups of 8 to 768 rows, per-row scales; two calls bit-equal.
 
+The pooled stage-1 kernel (``pooled_stage1_scores``): bf16, f16 and int8
+stores (int8 with its row scales) against its plain version at batches of
+1 to 1030, doc counts that are not a multiple of its 32-doc tile, P 1 to 76
+with holes; docs with no valid row exactly 0, negative dots kept, two
+calls bit-equal; an f32 store stays on the plain matmul without a launch;
+every pooled stage-1 mode through the engine launches it and returns the
+plain loop's ids and scores, ``three_stage`` does not launch it.
+
 int8 stores: the int8 bodies (bf16 queries) of K1, K2 and K5/K6/K7 and the
 qdot bodies (int8 queries, integer dots) of K1 and K5/K6/K7 (K9) against
 their plain versions, each counted on its own counter; with one query row
@@ -85,7 +93,7 @@ from visual_rag_tpu_torch.ops.kernels.maxsim_sweep import (
     rerank_candidates_sweep,
     rerank_candidates_sweep_ref,
 )
-from visual_rag_tpu_torch.retrieval import plans, wire
+from visual_rag_tpu_torch.retrieval import local, plans, wire
 from visual_rag_tpu_torch.retrieval.engine import SEARCH_MODES, STAGE1_MODES
 from visual_rag_tpu_torch.retrieval.filters import build_filter
 from visual_rag_tpu_torch.retrieval.oracle import strict_rank_equal
@@ -245,6 +253,99 @@ def test_pooled_wrappers_count_launches(dev):
         pt.pooled_maxsim_scores(vals, mask[:2], tokens, qmask)
     with pytest.raises(ValueError, match="store dtype"):
         pt.pooled_maxsim_scores(vals.double(), mask, tokens, qmask)
+
+
+# -- the pooled stage-1 (pooled_stage1_scores) ------------------------------------------
+
+
+def _stage1_inputs(dtype, dev, p, d, b, seed=0):
+    """A P-leading store with mask holes, doc 1 whose every row points away
+    from query 0 (dots near -1), docs d // 2 and d - 1 with no valid row;
+    int8 stores as codes with their row scales."""
+    rng = np.random.default_rng(seed)
+    vals = rng.standard_normal((p, d, DIM)).astype(np.float32)
+    vals /= np.linalg.norm(vals, axis=-1, keepdims=True)
+    pooled = rng.standard_normal((b, DIM)).astype(np.float32)
+    pooled /= np.linalg.norm(pooled, axis=-1, keepdims=True)
+    vals[:, 1] = -pooled[0]
+    mask = rng.random((p, d)) > 0.3
+    mask[0, :] = True
+    mask[:, [d // 2, d - 1]] = False
+    vals, scales = torch.from_numpy(vals), None
+    if dtype == torch.int8:
+        vals, scales = quantize_rows_int8(vals)
+        scales = scales.to(dev)
+    return (vals.to(dtype).to(dev), torch.from_numpy(mask).to(dev),
+            torch.from_numpy(pooled).to(dev), scales)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.int8])
+@pytest.mark.parametrize("b,d,p", [(1, 13, 1), (3, 1000, 10), (64, 13, 76), (1030, 1000, 32)])
+def test_pooled_stage1_matches_plain_and_is_deterministic(dev, dtype, b, d, p):
+    """The kernel against its plain version: batches of 1 to 1030 (five
+    256-query tiles, the last of 6), doc counts that are not a multiple of
+    the 32-doc tile, P 1 to 76 with holes; int8 codes with their scales.
+    Docs with no valid row score exactly 0; doc 1's negative dots give its
+    largest one for query 0; two calls are bit-equal."""
+    vals, mask, pooled, scales = _stage1_inputs(dtype, dev, p, d, b)
+    before = pt.pooled_stage1_scores.launches
+    got, again = (pt.pooled_stage1_scores(vals, mask, pooled, scales) for _ in range(2))
+    want = pt.pooled_stage1_scores_ref(vals, mask, pooled, scales)
+    torch.cuda.synchronize()
+    atol = INT8_ATOL if dtype == torch.int8 else ATOL[dtype]
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    assert torch.equal(got, again)
+    assert (got[:, ~mask.any(dim=0)] == 0).all()
+    assert float(got[0, 1]) < -0.5 and abs(float(got[0, 1] - want[0, 1])) <= atol
+    assert pt.pooled_stage1_scores.launches == before + 2
+
+
+def test_pooled_stage1_f32_store_keeps_the_matmul(dev):
+    """An f32 store takes the plain f32 loop (the tensor cores would need
+    TF32): no launch; the kernel's wrapper refuses it."""
+    vals, mask, pooled, _ = _stage1_inputs(torch.float32, dev, 4, 100, 8)
+    before = pt.pooled_stage1_scores.launches
+    got = local.local_pooled_padded({"vals_t": vals, "mask_t": mask}, pooled)
+    assert pt.pooled_stage1_scores.launches == before
+    assert torch.equal(got, pt.pooled_stage1_scores_ref(vals, mask, pooled))
+    with pytest.raises(ValueError, match="float32"):
+        pt.pooled_stage1_scores(vals, mask, pooled)
+    with pytest.raises(ValueError, match="dim"):
+        pt.pooled_stage1_scores(vals[..., :72].bfloat16().contiguous(), mask, pooled[:, :72])
+
+
+@pytest.mark.parametrize("storage_dtype", ["bfloat16", "float16", "int8"])
+def test_pooled_stage1_routes_through_the_kernel(dev, monkeypatch, storage_dtype):
+    """``two_stage`` with both pooled stage-1 modes and the alias, and
+    ``single_pooled`` and ``single_experimental_pooled``, batched and one query
+    through ``search_embedded``, launch the kernel and return the ids and
+    scores of the plain loop on the same card; ``three_stage`` does not
+    launch it."""
+    idx = synthetic_index(150, min_tokens=20, max_tokens=300, pooled_rows=6,
+                          storage_dtype=storage_dtype, seed=7, device="cpu").to(dev)
+    qs = _queries(np.random.default_rng(9), 40, 8, 24)
+    eng = RetrievalEngine(idx)
+    cuts = dict(top_k=10, prefetch_k=40, stage1_k=60, stage2_k=30, with_payload=False)
+    runs = [dict(mode="two_stage", stage1_mode=m) for m in (
+        "pooled_query_vs_standard_pooling", "pooled_query_vs_experimental_pooling",
+        "pooled_query_vs_tiles")] + [dict(mode="single_pooled"),
+                                     dict(mode="single_experimental_pooled")]
+    atol = INT8_ATOL if storage_dtype == "int8" else ATOL[torch.bfloat16]
+    for kw in runs:
+        key = "score" if kw["mode"].startswith("single_") else "score_final"
+        before = pt.pooled_stage1_scores.launches
+        got = eng.search_embedded_batch(qs, **kw, **cuts) + [eng.search_embedded(qs[0], **kw,
+                                                                                  **cuts)]
+        assert pt.pooled_stage1_scores.launches == before + 2, kw
+        with monkeypatch.context() as m:
+            m.setattr(local, "pooled_stage1_scores", pt.pooled_stage1_scores_ref)
+            want = eng.search_embedded_batch(qs, **kw, **cuts) + [
+                eng.search_embedded(qs[0], **kw, **cuts)]
+        for a, c in zip(got, want):
+            assert strict_rank_equal([dict(h, score=h[key]) for h in c], a, score_tol=atol), kw
+    before = pt.pooled_stage1_scores.launches
+    eng.search_embedded_batch(qs, mode="three_stage", **cuts)
+    assert pt.pooled_stage1_scores.launches == before
 
 
 @pytest.mark.parametrize("query_wire", ["padded", "packed"])

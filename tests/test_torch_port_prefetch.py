@@ -1,4 +1,4 @@
-"""The port's tokens-vs-pooled stage-1 (K5, K6, K7) on the CPU vs the JAX package.
+"""The port's stage-1 kernels over the pooled store on the CPU vs the JAX package.
 
 On CPU tensors the three entry points of ``ops/kernels/prefetch_topk.py``
 run their plain PyTorch version. They are held against the JAX Pallas
@@ -11,6 +11,10 @@ differs: 1e-5. Cases: P = 4, 13 and 76 pooled rows; 150 docs (not a
 multiple of the 128/256-doc blocks); random mask holes and two docs with no
 valid row (the last one included), which score 0; a partial qmask; pad
 rows in packed groups; with and without per-row scales.
+
+The pooled stage-1 (``pooled_stage1_scores``) on CPU tensors takes its plain
+version and equals the JAX package's ``_local_pooled_padded`` on bf16, f16
+and int8 stores (int8 with its row scales).
 """
 
 import jax.numpy as jnp
@@ -19,7 +23,12 @@ import pytest
 import torch
 
 from visual_rag_tpu.ops.kernels import prefetch_topk as jax_pt
-from visual_rag_tpu.parallel.sharded import _local_tokens_padded, _local_tokens_padded_packed
+from visual_rag_tpu.parallel.sharded import (
+    _local_pooled_padded,
+    _local_tokens_padded,
+    _local_tokens_padded_packed,
+)
+from visual_rag_tpu_torch.index.quantize import quantize_rows_int8
 from visual_rag_tpu_torch.ops.kernels import prefetch_topk as pt
 from visual_rag_tpu_torch.retrieval import wire
 
@@ -143,6 +152,33 @@ def test_row_weights_fold_into_the_sum():
         if owner >= 0:
             want[(m // rg) * 8 + owner] += w[m] * per_row[m]
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "int8"])
+def test_pooled_stage1_matches_jax(dtype):
+    """The pooled query against the P = 13 store with holes and two empty
+    docs: bf16 and f16 stores with queries rounded to their dtype, int8 codes
+    with bf16 queries and each similarity times its row's scale. Exact
+    products on both sides, f32 sums in another order: 1e-5."""
+    vals, mask, _ = _store(13)
+    rng = np.random.default_rng(5)
+    pooled = rng.standard_normal((6, DIM)).astype(np.float32)
+    pooled /= np.linalg.norm(pooled, axis=1, keepdims=True)
+    vals[:, 3] = -pooled[1]  # every dot of doc 3 for query 1 is near -1
+    if dtype == "int8":
+        codes, scales = quantize_rows_int8(_t(vals))
+        s1 = {"vals_t": codes, "mask_t": _t(mask), "scales_t": scales}
+        jax_s1 = {"vals_t": jnp.asarray(codes.numpy()), "mask_t": jnp.asarray(mask),
+                  "scales_t": jnp.asarray(scales.numpy())}
+    else:
+        s1 = {"vals_t": _t(vals).to(getattr(torch, dtype)), "mask_t": _t(mask)}
+        jax_s1 = {"vals_t": jnp.asarray(vals, dtype=dtype), "mask_t": jnp.asarray(mask)}
+    before = pt.pooled_stage1_scores.launches
+    got = pt.pooled_stage1_scores(s1["vals_t"], s1["mask_t"], _t(pooled), s1.get("scales_t"))
+    want = np.asarray(_local_pooled_padded(jax_s1, jnp.asarray(pooled)))
+    assert pt.pooled_stage1_scores.launches == before  # CPU tensors: the plain version
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert (got[:, list(EMPTY)] == 0).all() and float(got[1, 3]) < -0.5
 
 
 def test_wrappers_refuse_other_devices():

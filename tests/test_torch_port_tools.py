@@ -8,9 +8,10 @@ by element, with the PTX ISA's fragment layout written out here, and
 ``csrc/flash_mma.cuh``'s repacking of a logit tile's C fragments into the A
 fragment of the next product as a bf16 pair hi + lo; the emulator itself on
 ColQwen2.5's head dims and on a split head group (the CUDA sources of the lse
-forward, B4 and B5 run under g++ against their plain versions), and the bf16
+forward, B4 and B5 run under g++ against their plain versions), the bf16
 K10 (serving and with lse) on the tensor-core body at Dh 64 and 72 in this
-process."""
+process, and the pooled stage-1 (``csrc/pooled_stage1.cu``) through its
+wrapper on bf16, f16 and int8 stores against its plain version."""
 
 import ctypes
 import os
@@ -22,7 +23,11 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from visual_rag_tpu_torch.tools.emulate_kernels import emulated_source, write_sources
+from visual_rag_tpu_torch.tools.emulate_kernels import (
+    STAGE1_CASES,
+    emulated_source,
+    write_sources,
+)
 from visual_rag_tpu_torch.tools.sass_diff import ptxas_by_kernel, sass_by_kernel
 
 SASS = """
@@ -391,3 +396,24 @@ def test_emulated_bf16_k10_tensor_core_body(emulated_library, monkeypatch, dh, c
     fin = torch.isfinite(lse_p)
     assert float((lse - lse_p)[fin].abs().max()) <= LSE_ATOL
     assert torch.equal(out[0, lone], v[0, lone].repeat_interleave(hq // hkv, 0))
+
+
+@pytest.mark.parametrize("case", STAGE1_CASES, ids=["-".join(map(str, c)) for c in STAGE1_CASES])
+def test_emulated_pooled_stage1_matches_plain(emulated_library, monkeypatch, case):
+    """The pooled stage-1 from its CUDA source (``mma`` tiles in bf16 and
+    f16, int8 codes widened to bf16 in shared memory, the ``cp.async`` ring
+    with its mask words read from a 4-byte boundary) through
+    ``pooled_stage1_scores``: 13 to 200 docs (not multiples of the 32-doc
+    tile, odd and even), two query tiles, P 1 to 10 with holes, blocks that
+    walk several doc tiles (2 or 4 SMs), int8 with and without scales;
+    within 1e-5 of the plain version, empty docs 0, two calls bit-equal."""
+    from visual_rag_tpu_torch.ops.kernels import _build
+    from visual_rag_tpu_torch.ops.kernels import flash_attention as fa
+    from visual_rag_tpu_torch.ops.kernels import prefetch_topk as pt
+    from visual_rag_tpu_torch.tools.emulate_kernels import check_stage1, use_library
+
+    for module, name in ((_build, "load_library"), (fa, "on_cpu"), (fa, "stream_ptr"),
+                         (pt, "on_cpu"), (pt, "stream_ptr")):
+        monkeypatch.setattr(module, name, getattr(module, name))  # undone after the test
+    use_library(emulated_library)
+    assert check_stage1(*case)

@@ -1,7 +1,8 @@
 // Warp-level tensor-core building blocks for the bf16 instances of K10's forward
-// (flash_attention.cu) and of B4 and B5 (flash_attention_bwd.cu): the bf16
-// mma.sync m16n8k16 with f32 accumulation, ldmatrix (plain and .trans),
-// cp.async with zero-fill, and the MUFU's 2^x. Each is one small device function over fragment
+// (flash_attention.cu), of B4 and B5 (flash_attention_bwd.cu) and for the pooled
+// stage-1 (pooled_stage1.cu): mma.sync m16n8k16 in bf16 and in f16 with f32
+// accumulation, ldmatrix (plain and .trans), cp.async with zero-fill, and the
+// MUFU's 2^x. Each is one small device function over fragment
 // registers, so that tools/cuda_emu.h can model it on the CPU:
 // tools/emulate_kernels.py builds the kernels against that model in place of
 // this header.
@@ -28,6 +29,16 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
                                                uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The same with f16 operands (the same fragment layout).
+__device__ __forceinline__ void mma_f16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
@@ -70,6 +81,13 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool ful
 __device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool full) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+
+// 4 bytes, of which the first `bytes` (0 to 4) are read and the rest zero-filled.
+__device__ __forceinline__ void cp_async_4_partial(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes)
                : "memory");
 }
 

@@ -73,10 +73,19 @@ def _declare(lib):
     lib.vrt_pooled_maxsim_scores_packed.argtypes = [
         i32, vp, i32, vp, vp, i32, i32, vp, i32, i32, i32, i32, i32, i32, vp, vp, vp, vp]
     lib.vrt_pooled_maxsim_scores_packed.restype = i32
+    _declare_stage1(lib)
     _declare_flash(lib)
     lib.vrt_error_string.argtypes = [i32]
     lib.vrt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _declare_stage1(lib):
+    """The C interface of the pooled stage-1 (``pooled_stage1.cu``)."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.vrt_pooled_stage1_scores.argtypes = [
+        i32, vp, i32, vp, vp, i32, i32, i32, vp, i32, vp, vp]
+    lib.vrt_pooled_stage1_scores.restype = i32
 
 
 def _declare_flash(lib):

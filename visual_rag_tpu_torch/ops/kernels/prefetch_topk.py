@@ -1,4 +1,6 @@
-"""Tokens-vs-pooled stage-1: query token rows against every doc's pooled rows.
+"""The stage-1 kernels over the P-leading pooled store: query token rows (K5,
+K6, K7) or one pooled query vector (the pooled stage-1) against every doc's
+pooled rows.
 
 Port of ``visual_rag_tpu/ops/kernels/prefetch_topk.py``. Its three Pallas
 kernels compute one function and differ only in how the TPU grid walks the
@@ -33,6 +35,19 @@ entry point counting its launches of each:
   is also the function of the A/B prototype
   ``scripts/tpu_tokens_qdot_ab.py::main.make_v2`` (K9). The integer dots are
   exact in both versions, so the per-row maxima agree bit for bit.
+
+:func:`pooled_stage1_scores`, the pooled stage-1 (``csrc/pooled_stage1.cu``),
+replaces no TPU kernel: the JAX package leaves it to XLA
+(``visual_rag_tpu/parallel/sharded.py:341-351``), an einsum, a where and a
+max that XLA fuses on the TPU and that run as separate passes through
+device memory in plain PyTorch. The kernel is that fusion on the tensor
+cores; at the benchmark's shape (1024 queries, 200k docs, P 32, dim 128) a
+call is 1.68 TFLOP against a 1.64 GB store, so operations bound it, and it
+keeps each tile's scores in registers, masks them and takes the max over P
+before anything reaches memory (the source says how). On a CPU tensor it
+runs :func:`pooled_stage1_scores_ref`, the plain loop; f32 stores take that
+loop on the card too (``retrieval/local.py``), since the tensor cores would
+need TF32 for them.
 """
 
 from __future__ import annotations
@@ -56,6 +71,7 @@ _SIMS_BUDGET_BYTES = 256 * 1024 * 1024  # f32 [M, P, chunk] similarity tile per 
 _MAX_SMEM_BYTES = 227 * 1024  # shared memory one block may use on the H100
 _DOCS_PER_BLOCK = 64  # csrc PM_BD
 _ROW_THREADS = 16  # csrc PM_TY
+_STAGE1_DIM = 128  # csrc PS_DIM
 
 
 def pooled_maxsim_scores_packed(
@@ -203,6 +219,83 @@ def _launch(vals_t, mask_t, qpacked, qid, b, w, scales_t, qdot_int8) -> torch.Te
         ptr(out), stream_ptr(vals_t.device))
     _build.check(err, "pooled_maxsim_scores launch")
     return out
+
+
+def pooled_stage1_scores(
+    vals_t: torch.Tensor,  # [P, D, dim] P-leading pooled store (bf16/f16/int8 codes)
+    mask_t: torch.Tensor,  # [P, D] bool row validity
+    pooled: torch.Tensor,  # [B, dim] pooled query vectors
+    scales_t: Optional[torch.Tensor] = None,  # [P, D] f32 per-row scales
+) -> torch.Tensor:
+    """[B, D] f32: the max over each doc's valid pooled rows of the pooled
+    query's dot, times the row's scale; 0 for a doc with no valid row. The
+    plain version on a CPU store, else the kernel, counted on ``.launches``."""
+    if on_cpu(vals_t):
+        return pooled_stage1_scores_ref(vals_t, mask_t, pooled, scales_t)
+    out = _launch_stage1(vals_t, mask_t, pooled, scales_t)
+    pooled_stage1_scores.launches += 1
+    return out
+
+
+pooled_stage1_scores.launches = 0
+
+
+def _launch_stage1(vals_t, mask_t, pooled, scales_t) -> torch.Tensor:
+    """Check what the pooled stage-1 kernel takes, then launch it; raises on
+    anything else."""
+    if vals_t.dtype not in (torch.bfloat16, torch.float16, torch.int8):
+        raise ValueError(f"store dtype {vals_t.dtype} not supported by the pooled stage-1 "
+                         "kernel (bfloat16, float16, int8); float32 stores take "
+                         "pooled_stage1_scores_ref")
+    if vals_t.dim() != 3 or not vals_t.is_contiguous() or vals_t.data_ptr() % 16:
+        raise ValueError("vals_t must be a contiguous, 16-byte aligned [P, D, dim] tensor")
+    p, d, dim = vals_t.shape
+    if dim != _STAGE1_DIM:
+        raise ValueError(f"dim {dim} not supported by the pooled stage-1 kernel "
+                         f"({_STAGE1_DIM} only)")
+    if p == 0 or tuple(mask_t.shape) != (p, d):
+        raise ValueError(f"mask_t must be [{p}, {d}] with P > 0, got {tuple(mask_t.shape)}")
+    if pooled.dim() != 2 or pooled.shape[1] != dim:
+        raise ValueError(f"pooled must be [B, {dim}], got {tuple(pooled.shape)}")
+    if scales_t is not None and (scales_t.dtype != torch.float32
+                                 or tuple(scales_t.shape) != (p, d)):
+        raise ValueError(f"scales_t must be a float32 [{p}, {d}] tensor")
+    for name, t in (("mask_t", mask_t), ("pooled", pooled), ("scales_t", scales_t)):
+        if t is not None and t.device != vals_t.device:
+            raise ValueError(f"{name} is on {t.device}, the store on {vals_t.device}")
+    q = pooled.to(compute_dtype(vals_t.dtype)).contiguous()
+    if q.data_ptr() % 16:
+        q = q.clone()
+    m = mask_t.to(torch.bool).contiguous()
+    if m.data_ptr() % 4:
+        m = m.clone()
+    sc = None if scales_t is None else scales_t.contiguous()
+    b = q.shape[0]
+    out = torch.empty((b, d), dtype=torch.float32, device=vals_t.device)
+    if b == 0 or d == 0:
+        return out
+    err = _build.load_library().vrt_pooled_stage1_scores(
+        vals_t.device.index, ptr(vals_t), DTYPE_CODES[vals_t.dtype], ptr(m), ptr(sc), p, d,
+        dim, ptr(q), b, ptr(out), stream_ptr(vals_t.device))
+    _build.check(err, "pooled_stage1_scores launch")
+    return out
+
+
+def pooled_stage1_scores_ref(vals_t, mask_t, pooled, scales_t=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`pooled_stage1_scores`, the JAX
+    package's ``_local_pooled_padded``. The query is rounded to the store's
+    compute dtype (bf16 for int8 codes), then the product is f32, times the
+    row's scale, before the max; one ``torch.matmul`` per pooled row with a
+    running max bounds the transient to one [B, D] tile."""
+    q = pooled.to(compute_dtype(vals_t.dtype)).float()
+    out = None
+    for p in range(vals_t.shape[0]):
+        s = q @ vals_t[p].float().T
+        if scales_t is not None:
+            s = s * scales_t[p][None, :]
+        s = s.masked_fill(~mask_t[p].bool()[None, :], NEG_INF)
+        out = s if out is None else torch.maximum(out, s)
+    return torch.where(mask_t.bool().any(dim=0)[None, :], out, 0.0)
 
 
 def pooled_maxsim_scores_packed_ref(vals_t, mask_t, qpacked, qid, b: int, w=None,

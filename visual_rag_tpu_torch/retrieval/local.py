@@ -3,10 +3,13 @@
 Port of the shard-local bodies in ``visual_rag_tpu/parallel/sharded.py``
 (the single-device engine is their one-shard case):
 
-- :func:`local_pooled_padded` <- ``_local_pooled_padded`` (``:341-351``), a
-  plain product over the P-leading pooled store. XLA computed it outside
-  any kernel, so here it is a ``torch.matmul``, one per pooled row with a
-  running max, which bounds the transient to one [B, D] tile.
+- :func:`local_pooled_padded` <- ``_local_pooled_padded`` (``:341-351``), the
+  pooled query against the P-leading pooled store. XLA fused its einsum,
+  where and max on the TPU; here that fusion is a kernel on the tensor
+  cores (``pooled_stage1_scores``, ``ops/kernels/prefetch_topk.py``) for
+  bf16, f16 and int8 stores. An f32 store keeps the plain loop of f32
+  ``torch.matmul``s, one per pooled row with a running max: the tensor
+  cores would need TF32 for it.
 - :func:`local_rerank` <- ``_local_rerank`` (``:425-530``), every branch:
   ``plain`` (K2), ``dedup`` (K3), ``sweep`` (K4) and ``scan`` (K1). The
   ``lax.map`` query chunking of all three reranks and the 56k-entry and
@@ -63,6 +66,8 @@ from visual_rag_tpu_torch.ops.kernels.prefetch_topk import (
     pooled_maxsim_scores,
     pooled_maxsim_scores_packed,
     pooled_maxsim_scores_qbatch,
+    pooled_stage1_scores,
+    pooled_stage1_scores_ref,
 )
 from visual_rag_tpu_torch.ops.kernels.refine import refine_rerank, refine_window
 
@@ -93,18 +98,12 @@ def local_pooled_padded(s1: Dict, pooled: torch.Tensor) -> torch.Tensor:
     The query is rounded to the store's compute dtype (the TPU engine's
     bf16 compute; bf16 for int8 codes), then the product is f32, times the
     row's scale on an int8 store, before the max. Docs without rows score 0.
+    The store's dtype picks the path: the f32 matmul loop for f32, the
+    kernel for the others.
     """
-    vals_t, mask_t = s1["vals_t"], s1["mask_t"]  # [P, D, dim], [P, D] bool
-    scales_t = s1.get("scales_t")  # [P, D] f32 for int8 codes
-    q = pooled.to(compute_dtype(vals_t.dtype)).float()
-    out = None
-    for p in range(vals_t.shape[0]):
-        s = q @ vals_t[p].float().T
-        if scales_t is not None:
-            s = s * scales_t[p][None, :]
-        s = s.masked_fill(~mask_t[p][None, :], NEG_INF)
-        out = s if out is None else torch.maximum(out, s)
-    return torch.where(mask_t.any(dim=0)[None, :], out, 0.0)
+    vals_t = s1["vals_t"]  # [P, D, dim]; mask_t [P, D] bool; scales_t [P, D] f32 for int8
+    fn = pooled_stage1_scores_ref if vals_t.dtype == torch.float32 else pooled_stage1_scores
+    return fn(vals_t, s1["mask_t"], pooled, s1.get("scales_t"))
 
 
 def local_pooled_single(s1: Dict, pooled: torch.Tensor) -> torch.Tensor:

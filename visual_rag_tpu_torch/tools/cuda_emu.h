@@ -13,12 +13,14 @@
 //   under -fsanitize=address a read past the end stops the run;
 // - bf16 converts with round-to-nearest-even, fmaf is std::fma, as on the card;
 // - the tensor-core building blocks of csrc/mma_tiles.cuh (mma.sync m16n8k16 in
-//   bf16 with f32 accumulation, ldmatrix plain and .trans, cp.async): mma and
+//   bf16 and in f16 with f32 accumulation, ldmatrix plain and .trans, cp.async,
+//   also with a partial source): mma and
 //   ldmatrix exchange fragments (or row addresses) through a block-wide buffer
 //   after a barrier, as __shfl_xor_sync does, so every thread of the block must
 //   reach them, as in the kernels; cp.async is a synchronous copy that honours
-//   src-size (zeros where it is 0), and commit_group / wait_group do nothing;
-//   ex2.approx is std::exp2 (the card's rounds within about 2^-22).
+//   src-size (zeros past it), and commit_group / wait_group do nothing;
+//   ex2.approx is std::exp2 (the card's rounds within about 2^-22); a streaming
+//   store (__stcs) is a plain store.
 // emulate_kernels.py rewrites each `k<<<grid, block, smem, stream>>>(args)` into
 // emu_launch(dim3(grid), block, smem, k, args) and `extern __shared__ ... smem[]`
 // into a pointer to the launch's buffer, and builds the kernels with this file
@@ -80,8 +82,9 @@ cudaError_t cudaFuncSetAttribute(K, int, int bytes) {
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
+inline int emu_sms = 132;  // the H100 SXM's SMs; fewer make small grids walk more work
 inline cudaError_t cudaDeviceGetAttribute(int* value, int, int) {
-  *value = 132;  // the H100 SXM's SMs
+  *value = emu_sms;
   return cudaSuccess;
 }
 
@@ -166,6 +169,19 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
   return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)};
 }
 
+struct __half { uint16_t v; };
+inline float emu_f16_to_float(uint16_t h) {
+  const int e = (h >> 10) & 31, m = h & 1023;
+  const float mag = e == 0    ? std::ldexp(float(m), -24)
+                    : e == 31 ? (m ? std::numeric_limits<float>::quiet_NaN()
+                                   : std::numeric_limits<float>::infinity())
+                              : std::ldexp(float(m | 1024), e - 25);
+  return h >> 15 ? -mag : mag;
+}
+
+inline void __stcs(float* p, float v) { *p = v; }
+inline void __stcs(float2* p, float2 v) { *p = v; }
+
 // The tensor-core building blocks (csrc/mma_tiles.cuh). A call publishes this
 // thread's words in one of two slots, which alternate from call to call, and
 // waits for the block; it then reads the words of its warp's lanes. One barrier
@@ -185,10 +201,15 @@ inline float emu_bf16_half(uint64_t word, int high) {
   return emu_bf16_to_float({uint16_t(word >> (16 * high))});
 }
 
-// d += a b over the warp's fragments (layout in csrc/mma_tiles.cuh); each D
-// element is summed exactly in double (the products of bf16 are exact) and
-// rounded to f32 once.
-inline void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+inline float emu_f16_half(uint64_t word, int high) {
+  return emu_f16_to_float(uint16_t(word >> (16 * high)));
+}
+
+// d += a b over the warp's fragments (layout in csrc/mma_tiles.cuh), the halves
+// of each word decoded by HALF; each D element is summed exactly in double (the
+// products of bf16 or f16 are exact) and rounded to f32 once.
+template <float (*HALF)(uint64_t, int)>
+inline void emu_mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
   const uint64_t words[6] = {a[0], a[1], a[2], a[3], b0, b1};
   uint64_t(*slot)[6] = emu_exchange(words, 6);
   const int warp = threadIdx.x & ~31, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -197,14 +218,20 @@ inline void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, u
     double acc = d[i];
     for (int k = 0; k < 16; ++k) {
       // A[row][k]: lane (row % 8, (k % 8) / 2), register row / 8 + 2 (k / 8), half k % 2
-      const float x = emu_bf16_half(
-          slot[warp + (row & 7) * 4 + ((k & 7) >> 1)][(row >> 3) + 2 * (k >> 3)], k & 1);
+      const float x =
+          HALF(slot[warp + (row & 7) * 4 + ((k & 7) >> 1)][(row >> 3) + 2 * (k >> 3)], k & 1);
       // B[k][col]: lane (col, (k % 8) / 2), register k / 8, half k % 2
-      const float y = emu_bf16_half(slot[warp + col * 4 + ((k & 7) >> 1)][4 + (k >> 3)], k & 1);
+      const float y = HALF(slot[warp + col * 4 + ((k & 7) >> 1)][4 + (k >> 3)], k & 1);
       acc += double(x) * double(y);
     }
     d[i] = float(acc);
   }
+}
+inline void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  emu_mma_16816<emu_bf16_half>(d, a, b0, b1);
+}
+inline void mma_f16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  emu_mma_16816<emu_f16_half>(d, a, b0, b1);
 }
 
 // ldmatrix m8n8 of N matrices (b16), transposed if TRANS.
@@ -231,6 +258,10 @@ inline void cp_async_16(void* dst, const void* src, bool full) {
 inline void cp_async_4(void* dst, const void* src, bool full) {
   if (full) std::memcpy(dst, src, 4);
   else std::memset(dst, 0, 4);
+}
+inline void cp_async_4_partial(void* dst, const void* src, int bytes) {
+  std::memset(dst, 0, 4);
+  std::memcpy(dst, src, bytes);
 }
 inline float ex2_approx(float x) { return std::exp2(x); }  // the card's rounds within 2^-22
 inline void cp_async_commit() {}

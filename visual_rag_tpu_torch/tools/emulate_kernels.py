@@ -1,15 +1,17 @@
-"""Run the flash-attention kernels' CUDA sources on the CPU, against their plain versions.
+"""Run the tensor-core kernels' CUDA sources on the CPU, against their plain versions.
 
     python visual_rag_tpu_torch/tools/emulate_kernels.py [--asan] [DH,T,HQ,HKV,CAUSAL,TILE ...]
+    python visual_rag_tpu_torch/tools/emulate_kernels.py --stage1 [--asan] [B,D,P,DTYPE,SCALED,SMS ...]
 
-compiles ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` with
-g++ against ``tools/cuda_emu.h`` (a CPU model of the CUDA launch: threads,
-barriers, shuffles, NaN-filled shared memory of the launch's exact size, and
-of the tensor-core building blocks of ``csrc/mma_tiles.cuh``: ``mma.sync``
-m16n8k16 in bf16 with the PTX fragment layout, ``ldmatrix`` plain and
+compiles ``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu`` and
+``csrc/pooled_stage1.cu`` with g++ against ``tools/cuda_emu.h`` (a CPU model
+of the CUDA launch: threads, barriers, shuffles, NaN-filled shared memory of
+the launch's exact size, the SM count the grid is sized by, and the
+tensor-core building blocks of ``csrc/mma_tiles.cuh``: ``mma.sync`` m16n8k16
+in bf16 and f16 with the PTX fragment layout, ``ldmatrix`` plain and
 ``.trans``, ``cp.async`` with zero-fill) into ``build/kernels/emu/``, points
-the wrappers of
-``ops/kernels/flash_attention.py`` at that library for CPU tensors, and holds
+the wrappers of ``ops/kernels/flash_attention.py`` and
+``ops/kernels/prefetch_topk.py`` at that library for CPU tensors, and holds
 K10 (serving and with lse), B4 and B5 against their plain versions in f32
 and bf16, at the limits of ``chip_smoke.py`` (``K10_TOL``, ``BWD_TOL``,
 ``LSE_ATOL``). Each case is ``DH,T,HQ,HKV,CAUSAL,TILE`` (TILE: rows a
@@ -18,6 +20,8 @@ segment, or None for two segments; then pads), as in
 In bf16 the grouped cases split B4's head groups over more blocks, as
 ``csrc/flash_attention_bwd.cu`` does on the H100's 132 SMs (the last two at
 the 8-head groups of ColPali's and ColQwen2.5's text).
+``--stage1`` holds the pooled stage-1 instead (``check_stage1``, the cases of
+``STAGE1_CASES``: queries, docs, pooled rows, store dtype, scales, SMs).
 ``--asan`` builds with AddressSanitizer, which must be preloaded:
 ``LD_PRELOAD=$(gcc -print-file-name=libasan.so) ASAN_OPTIONS=detect_leaks=0``.
 
@@ -39,11 +43,18 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
-SOURCES = ("flash_common.cuh", "flash_mma.cuh", "flash_attention.cu", "flash_attention_bwd.cu")
+SOURCES = ("flash_common.cuh", "flash_mma.cuh", "flash_attention.cu", "flash_attention_bwd.cu",
+           "pooled_stage1.cu")
 CASES = ((64, 130, 3, 1, True, None), (72, 150, 4, 4, False, None), (72, 200, 2, 2, True, 64),
          (80, 100, 2, 2, False, None), (80, 200, 2, 2, False, 64), (128, 90, 4, 2, True, None),
          (256, 100, 8, 1, False, None), (256, 150, 2, 1, True, 40),
          (256, 150, 8, 1, False, None), (128, 300, 16, 2, True, None))
+# the pooled stage-1: (queries, docs, pooled rows, store dtype, scaled, SMs); docs that
+# are not a multiple of the 32-doc tile, odd and even; two query tiles; blocks that walk
+# several doc tiles (few SMs); P = 1; int8 codes with and without scales
+STAGE1_CASES = ((3, 13, 1, "bf16", False, 132), (70, 100, 10, "f16", False, 132),
+                (300, 45, 4, "int8", True, 132), (5, 200, 3, "bf16", False, 4),
+                (9, 64, 5, "int8", False, 2))
 
 
 def emulated_source(text: str) -> str:
@@ -64,7 +75,8 @@ def write_sources(dst: Path) -> None:
     for name in SOURCES:
         text = (ROOT / "visual_rag_tpu_torch" / "csrc" / name).read_text()
         (dst / name).write_text(emulated_source(text))
-    for header in ("cuda_runtime.h", "cuda_bf16.h", "math_constants.h", "mma_tiles.cuh"):
+    for header in ("cuda_runtime.h", "cuda_bf16.h", "cuda_fp16.h", "math_constants.h",
+                   "mma_tiles.cuh"):
         (dst / header).write_text('#pragma once\n#include "cuda_emu.h"\n')
 
 
@@ -72,33 +84,41 @@ def build(asan: bool, out: Path = ROOT / "build" / "kernels" / "emu") -> Path:
     """The emulated library, built in ``out``."""
     write_sources(out / "src")
     (out / "src" / "errors.cpp").write_text(
-        'extern "C" const char* vrt_error_string(int) { return "emulated launch refused"; }\n')
+        '#include "cuda_emu.h"\n'
+        'extern "C" const char* vrt_error_string(int) { return "emulated launch refused"; }\n'
+        'extern "C" void vrt_emu_set_sms(int n) { emu_sms = n; }\n')
     lib = out / ("libemu_asan.so" if asan else "libemu.so")
     flags = ["-fsanitize=address", "-fno-omit-frame-pointer"] if asan else []
     cmd = ["g++", "-std=c++20", "-O2", "-g", "-fPIC", "-shared",
            "-fno-strict-aliasing", *flags, "-I", str(out / "src"),
            "-I", str(Path(__file__).resolve().parent), "-o", str(lib), "-x", "c++",
            str(out / "src" / "flash_attention.cu"), str(out / "src" / "flash_attention_bwd.cu"),
-           str(out / "src" / "errors.cpp")]
+           str(out / "src" / "pooled_stage1.cu"), str(out / "src" / "errors.cpp")]
     subprocess.run(cmd, check=True)
     return lib
 
 
 def use_library(lib_path: Path):
-    """Point the wrappers' kernel path at the emulated library for CPU tensors."""
+    """Point the wrappers' kernel path at the emulated library for CPU tensors:
+    the flash-attention wrappers' and the pooled stage-1's (``prefetch_topk``)."""
     from visual_rag_tpu_torch.ops.kernels import _build
     from visual_rag_tpu_torch.ops.kernels import flash_attention as fa
+    from visual_rag_tpu_torch.ops.kernels import prefetch_topk as pt
 
     lib = ctypes.CDLL(str(lib_path))
     _build._declare_flash(lib)
+    _build._declare_stage1(lib)
     for fn in (lib.vrt_flash_attention, lib.vrt_flash_attention_bwd_dkv,
-               lib.vrt_flash_attention_bwd_dq, lib.vrt_flash_attention_bwd_dkv_scratch):
+               lib.vrt_flash_attention_bwd_dq, lib.vrt_flash_attention_bwd_dkv_scratch,
+               lib.vrt_pooled_stage1_scores):
         fn.argtypes = [ctypes.c_void_p, *fn.argtypes[1:]]  # a CPU tensor's device index: None
     lib.vrt_error_string.argtypes = [ctypes.c_int]
     lib.vrt_error_string.restype = ctypes.c_char_p
+    lib.vrt_emu_set_sms.argtypes = [ctypes.c_int]
     _build.load_library = lambda: lib
-    fa.on_cpu = lambda t: False
-    fa.stream_ptr = lambda device: ctypes.c_void_p(None)
+    for mod in (fa, pt):
+        mod.on_cpu = lambda t: False
+        mod.stream_ptr = lambda device: ctypes.c_void_p(None)
     return fa
 
 
@@ -168,12 +188,68 @@ def check(fa, dh, t, hq, hkv, causal, tile) -> bool:
     return ok
 
 
+STAGE1_DTYPES = {"bf16": "bfloat16", "f16": "float16", "int8": "int8"}
+
+
+def check_stage1(b, d, p, dtype, scaled, sms) -> bool:
+    """The pooled stage-1 kernel through its wrapper against its plain
+    version: within 1e-5 (the emulated ``mma`` sums exactly; only the plain
+    version's f32 order differs), docs with no valid row exactly 0, two
+    calls bit-equal, one launch counted a call."""
+    import numpy as np
+    import torch
+
+    from visual_rag_tpu_torch.index.quantize import quantize_rows_int8
+    from visual_rag_tpu_torch.ops.kernels import _build
+    from visual_rag_tpu_torch.ops.kernels import prefetch_topk as pt
+
+    _build.load_library().vrt_emu_set_sms(sms)
+    rng = np.random.default_rng(b * 1000 + d + p)
+    vals = torch.from_numpy(rng.standard_normal((p, d, 128)).astype(np.float32))
+    vals = torch.nn.functional.normalize(vals, dim=-1)
+    mask = torch.from_numpy(rng.random((p, d)) > 0.3)
+    mask[:, [0, d - 1]] = False  # docs with no valid row, the last one included
+    pooled = torch.nn.functional.normalize(
+        torch.from_numpy(rng.standard_normal((b, 128)).astype(np.float32)), dim=-1)
+    pooled[0] = -pooled[0]  # a query whose dots are mostly of the other sign
+    scales = None
+    if dtype == "int8":
+        vals, row_scales = quantize_rows_int8(vals)
+        scales = row_scales if scaled else None
+    else:
+        vals = vals.to(getattr(torch, STAGE1_DTYPES[dtype]))
+    t0 = time.perf_counter()
+    before = pt.pooled_stage1_scores.launches
+    got, again = (pt.pooled_stage1_scores(vals, mask, pooled, scales) for _ in range(2))
+    want = pt.pooled_stage1_scores_ref(vals, mask, pooled, scales)
+    err = float((got - want).abs().max())
+    empty = ~mask.any(dim=0)
+    good = (err <= 1e-5 and torch.equal(got, again) and bool((got[:, empty] == 0).all())
+            and pt.pooled_stage1_scores.launches == before + 2)
+    print(f"stage1 B {b} D {d} P {p} {dtype}{' scaled' if scales is not None else ''} "
+          f"{sms} SMs: max abs err {err:.3g} ({time.perf_counter() - t0:.1f} s) "
+          f"{'ok' if good else 'FAIL'}", flush=True)
+    return good
+
+
+def stage1_case(text: str):
+    """``B,D,P,DTYPE,SCALED,SMS`` as a case of ``STAGE1_CASES``."""
+    b, d, p, dtype, scaled, sms = text.split(",")
+    return int(b), int(d), int(p), dtype, scaled == "True", int(sms)
+
+
 def main(argv) -> int:
     sys.path.insert(0, str(ROOT))
     asan = "--asan" in argv
-    cases = [tuple(eval(c)) for c in argv if c != "--asan"] or CASES
+    stage1 = "--stage1" in argv
+    args = [c for c in argv if c not in ("--asan", "--stage1")]
     fa = use_library(build(asan))
-    ok = all([check(fa, *case) for case in cases])
+    if stage1:
+        cases = [stage1_case(c) for c in args] or STAGE1_CASES
+        ok = all([check_stage1(*case) for case in cases])
+    else:
+        cases = [tuple(eval(c)) for c in args] or CASES
+        ok = all([check(fa, *case) for case in cases])
     print("all cases within their limits" if ok else "SOME CASES FAILED")
     return 0 if ok else 1
 
