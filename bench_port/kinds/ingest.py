@@ -27,7 +27,6 @@ import numpy as np
 import torch
 
 from bench_port.lib import common, model_work, weights
-from bench_port.lib.program_config import program_config
 from bench_port.lib.trace import DeviceTrace
 
 K10_KERNELS = ("flash_fwd_mma_kernel", "flash_fwd_kernel", "seg_tile_range")
@@ -53,11 +52,11 @@ def call_pages(p: Dict, pool, call: int) -> List[np.ndarray]:
     return out
 
 
-def serving_state(cfg: Dict, pcfg, seed: int, dev) -> Dict[str, torch.Tensor]:
+def serving_state(table, pcfg, seed: int, dev) -> Dict[str, torch.Tensor]:
     from visual_rag_tpu_torch.models.colvlm import ColVLM
 
     dtypes = {k: v.dtype for k, v in ColVLM(pcfg, device="meta").state_dict().items()}
-    flat, params = weights.draw(cfg, seed, dev)
+    flat, params = weights.draw(table, seed, dev)
     weights.check_names(params, ColVLM(pcfg, device="meta").state_dict())
     out = {k: v.to(dtypes[k]) for k, v in params.items()}
     del flat, params
@@ -70,10 +69,12 @@ def run(ctx: common.RunContext) -> common.Outcome:
     from visual_rag_tpu_torch.pipeline.vectors import experimental_vector_plan, page_vectors
 
     cfg, p, dev = ctx.cell.config, ctx.params, ctx.device
+    arch = ctx.cell.arch
     marks = common.Marks()
-    pcfg = program_config(cfg)
+    pcfg = arch.program_config(cfg)
     embedder = VisualEmbedder(p["model_name"], batch_size=int(p["batch"]), config=pcfg,
-                              params=serving_state(cfg, pcfg, ctx.seed, dev), device=dev)
+                              params=serving_state(arch.leaves(cfg), pcfg, ctx.seed, dev),
+                              device=dev)
     builder = IndexBuilder(CollectionSchema.standard(
         experimental_names=experimental_vector_plan(embedder.backend)["names"]))
     pool = page_pool(p, ctx.seed)
@@ -108,18 +109,18 @@ def run(ctx: common.RunContext) -> common.Outcome:
     ref = ctx.cell.reference_module()
     facts: Dict = {"trace": tr, "window_s": window, "calls": calls}
     if ctx.trace:
-        flops = least = 0.0
+        bs, n_prompt = int(p["batch"]), len(ref.prompt_ids(pcfg.text.vocab))
+        forwards = []
         for c in range(calls):
-            for b in range(int(p["call_pages"]) // int(p["batch"])):
+            for b in range(int(p["call_pages"]) // bs):
                 lay = []
-                for img in call_pages(p, pool, c)[b * int(p["batch"]):(b + 1) * int(p["batch"])]:
+                for img in call_pages(p, pool, c)[b * bs:(b + 1) * bs]:
                     pg = ref.process_page(img, cfg)
-                    pg["n_prompt"] = len(ref.prompt_ids(pcfg.text.vocab))
-                    lay.append(model_work.page_layout(cfg, pg))
-                flops += model_work.forward_flops(cfg, lay, [])
-                least += model_work.attention_least_s(
-                    model_work.attention_calls(cfg, lay, []), forwards=1, backward=False)
-        facts.update(model_flops=flops, attention_least_s=least, attention_kernels=K10_KERNELS)
+                    pg["n_prompt"] = n_prompt
+                    lay.append(model_work.page_layout(pg))
+                forwards.append((lay, []))
+        facts.update(config=cfg, arch=arch, forwards=forwards, attention_kernels=K10_KERNELS,
+                     **model_work.window_work(arch, cfg, forwards, 1, False))
     pick = ref_sample(len(kept), int(p["sample"]), ctx.seed)
     chosen = [kept[i] for i in pick]
     del embedder, builder
@@ -149,7 +150,7 @@ def compare_pages(ctx: common.RunContext, pool, chosen) -> Dict[str, float]:
     sampled pages."""
     cfg, p, dev = ctx.cell.config, ctx.params, ctx.device
     ref = ctx.cell.reference_module()
-    _, params = weights.draw(cfg, ctx.seed, dev)
+    _, params = weights.draw(ctx.cell.arch.leaves(cfg), ctx.seed, dev)
     model = ref.Reference(cfg, params)
     token_gap = pooled_gap = 0.0
     with ref.exact_f32(), torch.no_grad():
@@ -176,7 +177,7 @@ def control(ctx: common.RunContext) -> Dict[str, float]:
     cfg, p, dev = ctx.cell.config, ctx.params, ctx.device
     ref = ctx.cell.reference_module()
     pool = page_pool(p, ctx.seed)
-    _, params = weights.draw(cfg, ctx.seed, dev)
+    _, params = weights.draw(ctx.cell.arch.leaves(cfg), ctx.seed, dev)
     f32, fp8 = ref.Reference(cfg, params), ref.Reference(cfg, params, precision="fp8")
     token_gap = pooled_gap = 0.0
     with ref.exact_f32(), torch.no_grad():

@@ -35,7 +35,6 @@ import torch
 
 from bench_port.lib import common, model_work, weights
 from bench_port.lib.corpus import spread
-from bench_port.lib.program_config import processor_for, program_config
 from bench_port.lib.trace import DeviceTrace
 
 ATTENTION_KERNELS = ("flash_fwd_lse", "flash_bwd_", "seg_tile_range")
@@ -68,6 +67,17 @@ def program_batch(processor, raw: Dict) -> Dict:
     if proc.window_ids is not None:
         batch["window_ids"] = proc.window_ids
     return batch
+
+
+def processor_for(backend: str, pcfg):
+    """The program's image processor as its embedder builds it."""
+    from visual_rag_tpu_torch.models.processors import ImageProcessor
+
+    ratio = max(pcfg.spatial_merge ** 2, pcfg.vision.pixel_shuffle ** 2, 1)
+    return ImageProcessor(backend=backend, image_token_id=pcfg.image_token_id,
+                          patch_pixels=pcfg.vision.patch_pixels, vocab=pcfg.text.vocab,
+                          max_visual_tokens=pcfg.vision.max_patches // ratio,
+                          pixel_shuffle=pcfg.vision.pixel_shuffle)
 
 
 def window_pool(p: Dict, vocab: int, seed: int, start: int) -> List[Dict]:
@@ -108,17 +118,13 @@ def recorded_loss_inputs(got: Dict, plant_half: bool = False):
         train_mod.colbert_infonce_loss = inner
 
 
-def reference_batch(ref, cfg: Dict, raw: Dict) -> Dict:
+def reference_batch(ref, cfg: Dict, vocab: int, raw: Dict) -> Dict:
     pages = []
     for img in raw["pages"]:
         pg = ref.process_page(img, cfg)
-        pg["n_prompt"] = len(ref.prompt_ids(vocab_of(cfg)))
+        pg["n_prompt"] = len(ref.prompt_ids(vocab))
         pages.append(pg)
     return {"pages": pages, "queries": raw["queries"]}
-
-
-def vocab_of(cfg: Dict) -> int:
-    return cfg.get("vocab_size") or cfg["text_config"]["vocab_size"]
 
 
 def loss_gaps(ref, losses: List[float], loss_inputs: List, temperature: float) -> List[float]:
@@ -173,12 +179,13 @@ def reference_readings(ctx: common.RunContext) -> Dict:
     change norms over the first ``check_steps`` batches, from the seed
     alone."""
     cfg, p, dev = ctx.cell.config, ctx.params, ctx.device
-    ref = ctx.cell.reference_module()
-    _, params = weights.draw(cfg, ctx.seed, dev)
-    batches = [reference_batch(ref, cfg, raw_batch(p, vocab_of(cfg), ctx.seed, i))
+    arch, ref = ctx.cell.arch, ctx.cell.reference_module()
+    table, vocab = arch.leaves(cfg), arch.vocab(cfg)
+    _, params = weights.draw(table, ctx.seed, dev)
+    batches = [reference_batch(ref, cfg, vocab, raw_batch(p, vocab, ctx.seed, i))
                for i in range(int(p["check_steps"]))]
     out = ref.train_steps(cfg, params, batches, float(p["lr"]), float(p["temperature"]))
-    out["delta_norms"] = weights.initial_norms_of_change(cfg, ctx.seed, params)
+    out["delta_norms"] = weights.initial_norms_of_change(table, ctx.seed, params)
     return out
 
 
@@ -189,17 +196,19 @@ def checked_steps(ctx: common.RunContext, plant_half: bool = False):
     from visual_rag_tpu_torch.models.train import Trainer
 
     cfg, p, dev = ctx.cell.config, ctx.params, ctx.device
+    arch = ctx.cell.arch
+    table = arch.leaves(cfg)
     marks = common.Marks()
-    pcfg = program_config(cfg, remat=bool(p["remat"]))
+    pcfg = arch.program_config(cfg, remat=bool(p["remat"]))
     trainer = Trainer(pcfg, lr=float(p["lr"]), temperature=float(p["temperature"]),
                       warmup=0, device=dev)
-    _, params = weights.draw(cfg, ctx.seed, dev)
+    _, params = weights.draw(table, ctx.seed, dev)
     weights.check_names(params, trainer.model.state_dict())
     state = trainer.init_state(params=params)
     del params
     marks("weights and optimizer state")
     step_fn = trainer.make_train_step()
-    processor = processor_for(cfg, pcfg)
+    processor = processor_for(arch.BACKEND, pcfg)
     got: Dict = {"loss": [], "marks": marks}
     n_check = int(p["check_steps"])
     with recorded_loss_inputs(got, plant_half):
@@ -212,7 +221,7 @@ def checked_steps(ctx: common.RunContext, plant_half: bool = False):
                 got["grad_norms"] = {k: float(torch.linalg.vector_norm(m.double())) / (1 - b1)
                                      for k, m in state.opt_state.mu.items()}
     marks(f"{n_check} checked steps")
-    got["delta_norms"] = weights.initial_norms_of_change(cfg, ctx.seed, state.params)
+    got["delta_norms"] = weights.initial_norms_of_change(table, ctx.seed, state.params)
     marks("change norms")
     return trainer, state, step_fn, processor, got
 
@@ -225,9 +234,10 @@ def free(dev) -> None:
 
 def run(ctx: common.RunContext) -> common.Outcome:
     cfg, p, dev = ctx.cell.config, ctx.params, ctx.device
+    arch = ctx.cell.arch
     trainer, state, step_fn, processor, got = checked_steps(ctx)
     marks = got.pop("marks")
-    pool = window_pool(p, vocab_of(cfg), ctx.seed, int(p["check_steps"]))
+    pool = window_pool(p, arch.vocab(cfg), ctx.seed, int(p["check_steps"]))
     marks(f"{len(pool)} window batches drawn")
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -255,17 +265,15 @@ def run(ctx: common.RunContext) -> common.Outcome:
     facts: Dict = {"trace": tr, "window_s": window, "steps": steps}
     if ctx.trace:
         ref = ctx.cell.reference_module()
-        fwd = bwd_att = 0.0
+        forwards = []
         for raw in layouts:
-            rb = reference_batch(ref, cfg, raw)
-            lay = [model_work.page_layout(cfg, pg) for pg in rb["pages"]]
-            qlens = [len(q) for q in raw["queries"]]
-            fwd += model_work.forward_flops(cfg, lay, qlens)
-            calls = model_work.attention_calls(cfg, lay, qlens)
-            bwd_att += model_work.attention_least_s(calls, forwards=2 if p["remat"] else 1,
-                                                    backward=True)
-        facts.update(model_flops=3.0 * fwd, attention_least_s=bwd_att,
-                     attention_kernels=ATTENTION_KERNELS)
+            rb = reference_batch(ref, cfg, arch.vocab(cfg), raw)
+            forwards.append(([model_work.page_layout(pg) for pg in rb["pages"]],
+                             [len(q) for q in raw["queries"]]))
+        passes = 2 if p["remat"] else 1  # remat runs each layer's forward twice
+        facts.update(config=cfg, arch=arch, forwards=forwards,
+                     attention_kernels=ATTENTION_KERNELS,
+                     **model_work.window_work(arch, cfg, forwards, passes, True))
     del state, trainer, step_fn, batch, pool
     free(dev)
     t_ref = time.perf_counter()
@@ -306,16 +314,17 @@ def faults(ctx: common.RunContext, which=("fp8", "half_batch", "token_altered"))
     ``step_gap``'s readings come from :func:`compare` over three steps; a
     step that leaves the state unchanged reads 1 on it by its definition."""
     cfg, p, dev = ctx.cell.config, ctx.params, ctx.device
-    ref = ctx.cell.reference_module()
+    arch, ref = ctx.cell.arch, ctx.cell.reference_module()
     temp = float(p["temperature"])
     trainer, state, step_fn, processor, got = checked_steps(ctx, plant_half=True)
     got.pop("marks")
     del trainer, state, step_fn, processor
     free(dev)
-    batch = reference_batch(ref, cfg, raw_batch(p, vocab_of(cfg), ctx.seed, 0))
+    vocab = arch.vocab(cfg)
+    batch = reference_batch(ref, cfg, vocab, raw_batch(p, vocab, ctx.seed, 0))
 
     def first_step(precision="f32", fault=None) -> Dict:
-        _, params = weights.draw(cfg, ctx.seed, dev)
+        _, params = weights.draw(arch.leaves(cfg), ctx.seed, dev)
         return ref.train_steps(cfg, params, [batch], float(p["lr"]), temp, precision, fault)
 
     want = first_step()

@@ -4,14 +4,19 @@ process clock, and the result line.
 A cell is one entry of ``workloads`` in ``BENCHMARK.json``. It names a
 configuration (``bench_port/configs/<config>.json``) and a traffic mix
 (``bench_port/traffic/<traffic>.json``); the mix names its ``kind``, the
-general generator and loop in ``bench_port/kinds/<kind>.py`` that reads it. A per-layer
-metric is the reader ``bench_port/metrics/<name>.py``. Nothing here knows a
-cell, a mix or a metric by name.
+general generator and loop in ``bench_port/kinds/<kind>.py`` that reads it. The
+configuration's ``model_type`` names its architecture's module,
+``bench_port/arch/<model_type>.py``, and its ``reference`` the plain reference,
+``bench_port/reference/<reference>.py`` (``bench_port/arch/__init__.py`` says
+what each provides). A per-layer metric is the reader
+``bench_port/metrics/<name>.py``. Nothing here knows a cell, a mix, an
+architecture or a metric by name.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib.util
 import json
 import os
@@ -31,7 +36,7 @@ def load_json(path: Path) -> Dict[str, Any]:
 
 def load_module(path: Path):
     """Import a file by its path (metric files carry dots in their names)."""
-    name = "bench_port_" + path.stem.replace(".", "_").replace("-", "_")
+    name = f"bench_port_{path.parent.name}_{path.stem}".replace(".", "_").replace("-", "_")
     spec = importlib.util.spec_from_file_location(name, path)
     if spec is None or spec.loader is None:
         raise FileNotFoundError(path)
@@ -39,6 +44,18 @@ def load_module(path: Path):
     sys.modules[name] = mod  # dataclasses look their module up by name
     spec.loader.exec_module(mod)
     return mod
+
+
+def arch_module(cfg: Dict[str, Any], bench_dir: Path = BENCH_DIR):
+    """The module of the configuration's architecture,
+    ``bench_port/arch/<model_type>.py``."""
+    path = bench_dir / "arch" / f"{cfg['model_type']}.py"
+    if not path.is_file():
+        raise FileNotFoundError(
+            f"{cfg.get('name', 'the configuration')}: no module for model_type "
+            f"{cfg['model_type']!r}; add bench_port/arch/{cfg['model_type']}.py "
+            "(bench_port/arch/__init__.py says what it provides)")
+    return load_module(path)
 
 
 @dataclasses.dataclass
@@ -58,6 +75,11 @@ class Cell:
 
     def kind_module(self):
         return load_module(self.bench_dir / "kinds" / f"{self.traffic['kind']}.py")
+
+    @functools.cached_property
+    def arch(self):
+        """The configuration's architecture module, loaded once a cell."""
+        return arch_module(self.config, self.bench_dir)
 
     def reference_module(self, name: Optional[str] = None):
         """``bench_port/reference/<name>.py``; by default the configuration's
@@ -167,6 +189,16 @@ class Marks:
     def note(self) -> str:
         steps = [f"{n} {t - p:.2f}" for (_, p), (n, t) in zip(self.marks, self.marks[1:])]
         return f"set-up s: at start {self.marks[0][1]:.2f}; " + ", ".join(steps)
+
+
+JAX_SIDE = ("jax", "jaxlib", "flax", "visual_rag_tpu")
+
+
+def jax_side_loaded() -> List[str]:
+    """The modules of JAX or of the JAX package that this process holds,
+    compared by whole top-level names (the port's package name starts with
+    the JAX package's)."""
+    return sorted(m for m in sys.modules if m.split(".")[0] in JAX_SIDE)
 
 
 def log(*parts) -> None:

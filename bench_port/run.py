@@ -14,7 +14,8 @@ per-layer metrics, each from its reader ``bench_port/metrics/<name>.py``
 The last lines on standard error are the numbers compared for ``correct``,
 each beside its limit; the last line on standard output is the result.
 Without a CUDA card, or with fewer than the cell asks for, it exits 3 and
-prints no result.
+prints no result; if the process holds JAX or the JAX package once the window
+has closed, it names what it found and exits 4 with no result.
 """
 
 from __future__ import annotations
@@ -106,6 +107,11 @@ def main(argv=None) -> int:
     ctx = common.RunContext(cell, args.seed, args.seconds, bool(args.trace), device)
     out = cell.kind_module().run(ctx)
     line = result_line(cell, out, bool(args.trace), torch.cuda.get_device_name(0), chips)
+    loaded = common.jax_side_loaded()  # after the readers, which may import too
+    if loaded:
+        common.log(f"{cell.name}: the process holds JAX or the JAX package: {loaded[:10]}; "
+                   "no result")
+        return 4
     for note in out.notes:
         common.log(note)
     tr = out.facts.get("trace")

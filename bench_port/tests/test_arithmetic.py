@@ -6,7 +6,7 @@ import types
 
 import pytest
 
-from bench_port.lib import model_work, peaks, readers
+from bench_port.lib import common, model_work, peaks, readers
 from bench_port.lib.trace import DeviceTrace, union_ns
 
 TINY_QWEN = {
@@ -17,6 +17,7 @@ TINY_QWEN = {
     "num_key_value_heads": 1, "intermediate_size": 10, "vocab_size": 20, "embedding_dim": 3,
 }
 PAGE = {"patches": 8, "segments": [4, 4], "image_tokens": 2, "text": 3}
+QWEN = common.arch_module(TINY_QWEN)
 
 
 def test_least_seconds_takes_the_larger_bound():
@@ -58,11 +59,11 @@ def test_forward_flops_hand_count():
     text = 2 * (3 + 2) * (text_layer + 8 * 3)
     text_attention = 4 * 4 * 2 * (6 + 3)  # causal pairs of 3 and 2 tokens
     want = vision + merger + vision_attention + text + text_attention
-    assert model_work.forward_flops(TINY_QWEN, [PAGE], [2]) == want == 49904
+    assert QWEN.forward_flops(TINY_QWEN, [PAGE], [2]) == want == 49904
 
 
 def test_attention_calls_and_their_least_time():
-    calls = model_work.attention_calls(TINY_QWEN, [PAGE], [2])
+    calls = QWEN.attention_calls(TINY_QWEN, [PAGE], [2])
     assert calls == [(32, 2, 2, 2, 8), (64, 2, 2, 2, 8), (6, 2, 1, 4, 3), (3, 2, 1, 4, 2)]
     one = model_work.attention_least_s(calls[:1], forwards=1, backward=False)
     assert one == pytest.approx(peaks.least_seconds(*peaks.attention_work(32, 2, 2, 2, 8)))

@@ -3,11 +3,13 @@
 from __future__ import annotations
 
 import ast
+import json
 import os
 import shutil
 import subprocess
 import sys
 
+import pytest
 import torch
 
 from bench_port.lib.common import BENCH_DIR, ROOT
@@ -65,3 +67,64 @@ def test_loading_every_module_leaves_jax_unloaded():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+
+
+def test_the_jax_side_is_found_by_whole_top_level_names(monkeypatch):
+    from bench_port.lib import common
+
+    monkeypatch.setitem(sys.modules, "visual_rag_tpu_torch_extra", object())
+    monkeypatch.setitem(sys.modules, "jaxtyping", object())
+    assert not {"visual_rag_tpu_torch_extra", "jaxtyping"} & set(common.jax_side_loaded())
+    monkeypatch.setitem(sys.modules, "jax.numpy", object())
+    monkeypatch.setitem(sys.modules, "visual_rag_tpu.models", object())
+    assert {"jax.numpy", "visual_rag_tpu.models"} <= set(common.jax_side_loaded())
+
+
+READER_RUN = '''
+import sys, pathlib, torch
+sys.path[:0] = [{root!r}, {stub!r}]
+import bench_port.run as run
+from bench_port.lib import common
+bench = pathlib.Path({bench!r})
+cell = common.Cell({{"name": "stub.cell", "chips": 1}}, {{"model_type": "stub"}},
+                   {{"kind": "stub"}}, [], [{{"name": "reader", "unit": "%"}}], bench)
+run.common.load_cell = lambda name: cell
+torch.cuda.is_available = lambda: True
+torch.cuda.device_count = lambda: 1
+torch.cuda.set_device = lambda device: None
+torch.cuda.get_device_name = lambda index=0: "stub card"
+sys.exit(run.main(["--workload", "stub.cell", "--seed", "3", "--seconds", "1",
+                   "--trace", "1"]))
+'''
+
+STUB_KIND = '''from bench_port.lib import common
+
+
+def run(ctx):
+    return common.Outcome(1, 0, {}, {"gap": common.Limit(0.0, 1.0)}, 0)
+'''
+
+
+@pytest.mark.parametrize("imports_jax", [False, True])
+def test_a_reader_that_loads_jax_leaves_no_result(tmp_path, imports_jax):
+    """The look for JAX comes after the readers: one that imports a module
+    named ``jax`` inside ``read`` stops the result line."""
+    (tmp_path / "stub" / "jax").mkdir(parents=True)
+    (tmp_path / "stub" / "jax" / "__init__.py").write_text("")
+    for sub in ("kinds", "metrics"):
+        (tmp_path / "bench" / sub).mkdir(parents=True)
+    (tmp_path / "bench" / "kinds" / "stub.py").write_text(STUB_KIND)
+    (tmp_path / "bench" / "metrics" / "reader.py").write_text(
+        "def read(facts):\n" + ("    import jax  # noqa: F401\n" if imports_jax else "")
+        + "    return 50.0\n")
+    code = READER_RUN.format(root=str(ROOT), stub=str(tmp_path / "stub"),
+                             bench=str(tmp_path / "bench"))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
+                         text=True, timeout=300, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    if imports_jax:
+        assert out.returncode == 4, out.stderr
+        assert out.stdout == ""
+        assert "['jax']" in out.stderr
+    else:
+        assert out.returncode == 0, out.stderr
+        assert json.loads(out.stdout.splitlines()[-1])["metrics"]["reader"]["value"] == 50.0
