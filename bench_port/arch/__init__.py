@@ -12,8 +12,8 @@ An arch module provides, for a configuration file ``cfg`` (a dict):
 - ``sizes(cfg)``: the sizes the other functions read, from the file's layout.
 - ``leaves(cfg)``: every parameter as a ``lib.weights.Leaf`` (name and shape as
   the program's ``state_dict`` has them, and how it is scaled), in the order of
-  the flat buffer ``lib/weights.py`` draws from the seed; ``check_names`` holds
-  the table against the program's model.
+  the stream of normals ``lib/weights.py`` draws from the seed; ``check_names``
+  holds the table against the program's model.
 - ``program_config(cfg, remat=False)``: the program's model configuration with
   every size set from the file.
 - ``vocab(cfg)``: the text vocabulary.
@@ -27,6 +27,11 @@ An arch module provides, for a configuration file ``cfg`` (a dict):
 
 A module whose name starts with ``_`` holds pieces several architectures share
 and is no ``model_type``'s.
+
+Memory: serving set-up holds the model in its serving dtypes (the program's
+meta model's) plus at most 0.5 GiB while the weights are drawn; the plain
+reference holds it in f32, after the program is freed. So a configuration fits
+one card when both of those, each with its activations, fit.
 
 A reference module (``reference/<cfg["reference"]>.py``; plain PyTorch, f32,
 nothing of the program imported; a new one may import the shared helpers of

@@ -6,9 +6,14 @@ Page images (uint8 renders, ``page_sizes`` [height, width] each, a pool of
 ``pool_pages`` of each size drawn from the seed in set-up) go in calls of
 ``call_pages`` pages; the embedder cuts a call into batches of ``batch``
 pages, and the sizes alternate batch by batch, so every batch holds pages
-of one size. The seal is outside the window. Set-up draws the weights on
-the card (``lib/weights.py``), in the serving dtypes (bf16 matrices and
-tables, f32 norms), and embeds one call to warm every shape.
+of one size. The seal is outside the window. Set-up checks the weight
+table against the program's meta model, draws the weights on the card
+straight into the serving dtypes (``lib/weights.py``; bf16 matrices and
+tables, f32 norms: the model's bytes in those dtypes and one 256 MiB chunk
+of f32 while it draws), and embeds one call to warm every shape. Its note
+gives the model's parameters, their bytes in the serving dtypes and
+set-up's peak bytes on the card, from which a new cell's set-up can be
+reckoned.
 
 End to end: ``ingest_pages_per_s``, the pages of every call in the window
 over its seconds (the window closes at the first call that ends at or after
@@ -53,14 +58,13 @@ def call_pages(p: Dict, pool, call: int) -> List[np.ndarray]:
 
 
 def serving_state(table, pcfg, seed: int, dev) -> Dict[str, torch.Tensor]:
+    """The program's weights in the dtypes its meta model holds them in,
+    drawn once the table is known to fit the model."""
     from visual_rag_tpu_torch.models.colvlm import ColVLM
 
-    dtypes = {k: v.dtype for k, v in ColVLM(pcfg, device="meta").state_dict().items()}
-    flat, params = weights.draw(table, seed, dev)
-    weights.check_names(params, ColVLM(pcfg, device="meta").state_dict())
-    out = {k: v.to(dtypes[k]) for k, v in params.items()}
-    del flat, params
-    return out
+    meta = ColVLM(pcfg, device="meta").state_dict()
+    weights.check_names(table, meta)
+    return weights.draw(table, seed, dev, {k: v.dtype for k, v in meta.items()})
 
 
 def run(ctx: common.RunContext) -> common.Outcome:
@@ -72,9 +76,13 @@ def run(ctx: common.RunContext) -> common.Outcome:
     arch = ctx.cell.arch
     marks = common.Marks()
     pcfg = arch.program_config(cfg)
+    params = serving_state(arch.leaves(cfg), pcfg, ctx.seed, dev)
+    model_note = (f"model {sum(v.numel() for v in params.values())} parameters, "
+                  f"{sum(v.numel() * v.element_size() for v in params.values())} bytes "
+                  "in its serving dtypes")
     embedder = VisualEmbedder(p["model_name"], batch_size=int(p["batch"]), config=pcfg,
-                              params=serving_state(arch.leaves(cfg), pcfg, ctx.seed, dev),
-                              device=dev)
+                              params=params, device=dev)
+    del params  # the embedder holds them, and frees them with itself
     builder = IndexBuilder(CollectionSchema.standard(
         experimental_names=experimental_vector_plan(embedder.backend)["names"]))
     pool = page_pool(p, ctx.seed)
@@ -91,8 +99,10 @@ def run(ctx: common.RunContext) -> common.Outcome:
 
     ingest(-1, [])  # warm: every size the window sends
     marks("warm call")
+    setup_peak = "not measured (no card)"
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+        setup_peak = f"{torch.cuda.max_memory_allocated(dev)} bytes"
         torch.cuda.reset_peak_memory_stats(dev)
     tr = DeviceTrace(ctx.trace and dev.type == "cuda")
     kept: list = []
@@ -134,7 +144,8 @@ def run(ctx: common.RunContext) -> common.Outcome:
         end_to_end={"ingest_pages_per_s": pages / window, "setup_s": setup_s},
         compared={k: common.Limit(v, float(lim[k])) for k, v in nums.items()},
         memory_peak_bytes=int(peak), facts=facts,
-        notes=[marks.note(), f"window {window:.3f} s, {calls} calls, {pages} pages, "
+        notes=[marks.note(), f"{model_note}; set-up peak {setup_peak}",
+               f"window {window:.3f} s, {calls} calls, {pages} pages, "
                f"{len(chosen)} pages checked"])
 
 
@@ -150,7 +161,7 @@ def compare_pages(ctx: common.RunContext, pool, chosen) -> Dict[str, float]:
     sampled pages."""
     cfg, p, dev = ctx.cell.config, ctx.params, ctx.device
     ref = ctx.cell.reference_module()
-    _, params = weights.draw(ctx.cell.arch.leaves(cfg), ctx.seed, dev)
+    params = weights.draw(ctx.cell.arch.leaves(cfg), ctx.seed, dev)
     model = ref.Reference(cfg, params)
     token_gap = pooled_gap = 0.0
     with ref.exact_f32(), torch.no_grad():
@@ -177,7 +188,7 @@ def control(ctx: common.RunContext) -> Dict[str, float]:
     cfg, p, dev = ctx.cell.config, ctx.params, ctx.device
     ref = ctx.cell.reference_module()
     pool = page_pool(p, ctx.seed)
-    _, params = weights.draw(ctx.cell.arch.leaves(cfg), ctx.seed, dev)
+    params = weights.draw(ctx.cell.arch.leaves(cfg), ctx.seed, dev)
     f32, fp8 = ref.Reference(cfg, params), ref.Reference(cfg, params, precision="fp8")
     token_gap = pooled_gap = 0.0
     with ref.exact_f32(), torch.no_grad():

@@ -181,7 +181,7 @@ def reference_readings(ctx: common.RunContext) -> Dict:
     cfg, p, dev = ctx.cell.config, ctx.params, ctx.device
     arch, ref = ctx.cell.arch, ctx.cell.reference_module()
     table, vocab = arch.leaves(cfg), arch.vocab(cfg)
-    _, params = weights.draw(table, ctx.seed, dev)
+    params = weights.draw(table, ctx.seed, dev)
     batches = [reference_batch(ref, cfg, vocab, raw_batch(p, vocab, ctx.seed, i))
                for i in range(int(p["check_steps"]))]
     out = ref.train_steps(cfg, params, batches, float(p["lr"]), float(p["temperature"]))
@@ -202,8 +202,8 @@ def checked_steps(ctx: common.RunContext, plant_half: bool = False):
     pcfg = arch.program_config(cfg, remat=bool(p["remat"]))
     trainer = Trainer(pcfg, lr=float(p["lr"]), temperature=float(p["temperature"]),
                       warmup=0, device=dev)
-    _, params = weights.draw(table, ctx.seed, dev)
-    weights.check_names(params, trainer.model.state_dict())
+    weights.check_names(table, trainer.model.state_dict())
+    params = weights.draw(table, ctx.seed, dev)
     state = trainer.init_state(params=params)
     del params
     marks("weights and optimizer state")
@@ -324,7 +324,7 @@ def faults(ctx: common.RunContext, which=("fp8", "half_batch", "token_altered"))
     batch = reference_batch(ref, cfg, vocab, raw_batch(p, vocab, ctx.seed, 0))
 
     def first_step(precision="f32", fault=None) -> Dict:
-        _, params = weights.draw(arch.leaves(cfg), ctx.seed, dev)
+        params = weights.draw(arch.leaves(cfg), ctx.seed, dev)
         return ref.train_steps(cfg, params, [batch], float(p["lr"]), temp, precision, fault)
 
     want = first_step()

@@ -3,24 +3,32 @@ card in a few large calls.
 
 The table of leaves (name, shape, how it is scaled) is the harness's own,
 made from the configuration's published sizes by its architecture's
-``leaves`` (``bench_port/arch/``); :func:`check_names` holds
-it against the program's module tree, so the two cannot drift apart
-silently. The values are one flat f32 buffer of standard normals drawn in
-chunks of ``CHUNK`` by a ``torch.Generator`` on the device, each leaf a
-slice of it scaled in place: a matrix by ``1 / sqrt(fan_in)``, a table by
-0.02, a bias by 0.02, a norm's scale ``1 + 0.1 z`` and a LayerNorm's bias
-``0.02 z`` (biases and scales that are not 0 and 1, so the comparison
-covers them). The reference draws the same buffer again from the seed.
+``leaves`` (``bench_port/arch/``); :func:`check_names` holds it against the
+program's module tree, so the two cannot drift apart silently. The values
+are one stream of standard normals in the table's order, drawn in chunks of
+``CHUNK`` by a ``torch.Generator`` on the device: the leaves laid end to end
+as one flat buffer, each its slice of the stream. A leaf's values are its
+normals scaled in f32: a matrix by ``1 / sqrt(fan_in)``, a table by 0.02, a
+bias by 0.02, a norm's scale ``1 + 0.1 z`` and a LayerNorm's bias ``0.02 z``
+(biases and scales that are not 0 and 1, so the comparison covers them).
+
+:func:`draw` writes each leaf straight into the tensor it is used as, cast
+once from the scaled f32 values into the dtype asked for (the serving
+dtypes, or f32 for the trainer's master weights and the reference). Besides
+the leaves it returns, it holds one chunk of f32 at a time (256 MiB), so
+drawing a model costs its bytes in the dtypes asked for and no more. The
+reference draws the same values again from the seed, and
+:func:`initial_norms_of_change` walks the same stream.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import torch
 
-CHUNK = 1 << 26  # elements a draw: 256 MB of f32
+CHUNK = 1 << 26  # elements a draw: 256 MiB of f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +55,7 @@ def _scale_(t: torch.Tensor, leaf: Leaf) -> None:
 
 
 def normals(total: int, seed: int, device) -> Iterator[torch.Tensor]:
-    """The flat buffer's standard normals, chunk by chunk (always the same
+    """The stream's standard normals, chunk by chunk (always the same
     chunks, so a later pass draws the same values)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
@@ -56,56 +64,63 @@ def normals(total: int, seed: int, device) -> Iterator[torch.Tensor]:
                           dtype=torch.float32)
 
 
-def draw(table: List[Leaf], seed: int, device
-         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(flat f32 buffer, {name: view of it}) of every leaf, scaled."""
-    total = sum(leaf.numel for leaf in table)
-    flat = torch.empty((total,), dtype=torch.float32, device=device)
-    pos = 0
-    for z in normals(total, seed, device):
-        flat[pos:pos + z.numel()] = z
-        pos += z.numel()
-    params, pos = {}, 0
-    for leaf in table:
-        view = flat[pos:pos + leaf.numel].view(leaf.shape)
-        _scale_(view, leaf)
-        params[leaf.name] = view
-        pos += leaf.numel
-    return flat, params
+def _walk(table: List[Leaf], seed: int, device,
+          visit: Callable[[Leaf, int, torch.Tensor], None]) -> None:
+    """``visit(leaf, start, values)`` for each piece of a leaf that one chunk
+    covers, in the stream's order: ``values`` are the leaf's flat elements
+    ``start`` onwards, scaled in f32 in place in the chunk. The chunk is
+    dropped before the next is drawn, so ``visit`` keeps no reference."""
+    k = done = 0  # the leaf the walk is in, and its elements already visited
+    for z in normals(sum(leaf.numel for leaf in table), seed, device):
+        a = 0
+        while a < z.numel():
+            leaf = table[k]
+            n = min(leaf.numel - done, z.numel() - a)
+            piece = z[a:a + n]
+            _scale_(piece, leaf)
+            visit(leaf, done, piece)
+            a, done = a + n, done + n
+            if done == leaf.numel:
+                k, done = k + 1, 0
+        del z, piece
+
+
+def draw(table: List[Leaf], seed: int, device,
+         dtypes: Optional[Mapping[str, torch.dtype]] = None) -> Dict[str, torch.Tensor]:
+    """{name: leaf} of every leaf, scaled, each in ``dtypes[name]`` (f32
+    without ``dtypes``)."""
+    params = {leaf.name: torch.empty(leaf.shape, device=device,
+                                     dtype=torch.float32 if dtypes is None else dtypes[leaf.name])
+              for leaf in table}
+
+    def write(leaf: Leaf, start: int, values: torch.Tensor) -> None:
+        params[leaf.name].view(-1)[start:start + values.numel()].copy_(values)
+
+    _walk(table, seed, device, write)
+    return params
 
 
 def initial_norms_of_change(table: List[Leaf], seed: int, params: Dict[str, torch.Tensor]
                             ) -> Dict[str, float]:
     """{leaf: ||params[leaf] - its initial value||}, the initial values drawn
     again from the seed chunk by chunk (no copy of the model is held)."""
-    total = sum(leaf.numel for leaf in table)
     device = next(iter(params.values())).device
     sq = {leaf.name: torch.zeros((), dtype=torch.float64, device=device) for leaf in table}
-    it = normals(total, seed, device)
-    buf, buf_start = next(it), 0
-    pos = 0
-    for leaf in table:
+
+    def add(leaf: Leaf, start: int, values: torch.Tensor) -> None:
         cur = params[leaf.name].detach().reshape(-1)
-        done = 0
-        while done < leaf.numel:
-            while pos + done >= buf_start + buf.numel():
-                buf_start += buf.numel()
-                buf = next(it)
-            a = pos + done - buf_start
-            n = min(leaf.numel - done, buf.numel() - a)
-            z = buf[a:a + n].clone()
-            _scale_(z, leaf)
-            d = cur[done:done + n].float() - z
-            sq[leaf.name] += (d.double() * d.double()).sum()
-            done += n
-        pos += leaf.numel
+        d = (cur[start:start + values.numel()].float() - values).double()
+        sq[leaf.name] += (d * d).sum()
+
+    _walk(table, seed, device, add)
     return {k: float(v.sqrt()) for k, v in sq.items()}
 
 
-def check_names(params: Dict[str, torch.Tensor], model_state: Dict[str, torch.Tensor]) -> None:
-    """Raise unless the table has exactly the program model's leaves and shapes."""
+def check_names(table: List[Leaf], model_state: Mapping[str, torch.Tensor]) -> None:
+    """Raise unless the table has exactly the program model's leaves and
+    shapes (a meta model's state dict will do: nothing is drawn)."""
     want = {k: tuple(v.shape) for k, v in model_state.items()}
-    have = {k: tuple(v.shape) for k, v in params.items()}
+    have = {leaf.name: tuple(leaf.shape) for leaf in table}
     if want != have:
         missing = sorted(set(want) - set(have))[:5]
         extra = sorted(set(have) - set(want))[:5]

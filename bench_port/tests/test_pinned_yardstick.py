@@ -2,8 +2,9 @@
 the harness computed before each architecture's knowledge moved into its own
 module (``bench_port/arch/``): the leaf table, the FLOPs and attention calls
 of fixed page batches, the program's configuration, the vocabulary, the
-processor backend and the CPU cut. Moving or sharing code may change none
-of them."""
+processor backend and the CPU cut; and the weights of the CPU cut as the
+draw of one flat f32 buffer gave them. Moving or sharing code may change
+none of them."""
 
 from __future__ import annotations
 
@@ -12,8 +13,10 @@ import hashlib
 import json
 
 import pytest
+import torch
 
-from bench_port.lib import common
+from bench_port.lib import common, weights
+from bench_port.tests import tiny
 
 # an A4 page of ColQwen2.5 (74 x 54 patches in 8 x 8 windows) and of ColSmol
 # (13 tiles), and a US letter page of ColSmol (17 tiles), as the reference's
@@ -52,6 +55,10 @@ PINNED = {
             "proj_bias=True, connector_bias=True, hf_layout='qwen2.5')"),
         "backend": "colqwen2.5", "vocab": 151936,
         "tiny_sha256": "e92d10e26c370c56210cefa4270cab45f5a21faeba7f820738bb3373ddfa2169",
+        "drawn_sha256": {
+            "f32": "a41db8387df1e4cd2bc48b0a37d0915347000198ef8a7daaf3f56728e3a6607e",
+            "serving_1000":
+                "831316b8423fd2d6ba2f1646e6b22463a14dbee765e7a1d5d0f6f396048be063"},
     },
     "colsmol-500m": {
         "leaves": 490, "parameters": 460296512,
@@ -79,6 +86,10 @@ PINNED = {
             "hf_layout='idefics3')"),
         "backend": "colsmol", "vocab": 49280,
         "tiny_sha256": "d3a46125f8496e19e8113dd5781e60120b9ce849503dfcf2f27f62e7af0fd733",
+        "drawn_sha256": {
+            "f32": "ad64cafccc7d55e69378fcdb986e4466ebfd1d9739d05121c51d3c1d4d1b3bea",
+            "serving_1000":
+                "1a4937ee4ee51d807ac44e2e77ebbabadb982756fdef2c5cd69622d45d74bca7"},
     },
 }
 CONFIGS = sorted(PINNED)
@@ -133,6 +144,32 @@ def test_program_config_backend_vocab_and_cut_are_pinned(name):
     tiny = json.dumps(arch.tiny(cfg), sort_keys=True)
     assert hashlib.sha256(tiny.encode()).hexdigest() == pin["tiny_sha256"]
     assert cfg == _load(name)[0]  # the cut is a copy
+
+
+def _digest(params):
+    h = hashlib.sha256()
+    for name, t in params.items():
+        h.update(name.encode())
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_drawn_weights_are_pinned(name, monkeypatch):
+    """The CPU cut's weights from ``tiny.SEED``: in f32 (the reference's and
+    the trainer's), and in the serving dtypes with chunks of 1000 normals, so
+    that leaves straddle them. Each digest is over every leaf's name and
+    bytes, in the table's order."""
+    from bench_port.kinds import ingest
+
+    cfg = tiny.config(name)
+    arch = common.arch_module(cfg)
+    pin = PINNED[name]["drawn_sha256"]
+    assert _digest(weights.draw(arch.leaves(cfg), tiny.SEED, tiny.CPU)) == pin["f32"]
+    monkeypatch.setattr(weights, "CHUNK", 1000)
+    served = ingest.serving_state(arch.leaves(cfg), arch.program_config(cfg), tiny.SEED,
+                                  tiny.CPU)
+    assert _digest(served) == pin["serving_1000"]
 
 
 def test_an_unknown_architecture_names_the_file_to_add():
