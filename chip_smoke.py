@@ -30,7 +30,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. Serving: the port's SearchServer answers 8 concurrent POST /search with
    the ids a direct ``search_embedded_batch`` gives.
 7. Launch counts of K2, K3, the scan and the pooled stage-1 over phases 3-6;
-   each must be > 0.
+   each must be > 0, and K3's all of its tensor-core body
+   (``rerank_candidates_dedup.mma_launches``). Every strict oracle of the
+   script holds at tolerance 0, or at 1e-4 where its wide side ran K3's
+   tensor-core body (``strict_oracle``, ROADMAP check 2).
 8. The tokens stage-1 path (``stage1_mode="tokens_vs_standard_pooling"``),
    with the counts set to 0 first: K5 once against its plain version at
    the 100k bs 1024 shape (before the reset), then ``two_stage`` at 3k bs 16
@@ -61,13 +64,22 @@ Phases, in order; any failure raises and the script exits non-zero:
 10. K3 (dedup) and K4 (sweep), the reranks the policy picks for batches of
    64 and more (K4 where the candidates cover the store six times and more).
    First, not counted: each against its plain version (within ATOL, two calls
-   bit-equal) and against K2 on the same inputs (the difference is logged;
-   they share K2's row dots and fold), with the CUDA-event ms of K2, K3, K4
-   and both plain versions, at 32 x 200 and 256 x 200 on the 3k corpus and
-   1024 x 200 at 100k, on bf16 and on ``int8`` (the plain versions once at
-   100k). Then, counts at 0: at 100k bf16 ``two_stage`` bs 1024 (pooled,
-   then tokens stage-1) and ``three_stage`` bs 1024, at 100k
-   ``int8_refined`` pooled ``two_stage`` bs 1024 (K3 each, count > 0), and
+   bit-equal) and against K2 on the same inputs: K4 bit-equal (it shares
+   K2's row dots and fold), K3 within ATOL, its largest difference logged
+   (on bf16 and int8 stores its tensor-core body sums each dot in the
+   tensor cores' order); with the CUDA-event ms of K2, K3, K4 and both plain
+   versions, at 32 x 200 and 256 x 200 on the 3k corpus and 1024 x 200 at
+   100k, on bf16 and on ``int8`` (the plain versions once at 100k), and at
+   256 x 200 on the 3k corpus in f32, where K3 keeps its CUDA-core body
+   (bit-equal to K2); the tensor-core body's launches counted at each
+   (2 a shape on bf16 and int8, none on f32); then K3
+   at the search cell's shape (``k3_cell_shape``: 1024 queries of 12-32 rows
+   x 200 candidates over 200k docs of 992-1024 rows, bf16), timed beside K2
+   and its bound; the ptxas lines of the tensor-core body's three instances
+   (0 spill bytes asserted). Then, counts at 0: at 100k bf16 ``two_stage`` bs
+   1024 (pooled, then tokens stage-1) and ``three_stage`` bs 1024, at 100k
+   ``int8_refined`` pooled ``two_stage`` bs 1024 (K3 each, count > 0, every
+   launch the tensor-core body's: ``mma_launches`` == ``launches``), and
    on the 3k corpus on the padded wire at bs 256 (K4, count > 0), each with
    its QPS beside the same engine's with ``rerank_impl="plain"`` (K2; two
    runs each, alternating) and ids equal to that engine's;
@@ -404,7 +416,7 @@ def main() -> None:
     from visual_rag_tpu_torch.retrieval.engine import SEARCH_MODES, STAGE1_MODES
     from visual_rag_tpu_torch.retrieval.filters import build_filter
     from visual_rag_tpu_torch.retrieval.local import local_pooled_padded
-    from visual_rag_tpu_torch.retrieval.oracle import run_strict_oracle, strict_rank_equal
+    from visual_rag_tpu_torch.retrieval.oracle import strict_rank_equal
     from visual_rag_tpu_torch.serving.server import SearchServer
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions in full f32
@@ -561,6 +573,7 @@ def main() -> None:
     for fn in (rerank_candidates, rerank_candidates_dedup, rerank_candidates_sweep,
                exhaustive_scores_packed, pooled_stage1_scores):
         fn.launches = 0
+    rerank_candidates_dedup.mma_launches = 0
     qs = queries(1, 2048)
     rungs = {}
     for bs, n in ((32, 512), (256, 2048), (1024, 2048)):
@@ -569,8 +582,8 @@ def main() -> None:
         log(f"3k two_stage bs={bs} ({path} rerank): {rungs[bs]:.1f} QPS [{card}]")
 
     # -- 4. strict oracle at 3k ----------------------------------------------------
-    ok3k = run_strict_oracle(eng3k, qs[:256], idx3k.num_docs, score_tol=0.0)
-    log(f"strict oracle 3k (256 queries, tol 0): {ok3k}")
+    ok3k, tol3k = strict_oracle(eng3k, qs[:256], idx3k.num_docs)
+    log(f"strict oracle 3k (256 queries, tol {tol3k:g}): {ok3k}")
     if not ok3k:
         raise AssertionError("strict oracle failed at 3k")
 
@@ -587,8 +600,8 @@ def main() -> None:
     log(f"100k two_stage bs=1024 ({path} rerank): {q100k:.1f} QPS [{card}]")
     q100k_full = qps(eng100k, qs[:512], 256, "100k single_full", mode="single_full")
     log(f"100k single_full bs=256: {q100k_full:.1f} QPS [{card}]")
-    ok100k = run_strict_oracle(eng100k, qs[:64], idx100k.num_docs, score_tol=0.0)
-    log(f"strict oracle 100k (64 queries, tol 0): {ok100k}")
+    ok100k, tol100k = strict_oracle(eng100k, qs[:64], idx100k.num_docs)
+    log(f"strict oracle 100k (64 queries, tol {tol100k:g}): {ok100k}")
     if not ok100k:
         raise AssertionError("strict oracle failed at 100k")
 
@@ -625,10 +638,13 @@ def main() -> None:
               "rerank_candidates_dedup": rerank_candidates_dedup.launches,
               "exhaustive_scores_packed": exhaustive_scores_packed.launches,
               "pooled_stage1_scores": pooled_stage1_scores.launches}
-    log(f"launches over phases 3-6: {counts}")
+    log(f"launches over phases 3-6: {counts}; of K3's, the tensor-core body's "
+        f"(rerank_candidates_dedup.mma_launches): {rerank_candidates_dedup.mma_launches}")
     for name, n in counts.items():
         if n <= 0:
             raise AssertionError(f"{name} never launched on the main path")
+    if rerank_candidates_dedup.mma_launches != rerank_candidates_dedup.launches:
+        raise AssertionError("K3 ran its CUDA-core body on a bf16 store at dim 128")
 
     # -- 8. the tokens stage-1 path --------------------------------------------------
     # K5 against its plain version at the 100k bs 1024 serving shape (not counted)
@@ -777,14 +793,34 @@ def ptxas_report() -> dict:
 def uncounted(entry_points):
     """Launches inside the block (kernel-vs-plain checks) leave every
     launch count as it was."""
-    saved = [(fn, fn.launches, getattr(fn, "launches_qdot", 0)) for fn in entry_points]
+    saved = [(fn, fn.launches, getattr(fn, "launches_qdot", 0), getattr(fn, "mma_launches", 0))
+             for fn in entry_points]
     try:
         yield
     finally:
-        for fn, n, nq in saved:
+        for fn, n, nq, nm in saved:
             fn.launches = n
             if hasattr(fn, "launches_qdot"):
                 fn.launches_qdot = nq
+            if hasattr(fn, "mma_launches"):
+                fn.mma_launches = nm
+
+
+def strict_oracle(engine, queries, num_docs, top_k=10):
+    """ROADMAP check 2 on the card, run once: ``single_full`` against
+    ``two_stage`` (``prefetch_k`` = corpus) under ``strict_rank_equal`` at
+    tolerance 0, or at 1e-4 where the wide side ran K3's tensor-core body,
+    whose dots sum in the tensor cores' order (``single_full`` never runs
+    it). Returns (ok, the tolerance it held)."""
+    from visual_rag_tpu_torch.ops.kernels.maxsim_rerank import rerank_candidates_dedup
+    from visual_rag_tpu_torch.retrieval.oracle import strict_rank_equal
+
+    kw = dict(top_k=top_k, with_payload=False)
+    exact = engine.search_embedded_batch(queries, mode="single_full", **kw)
+    before = rerank_candidates_dedup.mma_launches
+    wide = engine.search_embedded_batch(queries, mode="two_stage", prefetch_k=num_docs, **kw)
+    tol = 1e-4 if rerank_candidates_dedup.mma_launches > before else 0.0
+    return all(strict_rank_equal(ex, wd, score_tol=tol) for ex, wd in zip(exact, wide)), tol
 
 
 def int8_phase(dev, card, idx3k, eng3k, qs, entry_points):
@@ -804,7 +840,7 @@ def int8_phase(dev, card, idx3k, eng3k, qs, entry_points):
     from visual_rag_tpu_torch.retrieval.engine import SEARCH_MODES, STAGE1_MODES
     from visual_rag_tpu_torch.retrieval.filters import build_filter
     from visual_rag_tpu_torch.retrieval.local import local_pooled_padded
-    from visual_rag_tpu_torch.retrieval.oracle import run_strict_oracle, strict_rank_equal
+    from visual_rag_tpu_torch.retrieval.oracle import strict_rank_equal
 
     k2, k1, k5, k6, k7 = entry_points
     dtypes = ("int8", "int8_refined")
@@ -947,13 +983,14 @@ def int8_phase(dev, card, idx3k, eng3k, qs, entry_points):
         "same ids as the batch")
 
     for dt in dtypes:
-        ok = run_strict_oracle(eng[dt], qs[:256], idx3k.num_docs, score_tol=0.0)
+        ok, ok_tol = strict_oracle(eng[dt], qs[:256], idx3k.num_docs)
         exact = eng[dt].search_embedded_batch(qs[:256], mode="single_full", top_k=10,
                                               with_payload=False)
         wide = eng[dt].search_embedded_batch(qs[:256], mode="two_stage", top_k=10,
                                              prefetch_k=idx3k.num_docs, with_payload=False, **tok)
         ok_tok = all(strict_rank_equal(ex, wd, score_tol=0.0) for ex, wd in zip(exact, wide))
-        log(f"strict oracle 3k {dt} (256 queries, tol 0): pooled {ok}, tokens {ok_tok}")
+        log(f"strict oracle 3k {dt} (256 queries): pooled {ok} (tol {ok_tol:g}), tokens {ok_tok} "
+            "(tol 0)")
         if not (ok and ok_tok):
             raise AssertionError(f"strict oracle failed for {dt}")
 
@@ -1141,6 +1178,7 @@ def pair_rerank_phase(dev, card, idx3k, qs, entry_points):
     from visual_rag_tpu_torch.ops.kernels.maxsim_rerank import (
         rerank_candidates_dedup,
         rerank_candidates_dedup_ref,
+        uses_mma,
     )
     from visual_rag_tpu_torch.ops.kernels.maxsim_sweep import (
         rerank_candidates_sweep,
@@ -1174,14 +1212,21 @@ def pair_rerank_phase(dev, card, idx3k, qs, entry_points):
         notes = []
         for name, (fn, ref) in pairs.items():
             want, plain_ms = timed_once(lambda: ref(*args))
+            mma = name == "K3" and uses_mma(args[0].dtype, args[0].shape[1])
+            before = k3.mma_launches
             got, again = fn(*args), fn(*args)
             torch.cuda.synchronize()
+            if k3.mma_launches - before != (2 if mma else 0):
+                raise AssertionError(f"{name} at {shape}: the tensor-core K3 launched "
+                                     f"{k3.mma_launches - before} times, not {2 if mma else 0}")
             err = float((got - want).abs().max())
             diff = float((got - base).abs().max())
             if not torch.allclose(got, want, rtol=0, atol=ATOL):
                 raise AssertionError(f"{name} disagrees with its plain version at {shape}: {err}")
             if not torch.equal(got, again):
                 raise AssertionError(f"{name} is not deterministic at {shape}")
+            if diff > (ATOL if mma else 0.0):  # K4 shares K2's row dots; K3's body its products
+                raise AssertionError(f"{name} differs from K2 by {diff} at {shape}")
             times[name] = cuda_ms(lambda: fn(*args), iters)
             times[f"{name} plain"] = plain_ms
             s = summary[name]
@@ -1191,7 +1236,8 @@ def pair_rerank_phase(dev, card, idx3k, qs, entry_points):
                                   "max_abs_err": err, "max_abs_diff_k2": diff,
                                   **maxsim_bound("rerank", args)}
             notes.append(f"{name} max_abs_err {err:.3g}, "
-                         + ("bit-equal to K2" if diff == 0 else f"max |K2 diff| {diff:.3g}"))
+                         + (f"max |K2 diff| {diff:.3g} (tensor cores)" if mma
+                            else "bit-equal to K2"))
             del want, got, again
         log(f"K3/K4 [{shape}]: " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
             + "; " + "; ".join(notes) + f" [{card}]")
@@ -1202,18 +1248,35 @@ def pair_rerank_phase(dev, card, idx3k, qs, entry_points):
             for n in (32, 256):
                 hold(store, index, n, 10)
         del q3k
+        # an f32 store keeps K3's CUDA-core body (maxsim_dedup.cu), bit-equal to K2
+        f32 = synthetic_index(3000, min_tokens=320, max_tokens=832, pooled_rows=10,
+                              storage_dtype="float32", seed=0, device=dev)
+        hold("3k f32", f32, 256, 10)
+        del f32
+        torch.cuda.empty_cache()
         for dt in ("bfloat16", "int8"):
             index = synthetic_index(100000, min_tokens=128, max_tokens=256, pooled_rows=12,
                                     storage_dtype=dt, seed=2, device=dev)
             hold(f"100k {'bf16' if dt == 'bfloat16' else dt}", index, 1024, 5)
             del index
             torch.cuda.empty_cache()
+        cell = k3_cell_shape(dev, card, k2, k3)
+        torch.cuda.empty_cache()
+    ptxas = {e: lines for e, lines in ptxas_report().items() if "dedup_kernel_mma" in e}
+    for entry, lines in ptxas.items():
+        log(f"ptxas {entry}: {'; '.join(lines)}")
+        if not any("0 bytes spill stores, 0 bytes spill loads" in x for x in lines):
+            raise AssertionError(f"K3's tensor-core instance {entry} spills: {lines}")
+    if len(ptxas) != 3:
+        raise AssertionError(f"the build log names {sorted(ptxas)}, not K3's 3 tensor-core "
+                             "instances (bf16, f16, int8)")
 
     # 10b. the paths that route to K3 and K4, counts from 0
     for fn in all_fns:
         fn.launches = 0
         if hasattr(fn, "launches_qdot"):
             fn.launches_qdot = 0
+    k3.mma_launches = 0
 
     def run(what, engine, plain_engine, bs, n, kernel, **kw):
         before = kernel.launches
@@ -1260,7 +1323,10 @@ def pair_rerank_phase(dev, card, idx3k, qs, entry_points):
         raise AssertionError("strict oracle failed on the padded wire (K4)")
 
     counts = {"K3": k3.launches, "K4": k4.launches}
-    log(f"launches over phase 10's path: {counts}")
+    log(f"launches over phase 10's path: {counts}; of K3's, the tensor-core body's: "
+        f"{k3.mma_launches}")
+    if k3.mma_launches != k3.launches:  # bf16 and int8_refined stores at dim 128
+        raise AssertionError("K3 ran its CUDA-core body on phase 10's path")
     main = {"K3": "100k bf16 1024 x 200", "K4": "3k bf16 256 x 200"}  # each one's path shape
     src = {"K3": ("rerank_candidates_dedup", "maxsim_dedup.cu", "maxsim_rerank.py:355"),
            "K4": ("rerank_candidates_sweep", "maxsim_sweep.cu", "maxsim_sweep.py:343")}
@@ -1274,7 +1340,54 @@ def pair_rerank_phase(dev, card, idx3k, qs, entry_points):
                         library_ms=None, bound_ms=at["bound_ms"], bound_by=at["bound_by"],
                         k2_ms=at["k2_ms"], max_abs_diff_k2=s["max_abs_diff_k2"],
                         shapes=s["shapes"]))
+    out[0].update(source="visual_rag_tpu_torch/csrc/maxsim_dedup_mma.cu (bf16, f16, int8 at "
+                  "dim 128; maxsim_dedup.cu otherwise)", mma_launches=k3.mma_launches,
+                  cell_shape=cell, ptxas=ptxas)
     return out
+
+
+def k3_cell_shape(dev, card, k2, k3):
+    """K3 at the search cell's shape, not counted: 1024 queries of 12-32 valid
+    rows (32 padded) x 200 candidates drawn uniformly over 200k docs of
+    992-1024 rows in bf16 (fewer docs where the card's free memory, less 8
+    GB, holds fewer): two calls bit-equal, within ATOL of K2 (the difference
+    logged), the CUDA-event ms of K3 and K2 beside the bound."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    n_docs = int(min(200000, (torch.cuda.mem_get_info(dev)[0] - 8e9) // (1024 * 256)))
+    lengths = torch.randint(992, 1025, (n_docs,), generator=gen, device=dev, dtype=torch.int32)
+    offsets = torch.zeros_like(lengths)
+    offsets[1:] = torch.cumsum(lengths, 0)[:-1].to(torch.int32)
+    rows = int(lengths.sum())
+    flat = torch.empty((rows, 128), dtype=torch.bfloat16, device=dev)
+    for s in range(0, rows, 1 << 22):
+        e = min(rows, s + (1 << 22))
+        flat[s:e] = torch.nn.functional.normalize(
+            torch.randn((e - s, 128), generator=gen, device=dev), dim=-1).bfloat16()
+    b, nq, k = 1024, 32, 200
+    tokens = torch.nn.functional.normalize(
+        torch.randn((b, nq, 128), generator=gen, device=dev), dim=-1)
+    valid = torch.randint(12, 33, (b,), generator=gen, device=dev)
+    qmask = (torch.arange(nq, device=dev)[None, :] < valid[:, None]).float()
+    cand = torch.randint(0, n_docs, (b, k), generator=gen, device=dev, dtype=torch.int32)
+    args = (flat, offsets, lengths, tokens, qmask, cand, 1024)
+    got, again, base = k3(*args), k3(*args), k2(*args)
+    torch.cuda.synchronize()
+    diff = float((got - base).abs().max())
+    if not torch.equal(got, again) or not diff <= ATOL:
+        raise AssertionError(f"K3 at the cell's shape: bit-equal twice {torch.equal(got, again)}, "
+                             f"max |K2 diff| {diff}")
+    ms, k2_ms = cuda_ms(lambda: k3(*args), 5), cuda_ms(lambda: k2(*args), 3)
+    bnd = maxsim_bound("rerank", args)
+    distinct = int(cand.unique().numel())
+    log(f"K3 [1024 x 200 over {n_docs} docs of 992-1024 rows ({rows * 256 / 1e9:.2f} GB), bf16, "
+        f"{distinct} distinct candidates]: {ms:.4f} ms (K2 {k2_ms:.4f} ms), bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), {100 * bnd['bound_ms'] / ms:.1f}% of it; "
+        f"bit-equal twice, max |K2 diff| {diff:.3g} [{card}]")
+    return {"docs": n_docs, "distinct": distinct, "ms": ms, "k2_ms": k2_ms,
+            "max_abs_diff_k2": diff, **bnd}
 
 
 def allowed_pair_count(seg, causal: bool) -> int:
@@ -1451,7 +1564,6 @@ def embedding_phase(dev, card, rerank_fns, search_fns):
     from visual_rag_tpu_torch.models.embedder import VisualEmbedder
     from visual_rag_tpu_torch.ops.kernels.flash_attention import flash_attention
     from visual_rag_tpu_torch.pipeline.vectors import page_vectors
-    from visual_rag_tpu_torch.retrieval.oracle import run_strict_oracle
 
     t_phase = time.perf_counter()
     log("bf16 GEMMs: torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = "
@@ -1561,13 +1673,13 @@ def embedding_phase(dev, card, rerank_fns, search_fns):
         hits += engine.search_embedded_batch(qs[:16], **kw, stage1_mode=stage1)
     if not all(len(h) == 10 and all(np.isfinite(x["score_final"]) for x in h) for h in hits):
         raise AssertionError("a search over the embedded pages did not answer 10 hits")
-    oracle = run_strict_oracle(engine, qs, index.num_docs, score_tol=0.0)
+    oracle, oracle_tol = strict_oracle(engine, qs, index.num_docs)
     counts = {fn.__name__: fn.launches for fn in counters}
     log(f"ingest: 32 pages -> page_vectors -> IndexBuilder.seal (bf16, {index.nbytes()} bytes) "
         f"in {t_seal:.3f} s; two_stage (prefetch_k 200, top_k 10) of the 64 embedded queries "
         f"in {t_search:.4f} s; then with the tokens stage-1, and both at bs 16; strict oracle "
-        f"(prefetch_k = corpus vs single_full, tol 0): {oracle}; launches over the main path: "
-        f"{counts} [{card}]")
+        f"(prefetch_k = corpus vs single_full, tol {oracle_tol:g}): {oracle}; launches over the "
+        f"main path: {counts} [{card}]")
     if not oracle:
         raise AssertionError("strict oracle failed on the embedded corpus")
     for what, fns in (("K2", rerank_fns[:1]), ("the scan", search_fns[:1]),
@@ -1652,7 +1764,6 @@ def colpali_phase(dev, card, rerank_fns, search_fns):
     from visual_rag_tpu_torch.models.embedder import VisualEmbedder
     from visual_rag_tpu_torch.ops.kernels.flash_attention import flash_attention
     from visual_rag_tpu_torch.pipeline.vectors import experimental_vector_plan, page_vectors
-    from visual_rag_tpu_torch.retrieval.oracle import run_strict_oracle
 
     t_phase = time.perf_counter()
     # 12a. K10 against its plain version at the path's three shapes (not counted):
@@ -1737,13 +1848,13 @@ def colpali_phase(dev, card, rerank_fns, search_fns):
         hits += engine.search_embedded_batch(qs[:16], **kw, stage1_mode=stage1)  # bs 16: K2
     if not all(len(h) == 10 and all(np.isfinite(x["score_final"]) for x in h) for h in hits):
         raise AssertionError("a search over the ColPali pages did not answer 10 hits")
-    oracle = run_strict_oracle(engine, qs, index.num_docs, score_tol=0.0)
+    oracle, oracle_tol = strict_oracle(engine, qs, index.num_docs)
     counts = {fn.__name__: fn.launches for fn in counters}
     log(f"ingest: 32 ColPali pages -> page_vectors ({plan['names']}, {rows}) -> "
         f"IndexBuilder.seal (bf16, {index.nbytes()} bytes) in {t_seal:.3f} s; "
         f"RetrievalEngine(stage1_cut='exact'): two_stage (prefetch_k 200, top_k 10), pooled "
         f"and tokens stage-1, bs 64 and 16; strict oracle (prefetch_k = corpus vs single_full, "
-        f"tol 0): {oracle}; launches over the main path: {counts} [{card}]")
+        f"tol {oracle_tol:g}): {oracle}; launches over the main path: {counts} [{card}]")
     if not oracle:
         raise AssertionError("strict oracle failed on the ColPali corpus")
     for what, fns in (("a rerank kernel", tuple(rerank_fns) + search_fns[:1]),
@@ -1814,7 +1925,6 @@ def colqwen_phase(dev, card, rerank_fns, search_fns):
     from visual_rag_tpu_torch.models.embedder import VisualEmbedder
     from visual_rag_tpu_torch.ops.kernels.flash_attention import flash_attention
     from visual_rag_tpu_torch.pipeline.vectors import experimental_vector_plan, page_vectors
-    from visual_rag_tpu_torch.retrieval.oracle import run_strict_oracle
 
     t_phase = time.perf_counter()
     # 13a. K10 against its plain version at the path's four shapes (not counted)
@@ -1925,13 +2035,13 @@ def colqwen_phase(dev, card, rerank_fns, search_fns):
         hits += engine.search_embedded_batch(qs[:16], **kw, stage1_mode=stage1)  # bs 16: K2
     if not all(len(h) == 10 and all(np.isfinite(x["score_final"]) for x in h) for h in hits):
         raise AssertionError("a search over the ColQwen pages did not answer 10 hits")
-    oracle = run_strict_oracle(engine, qs, index.num_docs, score_tol=0.0)
+    oracle, oracle_tol = strict_oracle(engine, qs, index.num_docs)
     counts = {fn.__name__: fn.launches for fn in counters}
     log(f"ingest: 32 ColQwen pages -> page_vectors ({plan['names']}, {rows}) -> "
         f"IndexBuilder.seal (bf16, {index.nbytes()} bytes) in {t_seal:.3f} s; "
         f"RetrievalEngine(stage1_cut='exact'): two_stage (prefetch_k 200, top_k 10), pooled "
         f"and tokens stage-1, bs 64 and 16; strict oracle (prefetch_k = corpus vs single_full, "
-        f"tol 0): {oracle}; launches over the main path: {counts} [{card}]")
+        f"tol {oracle_tol:g}): {oracle}; launches over the main path: {counts} [{card}]")
     if not oracle:
         raise AssertionError("strict oracle failed on the ColQwen corpus")
     for what, fns in (("a rerank kernel", tuple(rerank_fns) + search_fns[:1]),

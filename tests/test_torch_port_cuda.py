@@ -29,12 +29,18 @@ a group, the qdot scores equal the plain version's bit for bit (the integer
 dots are exact on both sides). The engine over int8 and int8_refined
 stores on the card against the same index on the CPU.
 
-K3 (dedup) and K4 (sweep): each against its plain version and bit-equal to
-K2 on the same inputs, on f32, bf16, f16 and int8 stores, with heavy
-sharing (runs cut at 16 pairs of one doc, ranges of many pairs), -1 and
-0-token candidates, one range and many ranges, queries of 3 to 130 tokens;
-two calls bit-equal; launch counts; the inputs the wrappers refuse; the
-engine with each on the card against the CPU.
+K3 (dedup) and K4 (sweep): each against its plain version on f32, bf16,
+f16 and int8 stores, with heavy sharing (runs cut at the most a run holds,
+ranges of many pairs), -1 and 0-token candidates, one range and many
+ranges, queries of 3 to 130 tokens; K4, and K3 on f32 stores, bit-equal to
+K2 on the same inputs; K3's tensor-core body (bf16, f16, int8 at dim 128:
+the same exact products, f32 sums in the tensor cores' order) within the
+same tolerance of K2, also on docs of 1, 128, 129 and up to 299 rows (not
+multiples of its 128-row slab), runs of 1 and 16 pairs, queries of 3, 32,
+33 and 130 tokens and a batch whose blocks each walk many runs; two calls
+bit-equal; launch counts, ``mma_launches`` for the tensor-core body alone;
+the inputs the wrappers refuse; the engine with each on the card against
+the CPU.
 
 K10 (flash attention), at head dims 64, 72, 80, 128 and 256: against its
 plain version in f32 and bf16, causal and not, per-tile segments with pads,
@@ -529,7 +535,8 @@ def test_dedup_and_sweep_match_plain_and_k2(dev, dtype, case, r_step):
         cand = _pair_candidates(rng, case, 20, 23, 37).to(dev)
         args = (flat, offs, lens, tokens, qmask, cand, max_len, scales)
         k2 = rerank_candidates(*args)
-        before = (rerank_candidates_dedup.launches, rerank_candidates_sweep.launches)
+        before = (rerank_candidates_dedup.launches, rerank_candidates_sweep.launches,
+                  rerank_candidates_dedup.mma_launches)
         k3, k3_again = rerank_candidates_dedup(*args), rerank_candidates_dedup(*args)
         k4 = rerank_candidates_sweep(*args, r_step=r_step)
         k4_again = rerank_candidates_sweep(*args, r_step=r_step)
@@ -540,12 +547,78 @@ def test_dedup_and_sweep_match_plain_and_k2(dev, dtype, case, r_step):
         torch.testing.assert_close(k3, want3, rtol=0, atol=atol)
         torch.testing.assert_close(k4, want4, rtol=0, atol=atol)
         assert torch.equal(k3, k3_again) and torch.equal(k4, k4_again)
-        # the same row dots, maxima and fold as K2: the same bits
-        assert torch.equal(k3, k2), float((k3 - k2).abs().max())
+        # K4 has K2's row dots, maxima and fold: the same bits
         assert torch.equal(k4, k2), float((k4 - k2).abs().max())
+        if dtype == torch.float32:  # K3's CUDA-core body, the same bits as K2
+            assert torch.equal(k3, k2), float((k3 - k2).abs().max())
+        else:  # the tensor-core body: the same products, sums in another order
+            torch.testing.assert_close(k3, k2, rtol=0, atol=atol)
         assert (k3[cand < 0] == -1e30).all() and (k3[:, 0] == -1e30).all()
-        assert (rerank_candidates_dedup.launches, rerank_candidates_sweep.launches) == (
-            before[0] + 2, before[1] + 2)
+        mma = 0 if dtype == torch.float32 else 2
+        assert (rerank_candidates_dedup.launches, rerank_candidates_sweep.launches,
+                rerank_candidates_dedup.mma_launches) == (
+            before[0] + 2, before[1] + 2, before[2] + mma)
+
+
+def _slab_store(dtype, dev, seed, n_docs):
+    """A unit-row store whose docs have 1, 128, 129 and 2-299 rows (most not
+    a multiple of K3's 128-row slab), one empty, at 32-row aligned offsets;
+    int8: per-doc codes and scales."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(2, 300, n_docs).astype(np.int32)
+    lengths[[0, 1, 2, 3]] = 1, 128, 129, 0
+    aligned = (lengths + 31) // 32 * 32
+    offsets = np.concatenate([[0], np.cumsum(aligned[:-1])]).astype(np.int32)
+    flat = rng.standard_normal((int(aligned.sum()) + 320, DIM)).astype(np.float32)
+    flat /= np.linalg.norm(flat, axis=1, keepdims=True)
+    flat, offs, lens = (torch.from_numpy(x) for x in (flat, offsets, lengths))
+    if dtype == torch.int8:
+        codes, scales = quantize_per_doc(flat, offs, lens)
+        return codes.to(dev), offs.to(dev), lens.to(dev), int(lengths.max()), scales.to(dev)
+    return flat.to(dtype).to(dev), offs.to(dev), lens.to(dev), int(lengths.max()), None
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.int8])
+@pytest.mark.parametrize("nq,b,k,spread", [
+    (3, 40, 30, "heavy"),  # runs of 16 pairs
+    (32, 64, 25, "uniform"),  # runs of one pair, mostly
+    (33, 48, 20, "heavy"),  # three query tiles, runs of 8
+    (130, 16, 12, "uniform"),  # nine query tiles, runs of 2
+    (32, 1024, 200, "uniform"),  # every block walks many runs
+])
+def test_dedup_tensor_core_body_on_its_edges(dev, dtype, nq, b, k, spread):
+    """K3's tensor-core body on what its design special-cases: docs of 1
+    row, of 128 and 129 rows and of 2-299 (slabs cut by the doc's end), an
+    empty doc, runs of 1 to 16 pairs, queries of 3, 32, 33 and 130 tokens
+    with masked tails, and a batch of 1024 x 200 over 3000 docs, so that
+    each block walks many runs through its ring. Within ATOL (INT8_ATOL) of
+    its plain version and of K2, NEG_INF where K2 has it, two calls
+    bit-equal, one tensor-core launch a call."""
+    flat, offs, lens, max_len, scales = _slab_store(dtype, dev, seed=nq + b,
+                                                    n_docs=3000 if b >= 1024 else 300)
+    rng = np.random.default_rng(b + k)
+    tokens = rng.standard_normal((b, nq, DIM)).astype(np.float32)  # exactly nq rows
+    tokens = torch.from_numpy(tokens / np.linalg.norm(tokens, axis=-1, keepdims=True)).to(dev)
+    valid = rng.integers(1, nq + 1, b)
+    valid[0] = nq
+    qmask = (np.arange(nq)[None, :] < valid[:, None]).astype(np.float32)
+    qmask = torch.from_numpy(qmask).to(dev)
+    n_docs = offs.shape[0]
+    cand = rng.integers(0, 6 if spread == "heavy" else n_docs, (b, k))
+    cand[::5, 1] = -1
+    cand[0, :4] = [0, 1, 2, 3]  # 1, 128, 129 and 0 rows
+    cand = torch.from_numpy(cand.astype(np.int32)).to(dev)
+    args = (flat, offs, lens, tokens, qmask, cand, max_len, scales)
+    before = rerank_candidates_dedup.mma_launches
+    got, again = rerank_candidates_dedup(*args), rerank_candidates_dedup(*args)
+    want, k2 = rerank_candidates_dedup_ref(*args), rerank_candidates(*args)
+    torch.cuda.synchronize()
+    assert rerank_candidates_dedup.mma_launches == before + 2
+    atol = INT8_ATOL if dtype == torch.int8 else ATOL[dtype]
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    torch.testing.assert_close(got, k2, rtol=0, atol=atol)
+    assert torch.equal(got, again)
+    assert torch.equal(got == -1e30, k2 == -1e30) and (got[0, 3] == -1e30)
 
 
 def test_pair_wrappers_refuse_what_the_kernels_do_not_take(dev):

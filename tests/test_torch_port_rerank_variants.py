@@ -177,35 +177,66 @@ def test_sweep_params_match_jax(rows, max_len, r_step):
     assert ms.sweep_params(rows, max_len, r_step) == jax_sweep_params(rows, max_len, r_step)
 
 
-def test_dedup_layout_invariants():
-    """Sorted ids ascend; runs hold 1..RUN_PAIRS pairs of one doc, start
-    where a doc starts or every RUN_PAIRS pairs, and cover every live pair
-    once; -1 and out-of-range ids are dead; ``starts`` ends in sentinels."""
+def _check_dedup_layout(run_pairs=None):
     rng = np.random.default_rng(7)
     b, k, n_docs = 24, 40, 50
-    cand = rng.integers(0, 8, (b, k))  # heavy sharing: runs cut at RUN_PAIRS
+    cand = rng.integers(0, 8, (b, k))  # heavy sharing: runs cut at run_pairs
     cand[rng.random((b, k)) < 0.2] = -1
     cand[0, :3] = [n_docs, n_docs + 7, 10**6]  # out of range: dead
     cand[1, :] = rng.integers(10, n_docs, k)
     lengths = torch.ones(n_docs, dtype=torch.int32)
-    sorted_ids, order, starts = mr.dedup_layout(torch.from_numpy(cand.astype(np.int32)), lengths)
+    cand = torch.from_numpy(cand.astype(np.int32))
+    if run_pairs is None:  # the default: RUN_PAIRS
+        sorted_ids, order, starts = mr.dedup_layout(cand, lengths)
+        run_pairs = mr.RUN_PAIRS
+    else:
+        sorted_ids, order, starts = mr.dedup_layout(cand, lengths, run_pairs)
     total = b * k
     s, o, st = sorted_ids.numpy(), order.numpy(), starts.numpy()
-    flat = cand.reshape(-1)
+    flat = cand.numpy().reshape(-1)
     assert sorted(o.tolist()) == list(range(total))
     want_ids = np.where((flat >= 0) & (flat < n_docs), flat, -1)[o]
     assert (s == want_ids).all() and (np.diff(s) >= 0).all()
     n_runs = int((st < total).sum())
-    assert len(st) == min(total, -(-total // mr.RUN_PAIRS) + n_docs) + 1 >= n_runs + 1
+    assert len(st) == min(total, -(-total // run_pairs) + n_docs) + 1 >= n_runs + 1
     assert (st[n_runs:] == total).all() and (np.diff(st) >= 0).all()
     covered = np.zeros(total, bool)
     for r in range(n_runs):
         run = np.arange(st[r], st[r + 1])
-        assert 1 <= len(run) <= mr.RUN_PAIRS and len(set(s[run])) == 1 and s[run[0]] >= 0
+        assert 1 <= len(run) <= run_pairs and len(set(s[run])) == 1 and s[run[0]] >= 0
         covered[run] = True
     assert (covered == (s >= 0)).all()
     live = s >= 0
-    assert n_runs == sum(-(-int((s[live] == d).sum()) // mr.RUN_PAIRS) for d in set(s[live]))
+    assert n_runs == sum(-(-int((s[live] == d).sum()) // run_pairs) for d in set(s[live]))
+
+
+def test_dedup_layout_invariants():
+    """Sorted ids ascend; runs hold 1..RUN_PAIRS pairs of one doc, start
+    where a doc starts or every RUN_PAIRS pairs, and cover every live pair
+    once; -1 and out-of-range ids are dead; ``starts`` ends in sentinels."""
+    _check_dedup_layout()
+
+
+@pytest.mark.parametrize("run_pairs", [12, 8, 2, 1])
+def test_dedup_layout_invariants_at_shorter_runs(run_pairs):
+    """The same invariants with runs cut at the sizes K3's tensor-core body
+    asks for (``dedup_run_pairs``): 12 pairs of 32-row queries, 8 of 33-48,
+    2 of 130, 1 of 320."""
+    _check_dedup_layout(run_pairs)
+
+
+@pytest.mark.parametrize("dtype,dim,nq,want", [
+    (torch.bfloat16, 128, 3, 16), (torch.bfloat16, 128, 16, 16), (torch.bfloat16, 128, 32, 12),
+    (torch.float16, 128, 33, 8), (torch.int8, 128, 130, 2), (torch.int8, 128, 352, 1),
+    (torch.bfloat16, 64, 32, 16), (torch.float32, 128, 32, 16)])
+def test_dedup_run_pairs_fit_the_tensor_core_body(dtype, dim, nq, want):
+    """Runs of K3's tensor-core body (bf16, f16 and int8 codes at dim 128)
+    hold at most ``MMA_QTILES`` query tiles of 16 rows and 16 pairs; the
+    CUDA-core body (f32, other widths) keeps ``RUN_PAIRS``."""
+    assert mr.dedup_run_pairs(dtype, dim, nq) == want
+    assert mr.uses_mma(dtype, dim) == (dim == 128 and dtype != torch.float32)
+    if mr.uses_mma(dtype, dim):
+        assert want * -(-nq // 16) <= mr.MMA_QTILES
 
 
 @pytest.mark.parametrize("r_step", [64, 96, 4096])

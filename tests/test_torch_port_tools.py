@@ -10,8 +10,12 @@ fragment of the next product as a bf16 pair hi + lo; the emulator itself on
 ColQwen2.5's head dims and on a split head group (the CUDA sources of the lse
 forward, B4 and B5 run under g++ against their plain versions), the bf16
 K10 (serving and with lse) on the tensor-core body at Dh 64 and 72 in this
-process, and the pooled stage-1 (``csrc/pooled_stage1.cu``) through its
-wrapper on bf16, f16 and int8 stores against its plain version."""
+process, the pooled stage-1 (``csrc/pooled_stage1.cu``) through its
+wrapper on bf16, f16 and int8 stores against its plain version, and K3's
+tensor-core body (``csrc/maxsim_dedup_mma.cu``) through
+``rerank_candidates_dedup`` on the same stores against its plain version,
+and its refusal of runs wider than its shared arrays; ``chip_smoke.strict_oracle``
+running check 2 once, at the tolerance its wide side's rerank asks for."""
 
 import ctypes
 import os
@@ -24,6 +28,7 @@ import numpy as np
 import pytest
 
 from visual_rag_tpu_torch.tools.emulate_kernels import (
+    DEDUP_CASES,
     STAGE1_CASES,
     emulated_source,
     write_sources,
@@ -348,6 +353,22 @@ def emulated_library(tmp_path_factory):
     return build(asan=False, out=tmp_path_factory.mktemp("emu_k10"))
 
 
+def _use_emulated(emulated_library, monkeypatch):
+    """``use_library`` on the emulated build: the wrappers of K10, the pooled
+    stage-1 and K3 take CPU tensors to it until the test ends."""
+    from visual_rag_tpu_torch.ops.kernels import _build
+    from visual_rag_tpu_torch.ops.kernels import flash_attention as fa
+    from visual_rag_tpu_torch.ops.kernels import maxsim_rerank as mr
+    from visual_rag_tpu_torch.ops.kernels import prefetch_topk as pt
+    from visual_rag_tpu_torch.tools.emulate_kernels import use_library
+
+    monkeypatch.setattr(_build, "load_library", _build.load_library)  # undone after the test
+    for module in (fa, pt, mr):
+        monkeypatch.setattr(module, "on_cpu", module.on_cpu)
+        monkeypatch.setattr(module, "stream_ptr", module.stream_ptr)
+    use_library(emulated_library)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dh", [64, 72])
 def test_emulated_bf16_k10_tensor_core_body(emulated_library, monkeypatch, dh, causal):
@@ -364,13 +385,9 @@ def test_emulated_bf16_k10_tensor_core_body(emulated_library, monkeypatch, dh, c
     import torch
 
     from chip_smoke import K10_TOL, LSE_ATOL
-    from visual_rag_tpu_torch.ops.kernels import _build
     from visual_rag_tpu_torch.ops.kernels import flash_attention as fa
-    from visual_rag_tpu_torch.tools.emulate_kernels import use_library
 
-    for module, name in ((_build, "load_library"), (fa, "on_cpu"), (fa, "stream_ptr")):
-        monkeypatch.setattr(module, name, getattr(module, name))  # undone after the test
-    use_library(emulated_library)
+    _use_emulated(emulated_library, monkeypatch)
     rng = np.random.default_rng(dh + causal)
     b, t, hq, hkv, lone = 2, 150, 4, 2, 77
     qkv = torch.from_numpy(rng.standard_normal((b, t, hq + 2 * hkv, dh)).astype(np.float32))
@@ -407,13 +424,78 @@ def test_emulated_pooled_stage1_matches_plain(emulated_library, monkeypatch, cas
     tile, odd and even), two query tiles, P 1 to 10 with holes, blocks that
     walk several doc tiles (2 or 4 SMs), int8 with and without scales;
     within 1e-5 of the plain version, empty docs 0, two calls bit-equal."""
-    from visual_rag_tpu_torch.ops.kernels import _build
-    from visual_rag_tpu_torch.ops.kernels import flash_attention as fa
-    from visual_rag_tpu_torch.ops.kernels import prefetch_topk as pt
-    from visual_rag_tpu_torch.tools.emulate_kernels import check_stage1, use_library
+    from visual_rag_tpu_torch.tools.emulate_kernels import check_stage1
 
-    for module, name in ((_build, "load_library"), (fa, "on_cpu"), (fa, "stream_ptr"),
-                         (pt, "on_cpu"), (pt, "stream_ptr")):
-        monkeypatch.setattr(module, name, getattr(module, name))  # undone after the test
-    use_library(emulated_library)
+    _use_emulated(emulated_library, monkeypatch)
     assert check_stage1(*case)
+
+
+@pytest.mark.parametrize("case", DEDUP_CASES, ids=["-".join(map(str, c)) for c in DEDUP_CASES])
+def test_emulated_dedup_matches_plain(emulated_library, monkeypatch, case):
+    """K3's tensor-core body from its CUDA source (``mma`` tiles in bf16 and
+    f16, int8 codes widened to bf16 in shared memory, the ``cp.async`` ring
+    across doc boundaries, the run table, the warp grid of one to 24 query
+    tiles, the row max on the fragments, the fold) through
+    ``rerank_candidates_dedup``: docs of 0, 1, 128, 129 and up to 299 rows,
+    queries of 3 to 130 rows with masked tails, runs of one pair up to the
+    most a run holds, -1 and out-of-range candidates, blocks that walk many
+    runs (2 to 4 SMs), per-doc scales; within ``ATOL`` (1e-3) of
+    ``rerank_candidates_dedup_ref``, NEG_INF where it has it, two calls
+    bit-equal, ``mma_launches`` counted."""
+    from visual_rag_tpu_torch.tools.emulate_kernels import check_dedup
+
+    _use_emulated(emulated_library, monkeypatch)
+    b, k, d, nq, dtype, scaled, sms, spread = case
+    assert check_dedup(b, k, d, nq, dtype, scaled, spread, sms)
+
+
+def test_emulated_dedup_refuses_runs_past_its_shared_arrays(emulated_library, monkeypatch):
+    """K3's tensor-core body sizes its shared arrays for runs of at most 24
+    query tiles and 16 pairs, and ``dedup_run_pairs`` cuts the layout so. Its
+    C entry takes the run size the layout was cut with and refuses one past
+    those arrays before the launch: a layout cut at 16 pairs of 3 tiles (33
+    query rows) raises, and leaves the launch counts as they were."""
+    from visual_rag_tpu_torch.ops.kernels import maxsim_rerank as mr
+    from visual_rag_tpu_torch.tools.emulate_kernels import dedup_inputs
+
+    _use_emulated(emulated_library, monkeypatch)
+    args = dedup_inputs(20, 9, 6, 33, "bf16", False, "heavy")
+    assert mr.dedup_run_pairs(args[0].dtype, 128, 33) == 8
+    monkeypatch.setattr(mr, "dedup_run_pairs", lambda dtype, dim, nq: mr.RUN_PAIRS)
+    before = (mr.rerank_candidates_dedup.launches, mr.rerank_candidates_dedup.mma_launches)
+    with pytest.raises(RuntimeError, match="rerank_candidates_dedup launch"):
+        mr.rerank_candidates_dedup(*args)
+    assert (mr.rerank_candidates_dedup.launches,
+            mr.rerank_candidates_dedup.mma_launches) == before
+
+
+@pytest.mark.parametrize("mma", [False, True])
+def test_chip_smoke_strict_oracle_runs_once_at_the_wide_sides_tolerance(monkeypatch, mma):
+    """``chip_smoke.strict_oracle`` runs check 2 once: one ``single_full`` and
+    one ``two_stage`` search, compared at tolerance 0, or at 1e-4 where the
+    wide side launched K3's tensor-core body (its ``mma_launches`` grew).
+    The wide side's scores here are shifted by 5e-5, so the tolerance it
+    chose decides the answer."""
+    from chip_smoke import strict_oracle
+    from visual_rag_tpu_torch import RetrievalEngine, synthetic_index
+    from visual_rag_tpu_torch.ops.kernels.maxsim_rerank import rerank_candidates_dedup
+
+    index = synthetic_index(60, min_tokens=8, max_tokens=40, pooled_rows=4,
+                            storage_dtype="float32", seed=3, device="cpu")
+    engine = RetrievalEngine(index)
+    search, calls = engine.search_embedded_batch, []
+
+    def counted(queries, mode, **kw):
+        calls.append(mode)
+        hits = search(queries, mode=mode, **kw)
+        if mode != "two_stage":
+            return hits
+        monkeypatch.setattr(rerank_candidates_dedup, "mma_launches",
+                            rerank_candidates_dedup.mma_launches + mma)
+        return [[dict(h, score_final=h["score_final"] + 5e-5) for h in row] for row in hits]
+
+    monkeypatch.setattr(engine, "search_embedded_batch", counted)
+    rng = np.random.default_rng(3)
+    queries = [rng.standard_normal((int(n), 128)).astype(np.float32) for n in (5, 9, 12)]
+    assert strict_oracle(engine, queries, index.num_docs) == (mma, 1e-4 if mma else 0.0)
+    assert calls == ["single_full", "two_stage"]

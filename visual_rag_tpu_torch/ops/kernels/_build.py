@@ -64,6 +64,7 @@ def _declare(lib):
     lib.vrt_rerank_candidates_dedup.argtypes = [
         i32, vp, i32, vp, vp, vp, i64, vp, i32, vp, i32, i32, i32, i32, vp, vp, vp, i32, vp, vp]
     lib.vrt_rerank_candidates_dedup.restype = i32
+    _declare_dedup_mma(lib)
     lib.vrt_rerank_candidates_sweep.argtypes = [
         i32, vp, i32, vp, i32, vp, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp]
     lib.vrt_rerank_candidates_sweep.restype = i32
@@ -78,6 +79,14 @@ def _declare(lib):
     lib.vrt_error_string.argtypes = [i32]
     lib.vrt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _declare_dedup_mma(lib):
+    """The C interface of K3's tensor-core body (``maxsim_dedup_mma.cu``)."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.vrt_rerank_candidates_dedup_mma.argtypes = [
+        i32, vp, i32, vp, vp, vp, vp, vp, i32, i32, i32, vp, vp, vp, i32, i32, vp, vp]
+    lib.vrt_rerank_candidates_dedup_mma.restype = i32
 
 
 def _declare_stage1(lib):

@@ -3,9 +3,10 @@
 Port of ``visual_rag_tpu/ops/kernels/maxsim_rerank.py``: K2
 ``rerank_candidates`` (``:95-181``) and K3 ``rerank_candidates_dedup``
 (``:271-372``), for float and int8 stores. On a CUDA tensor each wrapper
-launches its hand-written kernel (``csrc/maxsim_rerank.cu``,
-``csrc/maxsim_dedup.cu``); on a CPU tensor it runs its plain PyTorch
-version. K2's, :func:`rerank_candidates_ref`, is ported from
+launches its hand-written kernel (``csrc/maxsim_rerank.cu``; K3: the
+tensor-core body ``csrc/maxsim_dedup_mma.cu`` for bf16, f16 and int8 stores
+at dim 128, ``csrc/maxsim_dedup.cu`` for the others); on a CPU tensor it
+runs its plain PyTorch version. K2's, :func:`rerank_candidates_ref`, is ported from
 ``visual_rag_tpu/retrieval/batch.py:474-508`` (``xla_rerank_batch``) and
 scores the pairs in place; K3's, :func:`rerank_candidates_dedup_ref`, runs
 K3's own bookkeeping (:func:`dedup_layout`) and scores the sorted pairs.
@@ -42,6 +43,8 @@ _MAX_SMEM_BYTES = 200 * 1024  # K2's f32 query tile; a block may hold 227 KB
 _PAIR_SMEM_BYTES = 227 * 1024  # all of K3's and K4's block (csrc/maxsim_pairs.cuh)
 _GATHER_BUDGET_BYTES = 256 * 1024 * 1024  # f32 doc windows per chunk
 RUN_PAIRS = 16  # pairs of one doc per K3 block (csrc/maxsim_pairs.cuh GROUP)
+MMA_DIM = 128  # the row width of K3's tensor-core body (csrc/maxsim_dedup_mma.cu)
+MMA_QTILES = 24  # 16-row query tiles of one run in that body (DM_QTILES)
 
 
 def _tile_rows(nq: int) -> int:
@@ -173,20 +176,36 @@ def pair_scores(flat, row0, lens, queries, qmask, qid, max_len: int,
     return torch.where(lens > 0, out, NEG_INF)
 
 
-def dedup_layout(candidates: torch.Tensor, lengths: torch.Tensor):
+def uses_mma(dtype: torch.dtype, dim: int) -> bool:
+    """Whether K3 on a CUDA store of this dtype and row width runs its
+    tensor-core body: bf16, f16 and int8 codes at dim 128. f32 stores and
+    other widths keep the CUDA-core body (TF32 would score below the f32
+    store's precision)."""
+    return dim == MMA_DIM and dtype in (torch.bfloat16, torch.float16, torch.int8)
+
+
+def dedup_run_pairs(dtype: torch.dtype, dim: int, nq: int) -> int:
+    """Pairs of one doc per K3 run: ``RUN_PAIRS``, and in the tensor-core
+    body no more than its ``MMA_QTILES`` query tiles of 16 rows hold."""
+    if not uses_mma(dtype, dim):
+        return RUN_PAIRS
+    return max(1, min(RUN_PAIRS, MMA_QTILES // max(1, -(-nq // 16))))
+
+
+def dedup_layout(candidates: torch.Tensor, lengths: torch.Tensor, run_pairs: int = RUN_PAIRS):
     """K3's bookkeeping (port of ``maxsim_rerank.py:306-326``), on the
     candidates' device and without a wait for it.
 
     The flattened pairs sort stably by doc id, -1 and out-of-range ids
     first (as -1). Each doc's pairs are then cut into runs of at most
-    ``RUN_PAIRS``, one K3 block each. Returns ``(sorted_ids, order,
+    ``run_pairs`` (:func:`dedup_run_pairs`). Returns ``(sorted_ids, order,
     starts)``, all int32: the sorted doc ids (-1 for invalid pairs), the
     sort permutation (``order[j]`` is the flat [B*K] index of sorted pair
     ``j``, so a pair's query is ``order[j] // K``), and the first sorted
     position of each run followed by ``B*K`` up to the bound
-    ``min(B*K, ceil(B*K / RUN_PAIRS) + D)`` on the run count, plus one:
-    ``starts`` has a block's run and the next run's start for every block
-    of the grid.
+    ``min(B*K, ceil(B*K / run_pairs) + D)`` on the run count, plus one:
+    the CUDA-core body launches one block a slot, and has a block's run and
+    the next run's start for each; the tensor-core body counts the runs.
     """
     dev = candidates.device
     flat = candidates.reshape(-1).long()
@@ -198,8 +217,8 @@ def dedup_layout(candidates: torch.Tensor, lengths: torch.Tensor):
     first = torch.ones(total, dtype=torch.bool, device=dev)
     first[1:] = sorted_ids[1:] != sorted_ids[:-1]
     doc_start = torch.cummax(torch.where(first & live, pos, 0), dim=0).values
-    run_first = live & ((pos - doc_start) % RUN_PAIRS == 0)
-    n_blocks = max(1, min(total, -(-total // RUN_PAIRS) + n_docs))
+    run_first = live & ((pos - doc_start) % run_pairs == 0)
+    n_blocks = max(1, min(total, -(-total // run_pairs) + n_docs))
     # one spare slot past the sentinel soaks up the positions that start no run
     starts = torch.full((n_blocks + 2,), total, dtype=torch.int32, device=dev)
     slot = torch.where(run_first, torch.cumsum(run_first, dim=0) - 1, n_blocks + 1)
@@ -218,8 +237,11 @@ def rerank_candidates_dedup(
     doc_scales: Optional[torch.Tensor] = None,  # [D] f32 per-doc scales
 ) -> torch.Tensor:
     """K2's scores [B, K] f32 with the pairs sorted by doc (K3): each run
-    of at most ``RUN_PAIRS`` pairs of one doc is one block, which reads the
-    doc's rows once for all of them."""
+    of at most :func:`dedup_run_pairs` pairs of one doc reads the doc's rows
+    once for all of them. On bf16, f16 and int8 stores at dim 128 the
+    tensor-core body scores them (``mma_launches`` counts it): the same
+    exact products, f32 sums in the tensor cores' order, so within about
+    1e-6 of K2 and not bit-equal to it."""
     if on_cpu(flat):
         return rerank_candidates_dedup_ref(flat, offsets, lengths, queries, qmask,
                                            candidates, max_len, doc_scales)
@@ -231,19 +253,29 @@ def rerank_candidates_dedup(
     out = torch.full((b * k,), NEG_INF, dtype=torch.float32, device=flat.device)
     if b == 0 or k == 0:
         return out.view(b, k)
-    sorted_ids, order, starts = dedup_layout(cand, lengths)
+    mma = uses_mma(flat.dtype, dim) and nq > 0
+    run_pairs = dedup_run_pairs(flat.dtype, dim, nq)
+    sorted_ids, order, starts = dedup_layout(cand, lengths, run_pairs)
     lib = _build.load_library()
-    err = lib.vrt_rerank_candidates_dedup(
-        flat.device.index, ptr(flat), DTYPE_CODES[flat.dtype], ptr(offsets), ptr(lengths),
-        ptr(doc_scales), offsets.shape[0], ptr(q), DTYPE_CODES[q.dtype], ptr(qm), b, nq, dim,
-        k, ptr(sorted_ids), ptr(order), ptr(starts), starts.numel() - 1, ptr(out),
-        stream_ptr(flat.device))
+    if mma:  # the library refuses a run_pairs past what its shared arrays hold
+        err = lib.vrt_rerank_candidates_dedup_mma(
+            flat.device.index, ptr(flat), DTYPE_CODES[flat.dtype], ptr(offsets), ptr(lengths),
+            ptr(doc_scales), ptr(q), ptr(qm), b, nq, k, ptr(sorted_ids), ptr(order),
+            ptr(starts), starts.numel() - 1, run_pairs, ptr(out), stream_ptr(flat.device))
+    else:
+        err = lib.vrt_rerank_candidates_dedup(
+            flat.device.index, ptr(flat), DTYPE_CODES[flat.dtype], ptr(offsets), ptr(lengths),
+            ptr(doc_scales), offsets.shape[0], ptr(q), DTYPE_CODES[q.dtype], ptr(qm), b, nq,
+            dim, k, ptr(sorted_ids), ptr(order), ptr(starts), starts.numel() - 1, ptr(out),
+            stream_ptr(flat.device))
     _build.check(err, "rerank_candidates_dedup launch")
     rerank_candidates_dedup.launches += 1
+    rerank_candidates_dedup.mma_launches += mma
     return out.view(b, k)
 
 
 rerank_candidates_dedup.launches = 0
+rerank_candidates_dedup.mma_launches = 0  # of them, the tensor-core body's
 
 
 def rerank_candidates_dedup_ref(flat, offsets, lengths, queries, qmask, candidates,
@@ -255,7 +287,8 @@ def rerank_candidates_dedup_ref(flat, offsets, lengths, queries, qmask, candidat
     ``order``. A wrong run boundary or permutation shows as a wrong score."""
     b, k = candidates.shape
     total = b * k
-    sorted_ids, order, starts = dedup_layout(candidates, lengths)
+    run_pairs = dedup_run_pairs(flat.dtype, flat.shape[1], queries.shape[1])
+    sorted_ids, order, starts = dedup_layout(candidates, lengths, run_pairs)
     pos = torch.arange(total, dtype=torch.int32, device=flat.device)
     run = torch.searchsorted(starts, pos, right=True) - 1  # -1 before the first run
     doc = torch.where(run >= 0, sorted_ids[starts[run.clamp(min=0)].long()], -1).long()

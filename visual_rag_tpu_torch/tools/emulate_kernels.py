@@ -2,16 +2,19 @@
 
     python visual_rag_tpu_torch/tools/emulate_kernels.py [--asan] [DH,T,HQ,HKV,CAUSAL,TILE ...]
     python visual_rag_tpu_torch/tools/emulate_kernels.py --stage1 [--asan] [B,D,P,DTYPE,SCALED,SMS ...]
+    python visual_rag_tpu_torch/tools/emulate_kernels.py --dedup [--asan] [B,K,D,NQ,DTYPE,...]
 
-compiles ``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu`` and
-``csrc/pooled_stage1.cu`` with g++ against ``tools/cuda_emu.h`` (a CPU model
+compiles ``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``,
+``csrc/pooled_stage1.cu`` and ``csrc/maxsim_dedup_mma.cu`` with g++ against
+``tools/cuda_emu.h`` (a CPU model
 of the CUDA launch: threads, barriers, shuffles, NaN-filled shared memory of
 the launch's exact size, the SM count the grid is sized by, and the
 tensor-core building blocks of ``csrc/mma_tiles.cuh``: ``mma.sync`` m16n8k16
 in bf16 and f16 with the PTX fragment layout, ``ldmatrix`` plain and
 ``.trans``, ``cp.async`` with zero-fill) into ``build/kernels/emu/``, points
-the wrappers of ``ops/kernels/flash_attention.py`` and
-``ops/kernels/prefetch_topk.py`` at that library for CPU tensors, and holds
+the wrappers of ``ops/kernels/flash_attention.py``,
+``ops/kernels/prefetch_topk.py`` and ``ops/kernels/maxsim_rerank.py`` at that
+library for CPU tensors, and holds
 K10 (serving and with lse), B4 and B5 against their plain versions in f32
 and bf16, at the limits of ``chip_smoke.py`` (``K10_TOL``, ``BWD_TOL``,
 ``LSE_ATOL``). Each case is ``DH,T,HQ,HKV,CAUSAL,TILE`` (TILE: rows a
@@ -21,7 +24,10 @@ In bf16 the grouped cases split B4's head groups over more blocks, as
 ``csrc/flash_attention_bwd.cu`` does on the H100's 132 SMs (the last two at
 the 8-head groups of ColPali's and ColQwen2.5's text).
 ``--stage1`` holds the pooled stage-1 instead (``check_stage1``, the cases of
-``STAGE1_CASES``: queries, docs, pooled rows, store dtype, scales, SMs).
+``STAGE1_CASES``: queries, docs, pooled rows, store dtype, scales, SMs), and
+``--dedup`` K3's tensor-core body (``check_dedup``, the cases of
+``DEDUP_CASES``: queries, candidates each, docs, query rows, store dtype,
+per-doc scales, SMs, how the candidates spread).
 ``--asan`` builds with AddressSanitizer, which must be preloaded:
 ``LD_PRELOAD=$(gcc -print-file-name=libasan.so) ASAN_OPTIONS=detect_leaks=0``.
 
@@ -44,7 +50,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 SOURCES = ("flash_common.cuh", "flash_mma.cuh", "flash_attention.cu", "flash_attention_bwd.cu",
-           "pooled_stage1.cu")
+           "pooled_stage1.cu", "maxsim_dedup_mma.cu")
 CASES = ((64, 130, 3, 1, True, None), (72, 150, 4, 4, False, None), (72, 200, 2, 2, True, 64),
          (80, 100, 2, 2, False, None), (80, 200, 2, 2, False, 64), (128, 90, 4, 2, True, None),
          (256, 100, 8, 1, False, None), (256, 150, 2, 1, True, 40),
@@ -55,6 +61,18 @@ CASES = ((64, 130, 3, 1, True, None), (72, 150, 4, 4, False, None), (72, 200, 2,
 STAGE1_CASES = ((3, 13, 1, "bf16", False, 132), (70, 100, 10, "f16", False, 132),
                 (300, 45, 4, "int8", True, 132), (5, 200, 3, "bf16", False, 4),
                 (9, 64, 5, "int8", False, 2))
+# K3's tensor-core body: (queries, candidates each, docs, query rows, store dtype, per-doc
+# scales, SMs, spread). Docs of 0, 1, 128, 129 and up to 299 rows (not multiples of the
+# 128-row slab); query rows 3 (runs of up to 16 pairs), 16 (16 pairs, one tile each), 24,
+# 32 and 33 (runs of 12 and 8), 130 (runs of 2 pairs of 9 tiles); "heavy" puts the
+# candidates on 4 docs (runs cut at the most a run holds), "uniform" on every doc (runs
+# of one pair); blocks that walk many runs (2 to 4 SMs) and one run a block (132)
+DEDUP_CASES = ((6, 7, 40, 3, "bf16", False, 132, "uniform"),
+               (20, 9, 6, 32, "bf16", False, 2, "heavy"),
+               (5, 6, 11, 33, "f16", True, 3, "uniform"),
+               (24, 4, 5, 16, "f16", False, 4, "heavy"),
+               (4, 5, 7, 130, "int8", True, 2, "uniform"),
+               (12, 8, 13, 24, "int8", False, 132, "heavy"))
 
 
 def emulated_source(text: str) -> str:
@@ -93,30 +111,34 @@ def build(asan: bool, out: Path = ROOT / "build" / "kernels" / "emu") -> Path:
            "-fno-strict-aliasing", *flags, "-I", str(out / "src"),
            "-I", str(Path(__file__).resolve().parent), "-o", str(lib), "-x", "c++",
            str(out / "src" / "flash_attention.cu"), str(out / "src" / "flash_attention_bwd.cu"),
-           str(out / "src" / "pooled_stage1.cu"), str(out / "src" / "errors.cpp")]
+           str(out / "src" / "pooled_stage1.cu"), str(out / "src" / "maxsim_dedup_mma.cu"),
+           str(out / "src" / "errors.cpp")]
     subprocess.run(cmd, check=True)
     return lib
 
 
 def use_library(lib_path: Path):
     """Point the wrappers' kernel path at the emulated library for CPU tensors:
-    the flash-attention wrappers' and the pooled stage-1's (``prefetch_topk``)."""
+    the flash-attention wrappers', the pooled stage-1's (``prefetch_topk``)
+    and K3's (``maxsim_rerank``; its tensor-core body, the only one built)."""
     from visual_rag_tpu_torch.ops.kernels import _build
     from visual_rag_tpu_torch.ops.kernels import flash_attention as fa
+    from visual_rag_tpu_torch.ops.kernels import maxsim_rerank as mr
     from visual_rag_tpu_torch.ops.kernels import prefetch_topk as pt
 
     lib = ctypes.CDLL(str(lib_path))
     _build._declare_flash(lib)
     _build._declare_stage1(lib)
+    _build._declare_dedup_mma(lib)
     for fn in (lib.vrt_flash_attention, lib.vrt_flash_attention_bwd_dkv,
                lib.vrt_flash_attention_bwd_dq, lib.vrt_flash_attention_bwd_dkv_scratch,
-               lib.vrt_pooled_stage1_scores):
+               lib.vrt_pooled_stage1_scores, lib.vrt_rerank_candidates_dedup_mma):
         fn.argtypes = [ctypes.c_void_p, *fn.argtypes[1:]]  # a CPU tensor's device index: None
     lib.vrt_error_string.argtypes = [ctypes.c_int]
     lib.vrt_error_string.restype = ctypes.c_char_p
     lib.vrt_emu_set_sms.argtypes = [ctypes.c_int]
     _build.load_library = lambda: lib
-    for mod in (fa, pt):
+    for mod in (fa, pt, mr):
         mod.on_cpu = lambda t: False
         mod.stream_ptr = lambda device: ctypes.c_void_p(None)
     return fa
@@ -238,15 +260,100 @@ def stage1_case(text: str):
     return int(b), int(d), int(p), dtype, scaled == "True", int(sms)
 
 
+DEDUP_DTYPES = {"bf16": "bfloat16", "f16": "float16", "int8": "int8"}
+
+
+def dedup_inputs(b, k, d, nq, dtype, scaled, spread):
+    """The arguments of ``rerank_candidates_dedup`` for a case of ``DEDUP_CASES``
+    (d >= 5): a ragged store of unit rows with docs of 0, 1, 128, 129 and 2-299
+    rows at 32-row aligned offsets (int8: per-doc codes and their scales); queries
+    of 1 to nq valid rows (one of nq); candidates with -1, an id past the store
+    and the empty doc."""
+    import numpy as np
+    import torch
+
+    from visual_rag_tpu_torch.index.quantize import quantize_per_doc
+
+    rng = np.random.default_rng(b * 1000 + k * 100 + d + nq)
+    lengths = rng.integers(2, 300, d).astype(np.int32)
+    lengths[[0, 1, 2, 3]] = 0, 1, 128, 129
+    aligned = (lengths + 31) // 32 * 32
+    offsets = np.concatenate([[0], np.cumsum(aligned[:-1])]).astype(np.int32)
+    rows = int(aligned.sum()) + 320
+    flat = torch.nn.functional.normalize(
+        torch.from_numpy(rng.standard_normal((rows, 128)).astype(np.float32)), dim=-1)
+    offsets, lengths = torch.from_numpy(offsets), torch.from_numpy(lengths)
+    scales = (torch.from_numpy(rng.uniform(0.5, 2.0, d).astype(np.float32))
+              if scaled else None)
+    if dtype == "int8":
+        flat, doc_scales = quantize_per_doc(flat, offsets, lengths)
+        scales = doc_scales if scaled else None
+    else:
+        flat = flat.to(getattr(torch, DEDUP_DTYPES[dtype]))
+    q = torch.nn.functional.normalize(
+        torch.from_numpy(rng.standard_normal((b, nq, 128)).astype(np.float32)), dim=-1)
+    valid = rng.integers(1, nq + 1, b)
+    valid[0] = nq
+    qmask = (torch.arange(nq)[None, :] < torch.from_numpy(valid)[:, None]).float()
+    hi = min(4, d) if spread == "heavy" else d
+    cand = rng.integers(0, hi, (b, k))
+    cand[::3, 0] = -1
+    cand[1 % b, -1] = d + 3  # out of range: scored as -1
+    cand[2 % b, k // 2] = 0  # the empty doc
+    return (flat, offsets, lengths, q, qmask, torch.from_numpy(cand.astype(np.int32)),
+            int(lengths.max()), scales)
+
+
+def check_dedup(b, k, d, nq, dtype, scaled, spread, sms) -> bool:
+    """K3's tensor-core body through ``rerank_candidates_dedup`` against its
+    plain version: within ``ATOL`` of ``tests/test_torch_port_cuda.py`` (1e-3;
+    the emulated ``mma`` sums exactly, so only the plain version's f32 order
+    differs), NEG_INF where the plain version has it, two calls bit-equal, one
+    launch of the tensor-core body counted a call."""
+    import torch
+
+    from visual_rag_tpu_torch.ops.kernels import _build
+    from visual_rag_tpu_torch.ops.kernels import maxsim_rerank as mr
+
+    _build.load_library().vrt_emu_set_sms(sms)
+    args = dedup_inputs(b, k, d, nq, dtype, scaled, spread)
+    t0 = time.perf_counter()
+    before = (mr.rerank_candidates_dedup.launches, mr.rerank_candidates_dedup.mma_launches)
+    got, again = (mr.rerank_candidates_dedup(*args) for _ in range(2))
+    want = mr.rerank_candidates_dedup_ref(*args)
+    err = float((got - want).abs().max())
+    run_pairs = mr.dedup_run_pairs(args[0].dtype, 128, nq)
+    n_runs = int((mr.dedup_layout(args[5], args[2], run_pairs)[2] < b * k).sum())
+    good = (err <= 1e-3 and torch.equal(got, again)
+            and torch.equal(got == mr.NEG_INF, want == mr.NEG_INF)
+            and (mr.rerank_candidates_dedup.launches,
+                 mr.rerank_candidates_dedup.mma_launches) == (before[0] + 2, before[1] + 2))
+    print(f"dedup B {b} K {k} D {d} NQ {nq} {dtype}{' scaled' if scaled else ''} {spread} "
+          f"{sms} SMs: {n_runs} runs of <= {run_pairs} pairs, max abs err {err:.3g} "
+          f"({time.perf_counter() - t0:.1f} s) {'ok' if good else 'FAIL'}", flush=True)
+    return good
+
+
+def dedup_case(text: str):
+    """``B,K,D,NQ,DTYPE,SCALED,SMS,SPREAD`` as a case of ``DEDUP_CASES``."""
+    b, k, d, nq, dtype, scaled, sms, spread = text.split(",")
+    return int(b), int(k), int(d), int(nq), dtype, scaled == "True", int(sms), spread
+
+
 def main(argv) -> int:
     sys.path.insert(0, str(ROOT))
     asan = "--asan" in argv
     stage1 = "--stage1" in argv
-    args = [c for c in argv if c not in ("--asan", "--stage1")]
+    dedup = "--dedup" in argv
+    args = [c for c in argv if c not in ("--asan", "--stage1", "--dedup")]
     fa = use_library(build(asan))
     if stage1:
         cases = [stage1_case(c) for c in args] or STAGE1_CASES
         ok = all([check_stage1(*case) for case in cases])
+    elif dedup:
+        cases = [dedup_case(c) for c in args] or DEDUP_CASES
+        ok = all([check_dedup(b, k, d, nq, dt, sc, spread, sms)
+                  for b, k, d, nq, dt, sc, sms, spread in cases])
     else:
         cases = [tuple(eval(c)) for c in args] or CASES
         ok = all([check(fa, *case) for case in cases])
