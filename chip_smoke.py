@@ -1,6 +1,11 @@
-"""Drive the PyTorch/CUDA port's query, embedding and training paths once on one GPU.
+"""Check the PyTorch/CUDA port's kernels and its query, embedding and training paths on one GPU.
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
+
+It times kernels (CUDA events, beside their plain versions and bounds) and
+checks answers and launch counts; it does not rate the engine, which the
+benchmark's cells (``bench_port/``) measure. Each search below is one
+untimed pass whose every batch must answer 10 valid hits.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -53,8 +58,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    holes), within ATOL, two calls bit-equal, and with one query row a group
    the qdot scores bit-equal to the plain version's. Then, counts at 0: the
    card against the CPU in every mode, stage-1 mode and a filter (16
-   queries, ids); ``two_stage`` QPS at 3k bs 256 (pooled and tokens, both
-   dtypes); ``single_tiles`` and the tokens ``two_stage`` at bs 16 and 256;
+   queries, ids); ``two_stage`` at 3k bs 256 (pooled and tokens, both
+   dtypes); ``single_tiles`` at bs 16 and 256 and the tokens ``two_stage``
+   at bs 16;
    per-query ``search_embedded`` (K7); the strict oracles at tolerance 0
    for both dtypes and both stage-1 kinds; the top-10 overlap with the bf16
    engine; at 100k ``int8_refined`` ``two_stage`` bs 1024 (pooled, tokens),
@@ -81,8 +87,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``int8_refined`` pooled ``two_stage`` bs 1024 (K3 each, count > 0, every
    launch the tensor-core body's: ``mma_launches`` == ``launches``), and
    on the 3k corpus on the padded wire at bs 256 (K4, count > 0), each with
-   its QPS beside the same engine's with ``rerank_impl="plain"`` (K2; two
-   runs each, alternating) and ids equal to that engine's;
+   ids equal to the same engine's with ``rerank_impl="plain"`` (K2);
    the strict oracle on the padded 3k engine (64 queries, ``prefetch_k`` =
    corpus: K4 against ``single_full``'s K1), logged at tolerance 0 and
    required at 1e-4.
@@ -96,8 +101,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    same boolean mask; and K10's time on a batch that pads a 5-tile page to
    17 tiles. Then, counts at 0, the main path: full-width ColSmol-500M in
    bf16 with random weights from seed 0 embeds 32 pages (8 each of 5, 9, 13
-   and 17 tiles, a batch per geometry) and 64 queries (pages/s, queries/s
-   after a warm batch; K10 launched layers x batches times), the pages go
+   and 17 tiles, a batch per geometry) and 64 queries after a warm batch
+   (K10 launched layers x batches times), the pages go
    through ``page_vectors`` and ``IndexBuilder.seal`` (bf16) into the
    engine, which answers ``two_stage`` (prefetch_k 200, top_k 10) with the
    embedded queries at bs 64 and 16 with both stage-1 modes, and the strict
@@ -115,14 +120,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    limits, two calls bit-equal, with the CUDA-event ms of K10, the
    plain version and SDPA. Then, counts at 0, the main path: full-width
    ColPali-v1.3 in bf16, random weights from seed 0 drawn on the card, embeds
-   32 pages of four aspect ratios in batches of 8 and 64 queries (pages/s,
-   queries/s after a warm batch; K10 launched 4 x (27 + 18) + 18 times),
+   32 pages of four aspect ratios in batches of 8 and 64 queries after a
+   warm batch (K10 launched 4 x (27 + 18) + 18 times),
    ``page_vectors`` -> ``IndexBuilder(CollectionSchema.standard(
    experimental_names=plan["names"]))`` -> seal (bf16) ->
    ``RetrievalEngine(index, stage1_cut="exact")``, ``two_stage``
    (prefetch_k 200, top_k 10) with both stage-1 modes at bs 64 and 16, the
-   strict oracle at tolerance 0, rerank and stage-1 launches > 0; one
-   profiled batch of 8 pages. Then, not counted: the dense-attention
+   strict oracle at tolerance 0, rerank and stage-1 launches > 0. Then,
+   not counted: the dense-attention
    yardstick on 2 pages and 16 queries (cosine >= 0.99), and the card
    against the CPU in f32 at full width, the depth cut to 2 vision and 2
    text layers (a full f32 ColPali is 11.8 GB on each side), 4 queries and
@@ -142,13 +147,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    (3963137408 parameters, asserted), random weights from seed 0 drawn on
    the card, embeds 32 pages of ColPali's four aspect ratios in batches of 8
    (every page padded to 4096 patches) and 64 queries in one batch, after a
-   warm batch (pages/s, queries/s, the host processor's seconds a batch; K10
-   launched 32 + 36 times a page batch and 36 a query batch),
+   warm batch (K10 launched 32 + 36 times a page batch and 36 a query
+   batch),
    ``page_vectors`` (gaussian and triangular smoothing and the
    ``experimental_pooling`` alias) -> seal (bf16) ->
    ``RetrievalEngine(index, stage1_cut="exact")``, ``two_stage`` with both
-   stage-1 modes at bs 64 and 16, the strict oracle at tolerance 0; one
-   profiled batch of 8 pages. Then, not counted: the dense-attention
+   stage-1 modes at bs 64 and 16, the strict oracle at tolerance 0. Then,
+   not counted: the dense-attention
    yardstick on 2 pages and 16 queries (cosine >= 0.99), and the card
    against the CPU in f32 at full width, the depth cut to 2 vision layers
    (the second full attention) and 2 text layers, 1 page (window ids and
@@ -174,17 +179,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    one batch of 4 (query, page) pairs from the port's processor (17-tile
    random pages with their window ids, 4 random queries): ``remat=True``
    gives the same loss and gradients; a warm step, then, counts at 0, the
-   main path: 5 steps (steps/s, pairs/s, peak memory; each loss finite and
-   the last below the warm one's; the forward that saves lse, B4 and B5
-   launched 76 times a step each: 12 vision + 32 page text + 32 query text
-   layers; the serving forward never); ``ema_update`` of the parameters
-   before and after the 5 steps against the f64 lerp; a profiled step; a
-   checkpoint saved, restored and stepped once, equal to a step from the
-   live state. Then, not counted: one step's loss and gradients in f32 on
-   the card against the CPU at full width, the depth cut to 2 + 2 layers, 2
-   pairs of 5-tile pages (loss 1e-4 relative; each leaf within 1e-3 of its
-   own largest, except the leaves at f32 rounding level on the CPU,
-   ``ROUNDING_SHARE``, which may be only the key biases).
+   main path: 5 steps (peak memory; each loss finite and the last below the
+   warm one's; the forward that saves lse, B4 and B5 launched 76 times a step
+   each: 12 vision + 32 page text + 32 query text layers; the serving forward
+   never); ``ema_update`` of the parameters before and after the 5 steps
+   against the f64 lerp; a checkpoint saved, restored and stepped once, equal
+   to a step from the live state. Then, not counted: one step's loss and
+   gradients in f32 on the card against the CPU at full width, the depth cut
+   to 2 + 2 layers, 2 pairs of 5-tile pages (loss 1e-4 relative; each leaf
+   within 1e-3 of its own largest, except the leaves at f32 rounding level on
+   the CPU, ``ROUNDING_SHARE``, which may be only the key biases).
 15. ColPali-v1.3 training (K10's forward with its logsumexp, B4 and B5 at
    head dims 72 and 256). Phase 14's state is freed first. First, not
    counted, at the path's shapes -- vision, 1 and 4 pages (T 1024, 16 heads
@@ -201,18 +205,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    weights from seed 0 drawn on the card, bf16 compute, ``remat=True``),
    ``Trainer(lr=1e-4, warmup=0)``: a warm step in its two halves, to split
    the peak memory into the state, the forward and backward, and the
-   optimizer's transient; then, counts at 0, the main path: 5 steps
-   (steps/s, pairs/s, peak memory; each loss finite; B4 and B5 launched 63
-   times a step each, 27 vision + 18 page text + 18 query text layers, the
-   forward that saves lse twice that, since remat runs each block's forward
-   again in the backward, the serving forward never); a profiled step with
-   its device time split into B4, B5, the lse forward, GEMMs and the rest.
-   Then, not counted: one step's loss and gradients in f32 on the card
-   against the CPU at full width cut to 2 + 2 layers, 2 pairs (as 14c); and
-   the CLI, ``cli.train_colvlm --model vidore/colpali-v1.3 --synthetic
-   --device cuda``, 3 steps without remat at the larger of 4 and 2 pairs
-   that fits (``CLI_BATCHES``; its checkpoint written under ``build/`` and
-   deleted).
+   optimizer's transient; then, counts at 0, the main path: 5 steps (peak
+   memory; each loss finite; B4 and B5 launched 63 times a step each, 27
+   vision + 18 page text + 18 query text layers, the forward that saves lse
+   twice that, since remat runs each block's forward again in the backward,
+   the serving forward never). Then, not counted: one step's loss and
+   gradients in f32 on the card against the CPU at full width cut to 2 + 2
+   layers, 2 pairs (as 14c); and the CLI, ``cli.train_colvlm --model
+   vidore/colpali-v1.3 --synthetic --device cuda``, 3 steps without remat at
+   the larger of 4 and 2 pairs that fits (``CLI_BATCHES``; its checkpoint
+   written under ``build/`` and deleted).
 16. ColQwen2.5-v0.2 training (K10's forward with its logsumexp, B4 and B5 at
    head dims 80 and 128). Phase 15's state is freed first (less than 1 GiB
    may stay allocated). One batch of 4 (query, page) pairs from the port's
@@ -226,14 +228,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    ptxas lines of the sixteen Dh 80 and 128 flash instances and the
    reduction (0 spill bytes required). Then at a depth cut to 8 vision
    layers (the eighth full) + 4 text layers, which fits without remat,
-   ``remat=False`` gives the same loss and gradients as ``remat=True``. Then full-width ColQwen2.5-v0.2
-   (``COLQWEN_PARAMS`` asserted; f32 master weights from seed 0 drawn on the
-   card, bf16 compute, ``remat=True``), ``Trainer(lr=1e-4, warmup=0)``: a warm
-   step in its two halves (the memory split, as 15b); then, counts at 0, the
-   main path: 5 steps (steps/s, pairs/s, peak memory below the card's; each
-   loss finite; B4 and B5 launched 104 times a step each, 32 vision + 36 page
-   text + 36 query text layers, the lse forward 208, the serving forward
-   never); a profiled step split as 15b's. Then, not counted: one step's
+   ``remat=False`` gives the same loss and gradients as ``remat=True``.
+   Then full-width ColQwen2.5-v0.2 (``COLQWEN_PARAMS`` asserted; f32 master
+   weights from seed 0 drawn on the card, bf16 compute, ``remat=True``),
+   ``Trainer(lr=1e-4, warmup=0)``: a warm step in its two halves (the
+   memory split, as 15b); then, counts at 0, the main path: 5 steps (peak
+   memory below the card's; each loss finite; B4 and B5 launched 104 times
+   a step each, 32 vision + 36 page text + 36 query text layers, the lse
+   forward 208, the serving forward never). Then, not counted: one step's
    loss and gradients in f32 on the card against the CPU at full width cut
    to 2 vision layers (the second full) + 2 text layers, 2 pairs of 448 x
    448 pages (1024 patches), as 14c. The patch positions stay out of the
@@ -270,6 +272,8 @@ import urllib.request
 from pathlib import Path
 
 import numpy as np
+
+from visual_rag_tpu_torch.tools.peaks import HBM_BYTES_PER_S, PEAK_OPS
 
 ROOT = Path(__file__).resolve().parent
 BENCH_KW = dict(mode="two_stage", top_k=10, prefetch_k=200, with_payload=False)
@@ -311,11 +315,6 @@ def cuda_ms(fn, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-# the H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 
 
 def bound(nbytes: float, ops: float, peak: str):
@@ -372,18 +371,13 @@ def check_results(res, bs: int, what: str):
         raise AssertionError(f"{what}: non-finite scores")
 
 
-def qps(engine, qs, bs: int, what: str, **kw) -> float:
-    import torch
-
+def search_pass(engine, qs, bs: int, what: str, **kw) -> None:
+    """``qs`` once through ``search_embedded_batches`` in batches of ``bs``
+    (``BENCH_KW`` unless ``kw`` says otherwise), each batch checked."""
     kw = dict(BENCH_KW, return_arrays=True, **kw)
-    batches = [qs[s:s + bs] for s in range(0, len(qs), bs)]
-    check_results(engine.search_embedded_batch(batches[0], **kw), bs, what)  # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for res in engine.search_embedded_batches(batches, **kw):
+    for res in engine.search_embedded_batches([qs[s:s + bs] for s in range(0, len(qs), bs)],
+                                              **kw):
         check_results(res, bs, what)
-    torch.cuda.synchronize()
-    return len(qs) / (time.perf_counter() - t0)
 
 
 def main() -> None:
@@ -575,11 +569,9 @@ def main() -> None:
         fn.launches = 0
     rerank_candidates_dedup.mma_launches = 0
     qs = queries(1, 2048)
-    rungs = {}
     for bs, n in ((32, 512), (256, 2048), (1024, 2048)):
-        path = eng3k._rerank_impl(bs, 200, eng3k._use_packed(bs))
-        rungs[bs] = qps(eng3k, qs[:n], bs, f"3k bs={bs}")
-        log(f"3k two_stage bs={bs} ({path} rerank): {rungs[bs]:.1f} QPS [{card}]")
+        search_pass(eng3k, qs[:n], bs, f"3k bs={bs}")
+        log(f"3k two_stage bs={bs}: {n} queries, 10 valid hits each")
 
     # -- 4. strict oracle at 3k ----------------------------------------------------
     ok3k, tol3k = strict_oracle(eng3k, qs[:256], idx3k.num_docs)
@@ -595,11 +587,10 @@ def main() -> None:
     log(f"100k corpus: {idx100k.store('initial').flat.shape[0]} rows in "
         f"{time.perf_counter() - t0:.2f} s")
     eng100k = RetrievalEngine(idx100k)
-    path = eng100k._rerank_impl(1024, 200, eng100k._use_packed(1024))
-    q100k = qps(eng100k, qs, 1024, "100k bs=1024")
-    log(f"100k two_stage bs=1024 ({path} rerank): {q100k:.1f} QPS [{card}]")
-    q100k_full = qps(eng100k, qs[:512], 256, "100k single_full", mode="single_full")
-    log(f"100k single_full bs=256: {q100k_full:.1f} QPS [{card}]")
+    search_pass(eng100k, qs, 1024, "100k bs=1024")
+    log("100k two_stage bs=1024: 2048 queries, 10 valid hits each")
+    search_pass(eng100k, qs[:512], 256, "100k single_full", mode="single_full")
+    log("100k single_full bs=256: 512 queries, 10 valid hits each")
     ok100k, tol100k = strict_oracle(eng100k, qs[:64], idx100k.num_docs)
     log(f"strict oracle 100k (64 queries, tol {tol100k:g}): {ok100k}")
     if not ok100k:
@@ -672,17 +663,15 @@ def main() -> None:
         fn.launches = 0
     tok = dict(stage1_mode=TOKENS)
     for bs, n in ((16, 256), (256, 2048)):
-        r = qps(eng3k, qs[:n], bs, f"3k tokens bs={bs}", **tok)
-        log(f"3k two_stage {TOKENS} bs={bs} ({'packed' if eng3k._use_packed(bs) else 'padded'} "
-            f"wire): {r:.1f} QPS [{card}]")
-    r = qps(eng100k, qs, 1024, "100k tokens bs=1024", **tok)
-    log(f"100k two_stage {TOKENS} bs=1024: {r:.1f} QPS [{card}]")
-    r = qps(eng100k, qs, 1024, "100k three_stage", mode="three_stage", stage1_k=1000,
-            stage2_k=300)
-    log(f"100k three_stage bs=1024 (stage1_k 1000, stage2_k 300): {r:.1f} QPS [{card}]")
+        search_pass(eng3k, qs[:n], bs, f"3k tokens bs={bs}", **tok)
+    search_pass(eng100k, qs, 1024, "100k tokens bs=1024", **tok)
+    search_pass(eng100k, qs, 1024, "100k three_stage", mode="three_stage", stage1_k=1000,
+                stage2_k=300)
     del eng100k, idx100k
-    r = qps(eng3k, qs, 256, "3k single_tiles", mode="single_tiles")
-    log(f"3k single_tiles bs=256: {r:.1f} QPS [{card}]")
+    search_pass(eng3k, qs, 256, "3k single_tiles", mode="single_tiles")
+    log(f"two_stage {TOKENS} at 3k bs 16 (padded wire) and 256 (packed), at 100k bs 1024; "
+        "three_stage at 100k bs 1024 (stage1_k 1000, stage2_k 300); single_tiles at 3k bs "
+        "256: 10 valid hits each")
 
     for i, pl in enumerate(idx3k.manifest.payloads):
         pl["year"] = 2020 + i % 4
@@ -692,9 +681,8 @@ def main() -> None:
     if not all(len(h) == 10 and all(x["payload"]["year"] in (2021, 2023) for x in h)
                for h in hits):
         raise AssertionError("a filtered search returned a hit outside the filter")
-    r = qps(eng3k, qs[:2048], 256, "3k filtered", filter_obj=filt, **tok)
-    log(f"3k two_stage {TOKENS} filtered year in (2021, 2023) bs=256: every hit satisfies "
-        f"the filter; {r:.1f} QPS [{card}]")
+    search_pass(eng3k, qs[:2048], 256, "3k filtered", filter_obj=filt, **tok)
+    log(f"3k two_stage {TOKENS} filtered year in (2021, 2023): every hit satisfies the filter")
 
     batch = eng3k.search_embedded_batch(qs[:16], **BENCH_KW, **tok)
     for q, want_hits in zip(qs[:16], batch):
@@ -740,7 +728,7 @@ def main() -> None:
     colqwen = colqwen_phase(dev, card, rerank_fns, entry_points[1:])
 
     # -- 14. ColSmol-500M training: K10 with lse, B4 and B5 ---------------------------------
-    training, _ = training_phase(dev, card, hmma)
+    training = training_phase(dev, card, hmma)
     k10["launches_by_path"] = {"colsmol": k10["launches"], "colpali": colpali["launches"],
                                "colqwen2.5": colqwen["launches"]}
     k10["launches"] += colpali["launches"] + colqwen["launches"]
@@ -756,11 +744,11 @@ def main() -> None:
     kernels.append(k10)
 
     # -- 15. ColPali-v1.3 training: K10 with lse, B4 and B5 at Dh 72 and 256 ----------------
-    colpali_train, _ = colpali_training_phase(dev, card)
+    colpali_train = colpali_training_phase(dev, card)
     torch.cuda.empty_cache()
 
     # -- 16. ColQwen2.5-v0.2 training: K10 with lse, B4 and B5 at Dh 80 and 128 -------------
-    colqwen_train, _ = colqwen_training_phase(dev, card)
+    colqwen_train = colqwen_training_phase(dev, card)
     kernels += merge_training_entries(training, {"colpali": colpali_train,
                                                  "colqwen2.5": colqwen_train})
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "visual_rag_tpu"))
@@ -965,14 +953,11 @@ def int8_phase(dev, card, idx3k, eng3k, qs, entry_points):
 
     for dt in dtypes:
         for what, kw in (("pooled", {}), ("tokens", tok)):
-            r = qps(eng[dt], qs[:1024], 256, f"3k {dt} {what} bs=256", **kw)
-            log(f"3k {dt} two_stage {what} stage-1 bs=256: {r:.1f} QPS [{card}]")
+            search_pass(eng[dt], qs[:1024], 256, f"3k {dt} {what} bs=256", **kw)
     e8 = eng["int8"]
     for bs in (16, 256):
-        r = qps(e8, qs[:512], bs, f"3k int8 single_tiles bs={bs}", mode="single_tiles")
-        log(f"3k int8 single_tiles bs={bs}: {r:.1f} QPS [{card}]")
-    r = qps(e8, qs[:256], 16, "3k int8 tokens bs=16", **tok)
-    log(f"3k int8 two_stage {TOKENS} bs=16 (padded wire): {r:.1f} QPS [{card}]")
+        search_pass(e8, qs[:512], bs, f"3k int8 single_tiles bs={bs}", mode="single_tiles")
+    search_pass(e8, qs[:256], 16, "3k int8 tokens bs=16", **tok)
     for kw in (dict(BENCH_KW, **tok), dict(BENCH_KW, mode="single_tiles")):
         batch = e8.search_embedded_batch(qs[:8], **kw)
         for q, want_hits in zip(qs[:8], batch):
@@ -1042,16 +1027,12 @@ def int8_phase(dev, card, idx3k, eng3k, qs, entry_points):
                         f"({pk['q'].shape[0]} rows) x 100000 docs, P 12]: max_abs_err {err:.3g} "
                         f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
             for what, kw in (("pooled", {}), ("tokens", tok)):
-                r = qps(e, qs, 1024, f"100k {dt} {what}", **kw)
-                log(f"100k {dt} two_stage {what} stage-1 bs=1024: {r:.1f} QPS [{card}]")
-            r = qps(e, qs[:512], 256, f"100k {dt} single_full", mode="single_full")
-            log(f"100k {dt} single_full bs=256: {r:.1f} QPS [{card}]")
-            r = qps(e, qs, 1024, f"100k {dt} three_stage", mode="three_stage", stage1_k=1000,
-                    stage2_k=300)
-            log(f"100k {dt} three_stage bs=1024: {r:.1f} QPS [{card}]")
+                search_pass(e, qs, 1024, f"100k {dt} {what}", **kw)
+            search_pass(e, qs[:512], 256, f"100k {dt} single_full", mode="single_full")
+            search_pass(e, qs, 1024, f"100k {dt} three_stage", mode="three_stage",
+                        stage1_k=1000, stage2_k=300)
         else:
-            r = qps(e, qs, 1024, f"100k {dt} pooled")
-            log(f"100k {dt} two_stage pooled stage-1 bs=1024: {r:.1f} QPS [{card}]")
+            search_pass(e, qs, 1024, f"100k {dt} pooled")
         del e, idx, ragged
         torch.cuda.empty_cache()
 
@@ -1280,19 +1261,14 @@ def pair_rerank_phase(dev, card, idx3k, qs, entry_points):
 
     def run(what, engine, plain_engine, bs, n, kernel, **kw):
         before = kernel.launches
-        route = engine._rerank_impl(bs, kw.get("stage2_k", 200), engine._use_packed(bs))
-        r = qps(engine, qs[:n], bs, what, **kw)
+        search_pass(engine, qs[:n], bs, what, **kw)
         launched = kernel.launches - before
-        # the same path with K2, in this call: route, K2, route, K2
-        r_plain = qps(plain_engine, qs[:n], bs, what, **kw)
-        r2, r2_plain = qps(engine, qs[:n], bs, what, **kw), qps(plain_engine, qs[:n], bs, what, **kw)
         args = dict(BENCH_KW, return_arrays=True, **kw)
         got = engine.search_embedded_batch(qs[:bs], **args)
         want = plain_engine.search_embedded_batch(qs[:bs], **args)
         same = bool(np.array_equal(got.indices, want.indices))
-        log(f"{what} ({route} rerank): {r:.1f}, {r2:.1f} QPS (rerank_impl='plain': "
-            f"{r_plain:.1f}, {r2_plain:.1f}), {kernel.__name__} launched {launched} "
-            f"times in the first, ids == rerank_impl='plain': {same} [{card}]")
+        log(f"{what}: {kernel.__name__} launched {launched} times over {n} queries, ids == "
+            f"rerank_impl='plain': {same}")
         if launched <= 0:
             raise AssertionError(f"{what}: {kernel.__name__} never launched")
         if not same:
@@ -1316,8 +1292,7 @@ def pair_rerank_phase(dev, card, idx3k, qs, entry_points):
     before = k4.launches
     exact = run_strict_oracle(padded, qs[:64], idx3k.num_docs, score_tol=0.0)
     close = exact or run_strict_oracle(padded, qs[:64], idx3k.num_docs, score_tol=1e-4)
-    log(f"strict oracle 3k padded wire (64 queries, prefetch_k = corpus, "
-        f"{padded._rerank_impl(64, idx3k.num_docs, False)} rerank): tol 0 {exact}, "
+    log(f"strict oracle 3k padded wire (64 queries, prefetch_k = corpus): tol 0 {exact}, "
         f"tol 1e-4 {close}; {k4.__name__} launched {k4.launches - before} times")
     if not close:
         raise AssertionError("strict oracle failed on the padded wire (K4)")
@@ -1495,48 +1470,6 @@ def k10_shapes(dev, card, shapes):
     return out
 
 
-def profile_batch(fn, what: str, card: str, groups=None) -> dict:
-    """Run ``fn`` once under ``torch.profiler`` and log its wall time,
-    device time (device kernels and copies only: a CPU op's device time
-    repeats its kernels'), busy share, K10's device time and the top items;
-    with ``groups`` ({label: substrings of kernel names}) also the device
-    time of each group, the rest under "other"."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev_ms, launches = {}, 0
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0) or getattr(ev, "self_cuda_time_total", 0)
-        if ev.device_type == torch.autograd.DeviceType.CUDA and us > 0:
-            dev_ms[ev.key] = dev_ms.get(ev.key, 0.0) + us / 1e3
-            launches += ev.count
-    total = sum(dev_ms.values())
-    k10_dev = sum(v for k, v in dev_ms.items() if "flash_fwd" in k)
-    top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:6]
-    log(f"profile, {what}: wall {wall * 1e3:.1f} ms (profiled), device "
-        f"{total:.1f} ms (busy {total / (wall * 1e3):.2f}) in {launches} kernels and copies, "
-        f"K10 {k10_dev:.1f} ms; top device items: "
-        + "; ".join(f"{k[:60]} {v:.1f} ms" for k, v in top) + f" [{card}]")
-    out = {"wall_ms": wall * 1e3, "device_ms": total, "k10_ms": k10_dev,
-           "device_items": launches}
-    if groups:
-        split = {label: 0.0 for label in (*groups, "other")}
-        for key, ms in dev_ms.items():
-            label = next((g for g, subs in groups.items() if any(x in key for x in subs)),
-                         "other")
-            split[label] += ms
-        log(f"profile, {what}: device time by group: "
-            + ", ".join(f"{g} {ms:.1f} ms ({ms / total:.3f})" for g, ms in split.items())
-            + f" [{card}]")
-        out["split_ms"] = split
-    return out
-
-
 def synthetic_pages(n_pages: int, tiles: int, seed: int):
     """n_pages random RGB pages (f32 in [0, 1]) 2048 px wide whose ColSmol
     tile grid gives ``tiles`` tiles: 4 columns of 512 px, (tiles - 1) / 4
@@ -1618,29 +1551,17 @@ def embedding_phase(dev, card, rerank_fns, search_fns):
         fn.launches = 0
 
     # -- the main path: embed pages and queries, pool, seal, search --
-    t0 = time.perf_counter()
     pages, infos = [], []
     for tiles, imgs in groups.items():
         e, i = emb.embed_images(imgs, return_token_info=True)
         pages += e
         infos += i
-    torch.cuda.synchronize()
-    t_pages = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    emb.processor.process_images(groups[17])
-    t_host17 = time.perf_counter() - t0
-    t0 = time.perf_counter()
     qs = emb.embed_queries(texts, batch_size=64)
-    torch.cuda.synchronize()
-    t_queries = time.perf_counter() - t0
     k10_launches = flash_attention.launches
     want = 4 * (cfg.vision.layers + cfg.text.layers) + cfg.text.layers
-    log(f"embedded 32 pages (8 each of 5, 9, 13, 17 tiles; batches of one geometry) in "
-        f"{t_pages:.3f} s = {32 / t_pages:.2f} pages/s, 64 queries in one batch in "
-        f"{t_queries:.3f} s = {64 / t_queries:.1f} queries/s; K10 launched {k10_launches} "
-        f"times (4 page batches x {cfg.vision.layers + cfg.text.layers} + 1 query batch x "
-        f"{cfg.text.layers} = {want}); the host processor alone takes {t_host17:.3f} s for "
-        f"the batch of 8 17-tile pages [{card}]")
+    log(f"embedded 32 pages (8 each of 5, 9, 13, 17 tiles; batches of one geometry) and 64 "
+        f"queries in one batch; K10 launched {k10_launches} times (4 page batches x "
+        f"{cfg.vision.layers + cfg.text.layers} + 1 query batch x {cfg.text.layers} = {want})")
     if k10_launches != want:
         raise AssertionError(f"K10 launched {k10_launches} times on the main path, not {want}")
     for e, info in zip(pages, infos):
@@ -1652,20 +1573,14 @@ def embedding_phase(dev, card, rerank_fns, search_fns):
     if not all(np.isfinite(x).all() and x.shape[1] == 128 and x.shape[0] > 0 for x in qs):
         raise AssertionError("a query embedding is not finite or has the wrong shape")
 
-    t0 = time.perf_counter()
     builder = IndexBuilder(CollectionSchema.standard())
     for i, (e, info) in enumerate(zip(pages, infos)):
         vectors, payload = page_vectors(emb, e, info)
         builder.add(f"page{i}", vectors, dict(payload, tiles=info["num_tiles"]))
     index = builder.seal(device=dev)
     engine = RetrievalEngine(index)
-    torch.cuda.synchronize()
-    t_seal = time.perf_counter() - t0
     kw = dict(mode="two_stage", top_k=10, prefetch_k=200, with_payload=False)
-    t0 = time.perf_counter()
     hits = engine.search_embedded_batch(qs, **kw)
-    torch.cuda.synchronize()
-    t_search = time.perf_counter() - t0
     # bs 64 on 32 docs reranks by the scan (K1, the policy's pick when the
     # candidates cover the corpus); bs 16 by K2; the tokens stage-1 by K5 / K6
     hits += engine.search_embedded_batch(qs, **kw, stage1_mode=TOKENS)
@@ -1675,20 +1590,16 @@ def embedding_phase(dev, card, rerank_fns, search_fns):
         raise AssertionError("a search over the embedded pages did not answer 10 hits")
     oracle, oracle_tol = strict_oracle(engine, qs, index.num_docs)
     counts = {fn.__name__: fn.launches for fn in counters}
-    log(f"ingest: 32 pages -> page_vectors -> IndexBuilder.seal (bf16, {index.nbytes()} bytes) "
-        f"in {t_seal:.3f} s; two_stage (prefetch_k 200, top_k 10) of the 64 embedded queries "
-        f"in {t_search:.4f} s; then with the tokens stage-1, and both at bs 16; strict oracle "
-        f"(prefetch_k = corpus vs single_full, tol {oracle_tol:g}): {oracle}; launches over the "
-        f"main path: {counts} [{card}]")
+    log(f"ingest: 32 pages -> page_vectors -> IndexBuilder.seal (bf16, {index.nbytes()} "
+        f"bytes); two_stage (prefetch_k 200, top_k 10) of the 64 embedded queries, then with "
+        f"the tokens stage-1, and both at bs 16; strict oracle (prefetch_k = corpus vs "
+        f"single_full, tol {oracle_tol:g}): {oracle}; launches over the main path: {counts}")
     if not oracle:
         raise AssertionError("strict oracle failed on the embedded corpus")
     for what, fns in (("K2", rerank_fns[:1]), ("the scan", search_fns[:1]),
                       ("a tokens stage-1 kernel", search_fns[1:])):
         if sum(fn.launches for fn in fns) <= 0:
             raise AssertionError(f"the search over the embedded pages never launched {what}")
-
-    # where a page batch's time goes: one profiled batch of 8 17-tile pages
-    profile_batch(lambda: emb.embed_images(groups[17]), "one batch of 8 17-tile pages", card)
 
     # 11c. the whole-model yardstick: the same weights with the dense attention
     dense = VisualEmbedder("vidore/colSmol-500M", batch_size=8, params=emb.params, device=dev)
@@ -1803,24 +1714,13 @@ def colpali_phase(dev, card, rerank_fns, search_fns):
         fn.launches = 0
 
     # -- the main path: embed pages and queries, pool, seal, search --
-    t0 = time.perf_counter()
     embs, infos = emb.embed_images(pages, batch_size=8, return_token_info=True)
-    torch.cuda.synchronize()
-    t_pages = time.perf_counter() - t0
-    t0 = time.perf_counter()
     qs = emb.embed_queries(texts, batch_size=64)
-    torch.cuda.synchronize()
-    t_queries = time.perf_counter() - t0
     k10_launches = flash_attention.launches
-    t0 = time.perf_counter()
-    emb.processor.process_images(pages[:8])
-    t_host = time.perf_counter() - t0
     want = 4 * (cfg.vision.layers + cfg.text.layers) + cfg.text.layers
-    log(f"embedded 32 pages (4 aspect ratios, batches of 8) in {t_pages:.3f} s = "
-        f"{32 / t_pages:.2f} pages/s, 64 queries in one batch in {t_queries:.3f} s = "
-        f"{64 / t_queries:.1f} queries/s; K10 launched {k10_launches} times (4 page batches x "
-        f"{cfg.vision.layers + cfg.text.layers} + 1 query batch x {cfg.text.layers} = {want}); "
-        f"the host processor alone takes {t_host:.3f} s for a batch of 8 pages [{card}]")
+    log(f"embedded 32 pages (4 aspect ratios, batches of 8) and 64 queries in one batch; K10 "
+        f"launched {k10_launches} times (4 page batches x {cfg.vision.layers + cfg.text.layers} "
+        f"+ 1 query batch x {cfg.text.layers} = {want})")
     if k10_launches != want:
         raise AssertionError(f"K10 launched {k10_launches} times on ColPali's path, not {want}")
     for e, info in zip(embs, infos):
@@ -1831,15 +1731,12 @@ def colpali_phase(dev, card, rerank_fns, search_fns):
     if not all(np.isfinite(x).all() and x.shape[1] == 128 and x.shape[0] > 0 for x in qs):
         raise AssertionError("a ColPali query embedding is not finite or has the wrong shape")
 
-    t0 = time.perf_counter()
     plan = experimental_vector_plan(emb.backend)
     builder = IndexBuilder(CollectionSchema.standard(experimental_names=plan["names"]))
     for i, (e, info) in enumerate(zip(embs, infos)):
         builder.add(f"page{i}", *page_vectors(emb, e, info))
     index = builder.seal(device=dev)
     engine = RetrievalEngine(index, stage1_cut="exact")
-    torch.cuda.synchronize()
-    t_seal = time.perf_counter() - t0
     rows = {n: tuple(index.store(n).values.shape[:2]) for n in plan["names"]}
     kw = dict(mode="two_stage", top_k=10, prefetch_k=200, with_payload=False)
     hits = []
@@ -1851,18 +1748,16 @@ def colpali_phase(dev, card, rerank_fns, search_fns):
     oracle, oracle_tol = strict_oracle(engine, qs, index.num_docs)
     counts = {fn.__name__: fn.launches for fn in counters}
     log(f"ingest: 32 ColPali pages -> page_vectors ({plan['names']}, {rows}) -> "
-        f"IndexBuilder.seal (bf16, {index.nbytes()} bytes) in {t_seal:.3f} s; "
+        f"IndexBuilder.seal (bf16, {index.nbytes()} bytes); "
         f"RetrievalEngine(stage1_cut='exact'): two_stage (prefetch_k 200, top_k 10), pooled "
         f"and tokens stage-1, bs 64 and 16; strict oracle (prefetch_k = corpus vs single_full, "
-        f"tol {oracle_tol:g}): {oracle}; launches over the main path: {counts} [{card}]")
+        f"tol {oracle_tol:g}): {oracle}; launches over the main path: {counts}")
     if not oracle:
         raise AssertionError("strict oracle failed on the ColPali corpus")
     for what, fns in (("a rerank kernel", tuple(rerank_fns) + search_fns[:1]),
                       ("a tokens stage-1 kernel", search_fns[1:])):
         if sum(fn.launches for fn in fns) <= 0:
             raise AssertionError(f"the search over the ColPali pages never launched {what}")
-    prof = profile_batch(lambda: emb.embed_images(pages[:8]), "one batch of 8 ColPali pages",
-                         card)
 
     # 12c. the whole-model yardstick: the same weights with the dense attention
     dense = VisualEmbedder("vidore/colpali-v1.3", batch_size=8, params=emb.params, device=dev)
@@ -1906,8 +1801,7 @@ def colpali_phase(dev, card, rerank_fns, search_fns):
     del emb, sd32, outs, engine, index
     torch.cuda.empty_cache()
     log(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
-    return {"shapes": k10, "launches": k10_launches, "pages_per_s": 32 / t_pages,
-            "queries_per_s": 64 / t_queries, "profile": prof}
+    return {"shapes": k10, "launches": k10_launches}
 
 
 def colqwen_phase(dev, card, rerank_fns, search_fns):
@@ -1987,26 +1881,15 @@ def colqwen_phase(dev, card, rerank_fns, search_fns):
         fn.launches = 0
 
     # -- the main path: embed pages and queries, pool, seal, search --
-    t0 = time.perf_counter()
     embs, infos = emb.embed_images(pages, batch_size=8, return_token_info=True)
-    torch.cuda.synchronize()
-    t_pages = time.perf_counter() - t0
-    t0 = time.perf_counter()
     qs = emb.embed_queries(texts, batch_size=64)
-    torch.cuda.synchronize()
-    t_queries = time.perf_counter() - t0
     k10_launches = flash_attention.launches
-    t0 = time.perf_counter()
-    emb.processor.process_images(pages[:8])
-    t_host = time.perf_counter() - t0
     want = 4 * (cfg.vision.layers + cfg.text.layers) + cfg.text.layers
     grids = sorted({(i["grid_h_eff"], i["grid_w_eff"]) for i in infos})
     log(f"embedded 32 pages (4 aspect ratios, merged grids {grids}, 4096 patches a page in "
-        f"the tower; batches of 8) in {t_pages:.3f} s = {32 / t_pages:.2f} pages/s, 64 queries "
-        f"in one batch in {t_queries:.3f} s = {64 / t_queries:.1f} queries/s; K10 launched "
-        f"{k10_launches} times (4 page batches x {cfg.vision.layers + cfg.text.layers} + 1 "
-        f"query batch x {cfg.text.layers} = {want}); the host processor alone takes "
-        f"{t_host:.3f} s for a batch of 8 pages [{card}]")
+        f"the tower; batches of 8) and 64 queries in one batch; K10 launched {k10_launches} "
+        f"times (4 page batches x {cfg.vision.layers + cfg.text.layers} + 1 query batch x "
+        f"{cfg.text.layers} = {want})")
     if k10_launches != want:
         raise AssertionError(f"K10 launched {k10_launches} times on ColQwen's path, not {want}")
     for e, info in zip(embs, infos):
@@ -2018,15 +1901,12 @@ def colqwen_phase(dev, card, rerank_fns, search_fns):
     if not all(np.isfinite(x).all() and x.shape[1] == 128 and x.shape[0] > 0 for x in qs):
         raise AssertionError("a ColQwen query embedding is not finite or has the wrong shape")
 
-    t0 = time.perf_counter()
     plan = experimental_vector_plan(emb.backend)
     builder = IndexBuilder(CollectionSchema.standard(experimental_names=plan["names"]))
     for i, (e, info) in enumerate(zip(embs, infos)):
         builder.add(f"page{i}", *page_vectors(emb, e, info))
     index = builder.seal(device=dev)
     engine = RetrievalEngine(index, stage1_cut="exact")
-    torch.cuda.synchronize()
-    t_seal = time.perf_counter() - t0
     rows = {n: tuple(index.store(n).values.shape[:2]) for n in plan["names"]}
     kw = dict(mode="two_stage", top_k=10, prefetch_k=200, with_payload=False)
     hits = []
@@ -2038,18 +1918,16 @@ def colqwen_phase(dev, card, rerank_fns, search_fns):
     oracle, oracle_tol = strict_oracle(engine, qs, index.num_docs)
     counts = {fn.__name__: fn.launches for fn in counters}
     log(f"ingest: 32 ColQwen pages -> page_vectors ({plan['names']}, {rows}) -> "
-        f"IndexBuilder.seal (bf16, {index.nbytes()} bytes) in {t_seal:.3f} s; "
+        f"IndexBuilder.seal (bf16, {index.nbytes()} bytes); "
         f"RetrievalEngine(stage1_cut='exact'): two_stage (prefetch_k 200, top_k 10), pooled "
         f"and tokens stage-1, bs 64 and 16; strict oracle (prefetch_k = corpus vs single_full, "
-        f"tol {oracle_tol:g}): {oracle}; launches over the main path: {counts} [{card}]")
+        f"tol {oracle_tol:g}): {oracle}; launches over the main path: {counts}")
     if not oracle:
         raise AssertionError("strict oracle failed on the ColQwen corpus")
     for what, fns in (("a rerank kernel", tuple(rerank_fns) + search_fns[:1]),
                       ("a tokens stage-1 kernel", search_fns[1:])):
         if sum(fn.launches for fn in fns) <= 0:
             raise AssertionError(f"the search over the ColQwen pages never launched {what}")
-    prof = profile_batch(lambda: emb.embed_images(pages[:8]), "one batch of 8 ColQwen pages",
-                         card)
 
     # 13c. the whole-model yardstick: the same weights with the dense attention
     dense = VisualEmbedder("vidore/colqwen2.5-v0.2", batch_size=8, params=emb.params,
@@ -2097,8 +1975,7 @@ def colqwen_phase(dev, card, rerank_fns, search_fns):
     del emb, sd32, outs, engine, index
     torch.cuda.empty_cache()
     log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
-    return {"shapes": k10, "launches": k10_launches, "pages_per_s": 32 / t_pages,
-            "queries_per_s": 64 / t_queries, "profile": prof}
+    return {"shapes": k10, "launches": k10_launches}
 
 
 # (rtol, atol as a share of the tensor's largest |want|) for B4 and B5 against their plain
@@ -2395,9 +2272,8 @@ def train_full_width(dev, card, cfg, batch, name: str, n_params_want: int):
     forward and backward (activations, gradients) and the optimizer's
     transient; then, counts at 0, 5 steps (each loss finite, the peak below
     the card's memory; B4 and B5 launched once a step for each attention
-    layer, the lse forward twice under remat, the serving forward never);
-    one profiled step. Frees the state. Returns the launch counts and the
-    end-to-end numbers."""
+    layer, the lse forward twice under remat, the serving forward never).
+    Frees the state. Returns the launch counts."""
     import torch
 
     from visual_rag_tpu_torch.models.train import Trainer
@@ -2447,20 +2323,15 @@ def train_full_width(dev, card, cfg, batch, name: str, n_params_want: int):
 
     # -- the main path: 5 train steps --
     torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     for _ in range(5):
         params, opt, metrics = step_fn(params, opt, batch)
         losses.append(float(metrics["loss"]))
-    torch.cuda.synchronize()
-    t_steps = time.perf_counter() - t0
     counts = {fn.__name__: fn.launches for fn in counters}
     peak = torch.cuda.max_memory_allocated()
     layers = cfg.vision.layers + 2 * cfg.text.layers
     fwd_per_layer = 2 if cfg.remat else 1  # remat runs each block's forward again
-    log(f"{name}: 5 train steps after a warm one in {t_steps:.3f} s = {5 / t_steps:.3f} "
-        f"steps/s = {20 / t_steps:.2f} pairs/s; losses {losses} (the first from the warm step, "
-        f"at the initial parameters; each finite); peak memory {peak / 2 ** 30:.2f} GiB of "
+    log(f"{name}: 5 train steps after a warm one; losses {losses} (the first from the warm "
+        f"step, at the initial parameters; each finite); peak memory {peak / 2 ** 30:.2f} GiB of "
         f"{total / 2 ** 30:.2f}; launches {counts} (B4 and B5 each {layers} a step: "
         f"{cfg.vision.layers} vision + {cfg.text.layers} page text + {cfg.text.layers} query "
         f"text; the lse forward {fwd_per_layer} x that; the serving forward none) [{card}]")
@@ -2472,20 +2343,15 @@ def train_full_width(dev, card, cfg, batch, name: str, n_params_want: int):
         if counts[fn.__name__] != n:
             raise AssertionError(f"{fn.__name__} launched {counts[fn.__name__]} times over 5 "
                                  f"steps, not {n}")
-    prof = profile_batch(lambda: step_fn(params, opt, batch), f"one {name} train step of 4 "
-                         "pairs", card, groups=TRAIN_GROUPS)
     del params, opt, state, trainer, metrics, step_fn, loss  # step_fn holds the model
     torch.cuda.empty_cache()
-    return counts, {"steps_per_s": 5 / t_steps, "pairs_per_s": 20 / t_steps,
-                    "peak_gib": peak / 2 ** 30, "memory": memory, "profile": prof,
-                    "losses": losses}
+    return counts
 
 
 def training_phase(dev, card, hmma):
     """Phase 14: ColSmol-500M training (module docstring); ``hmma`` are the
     flash instances' HMMA counts (phase 1). Returns the kernel entries of K10's
-    forward that saves lse, B4 and B5, and the training path's end-to-end
-    numbers."""
+    forward that saves lse, B4 and B5."""
     import dataclasses
     import shutil
 
@@ -2528,12 +2394,10 @@ def training_phase(dev, card, hmma):
     processor = VisualEmbedder("vidore/colSmol-500M", config=cfg, device=dev).processor
     rng = np.random.default_rng(14)
     texts = [" ".join(rng.choice(QUERY_WORDS, int(rng.integers(4, 26)))) for _ in range(4)]
-    t0 = time.perf_counter()
     batch = processed_batch(processor, synthetic_pages(4, 17, seed=140), texts)
-    t_host = time.perf_counter() - t0
     log(f"training batch: 4 pairs, patches {batch['patches'].shape}, page ids "
         f"{batch['page_ids'].shape}, queries {batch['query_ids'].shape}, window ids "
-        f"{'yes' if 'window_ids' in batch else 'no'}; the host processor took {t_host:.3f} s")
+        f"{'yes' if 'window_ids' in batch else 'no'}")
     # 14c, first part: remat=True gives the same loss and gradients (not counted; at the
     # initial parameters, where the loss is far from 0)
     (l0, _), g0 = trainer.value_and_grad(state.params, batch)
@@ -2561,19 +2425,14 @@ def training_phase(dev, card, hmma):
 
     # -- the main path: 5 train steps --
     torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     for _ in range(5):
         params, opt, metrics = step_fn(params, opt, batch)
         losses.append(float(metrics["loss"]))
-    torch.cuda.synchronize()
-    t_steps = time.perf_counter() - t0
     counts = {fn.__name__: fn.launches for fn in counters}
     peak = torch.cuda.max_memory_allocated()
     want = cfg.vision.layers + 2 * cfg.text.layers
-    log(f"5 train steps after a warm one in {t_steps:.3f} s = {5 / t_steps:.3f} steps/s = "
-        f"{20 / t_steps:.2f} pairs/s; losses {losses} (the first from the warm step, at the "
-        f"initial parameters; each finite, the last below the first); peak memory "
+    log(f"5 train steps after a warm one; losses {losses} (the first from the warm step, at "
+        f"the initial parameters; each finite, the last below the first); peak memory "
         f"{peak / 2 ** 30:.2f} GiB; launches {counts} (the first three each {want} a step: "
         f"{cfg.vision.layers} vision + {cfg.text.layers} page text + {cfg.text.layers} query "
         f"text; the serving forward none) [{card}]")
@@ -2584,8 +2443,7 @@ def training_phase(dev, card, hmma):
             raise AssertionError(f"{fn.__name__} launched {counts[fn.__name__]} times over 5 "
                                  f"steps, not {n}")
 
-    # EMA of the parameters before the 5 steps with those after them (before the profiled
-    # step moves them again)
+    # EMA of the parameters before the 5 steps with those after them
     ema = ema_update(before, params, 0.9)
     lerp_err = max(float((ema[k].double() - 0.9 * before[k].double()
                           - 0.1 * params[k].detach().double()).abs().max()) for k in ema)
@@ -2594,7 +2452,6 @@ def training_phase(dev, card, hmma):
     if not lerp_err <= 1e-6:
         raise AssertionError(f"ema_update is not the lerp: {lerp_err}")
     del ema, before
-    prof = profile_batch(lambda: step_fn(params, opt, batch), "one train step of 4 pairs", card)
     # a checkpoint: one step from the restored state equals one from the live state
     ckpt = ROOT / "build" / "phase14_ckpt"
     t0 = time.perf_counter()
@@ -2637,13 +2494,9 @@ def training_phase(dev, card, hmma):
                 "ptxas": {k: v for k, v in ptxas.items() if kernel in k},
                 "hmma": {k: v for k, v in hmma.items() if kernel in k}}
 
-    return ([entry("flash_attention_fwd", "flash_attention.cu", 758, "flash_fwd_lse", fwd),
-             entry("flash_attention_bwd_dkv", "flash_attention_bwd.cu", 1121, "flash_bwd_dkv",
-                   b4),
-             entry("flash_attention_bwd_dq", "flash_attention_bwd.cu", 1456, "flash_bwd_dq",
-                   b5)],
-            {"steps_per_s": 5 / t_steps, "pairs_per_s": 20 / t_steps, "peak_gib": peak / 2 ** 30,
-             "profile": prof, "losses": losses})
+    return [entry("flash_attention_fwd", "flash_attention.cu", 758, "flash_fwd_lse", fwd),
+            entry("flash_attention_bwd_dkv", "flash_attention_bwd.cu", 1121, "flash_bwd_dkv", b4),
+            entry("flash_attention_bwd_dq", "flash_attention_bwd.cu", 1456, "flash_bwd_dq", b5)]
 
 
 def merge_training_entries(training, paths):
@@ -2670,16 +2523,10 @@ def merge_training_entries(training, paths):
     return training
 
 
-# the device-time groups of a training step's profile (phases 15 and 16)
-TRAIN_GROUPS = {"B4": ("flash_bwd_dkv",), "B5": ("flash_bwd_dq",),
-                "K10 with lse": ("flash_fwd_lse",),
-                "GEMMs": ("gemm", "nvjet", "xmma", "cutlass", "sm90_")}
-
-
 def colpali_training_phase(dev, card):
     """Phase 15: ColPali-v1.3 training (module docstring). Returns the shapes,
     launches and ptxas lines of K10's forward that saves lse, B4 and B5 on
-    this path, and the path's end-to-end numbers."""
+    this path."""
     import dataclasses
     import shutil
 
@@ -2705,12 +2552,10 @@ def colpali_training_phase(dev, card):
     rng = np.random.default_rng(15)
     texts = [" ".join(rng.choice(QUERY_WORDS, int(rng.integers(4, 26)))) for _ in range(4)]
     pages = [rng.random((448, 448, 3), dtype=np.float32) for _ in range(4)]
-    t0 = time.perf_counter()
     batch = processed_batch(processor, pages, texts)
-    t_host = time.perf_counter() - t0
     log(f"ColPali training batch: 4 pairs, patches {batch['patches'].shape}, page ids "
         f"{batch['page_ids'].shape} ({batch['page_mask'].sum(1).tolist()} valid), queries "
-        f"{batch['query_ids'].shape}; the host processor took {t_host:.3f} s")
+        f"{batch['query_ids'].shape}")
 
     # 15b, first part: at a depth cut to 9 vision + 6 text layers, which fits without remat,
     # remat=False gives the same loss and gradients as remat=True (not counted)
@@ -2720,7 +2565,7 @@ def colpali_training_phase(dev, card):
 
     # 15b. full-width ColPali-v1.3: f32 master weights from seed 0 drawn on the card, bf16
     # compute, remat
-    counts, e2e = train_full_width(dev, card, cfg, batch, "ColPali-v1.3", COLPALI_PARAMS)
+    counts = train_full_width(dev, card, cfg, batch, "ColPali-v1.3", COLPALI_PARAMS)
 
     # 15c. the card against the CPU in f32 (not counted)
     small = dataclasses.replace(cfg, dtype="float32", remat=False,
@@ -2754,8 +2599,7 @@ def colpali_training_phase(dev, card):
     log(f"the CLI (--model vidore/colpali-v1.3 --synthetic --batch-size {cli_batch}, 3 steps, "
         f"no remat) took {t_cli:.1f} s with its process start and checkpoint [{card}]")
     log(f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
-    return ({"fwd": fwd, "b4": b4, "b5": b5, "ptxas": ptxas, "launches": counts},
-            {**e2e, "cli_batch": cli_batch})
+    return {"fwd": fwd, "b4": b4, "b5": b5, "ptxas": ptxas, "launches": counts}
 
 
 COLQWEN_PARAMS = 3963137408  # ColQwen2.5-v0.2 (Qwen2.5-VL-3B), as the flax init counts them
@@ -2765,7 +2609,7 @@ A4_PAGE = (1170, 827)  # px (height, width): 74 x 54 patches for ColQwen, phase 
 def colqwen_training_phase(dev, card):
     """Phase 16: ColQwen2.5-v0.2 training (module docstring). Returns the
     shapes, launches and ptxas lines of K10's forward that saves lse, B4 and
-    B5 on this path, and the path's end-to-end numbers."""
+    B5 on this path."""
     import dataclasses
 
     import torch
@@ -2781,14 +2625,11 @@ def colqwen_training_phase(dev, card):
     rng = np.random.default_rng(16)
     texts = [" ".join(rng.choice(QUERY_WORDS, int(rng.integers(4, 26)))) for _ in range(4)]
     pages = [rng.random(A4_PAGE + (3,), dtype=np.float32) for _ in range(4)]
-    t0 = time.perf_counter()
     batch = processed_batch(processor, pages, texts)
-    t_host = time.perf_counter() - t0
     log(f"ColQwen training batch: 4 pairs of A4 pages, patches {batch['patches'].shape} "
         f"({batch['patch_mask'].sum(1).tolist()} valid), window ids "
         f"{'yes' if 'window_ids' in batch else 'no'}, page ids {batch['page_ids'].shape} "
-        f"({batch['page_mask'].sum(1).tolist()} valid), queries {batch['query_ids'].shape}; the "
-        f"host processor took {t_host:.3f} s")
+        f"({batch['page_mask'].sum(1).tolist()} valid), queries {batch['query_ids'].shape}")
 
     # 16a. the lse forward, B4 and B5 at the path's shapes, Dh 80 and 128 (not counted)
     valid = torch.from_numpy(batch["patch_mask"]).to(dev)
@@ -2827,7 +2668,7 @@ def colqwen_training_phase(dev, card):
 
     # 16c. full-width ColQwen2.5-v0.2: f32 master weights from seed 0 drawn on the card, bf16
     # compute, remat
-    counts, e2e = train_full_width(dev, card, cfg, batch, "ColQwen2.5-v0.2", COLQWEN_PARAMS)
+    counts = train_full_width(dev, card, cfg, batch, "ColQwen2.5-v0.2", COLQWEN_PARAMS)
 
     # 16d. the card against the CPU in f32 at full width, the depth cut to 2 vision layers
     # (the second full attention) + 2 text layers, 2 pairs of 448 x 448 pages (1024 patches:
@@ -2844,7 +2685,7 @@ def colqwen_training_phase(dev, card):
         raise AssertionError(f"the small pages have {small_batch['patch_mask'].sum(1)} patches")
     card_vs_cpu_step(dev, small, small_batch, "2 pairs of 448 x 448 pages (1024 patches)")
     log(f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
-    return {"fwd": fwd, "b4": b4, "b5": b5, "ptxas": ptxas, "launches": counts}, e2e
+    return {"fwd": fwd, "b4": b4, "b5": b5, "ptxas": ptxas, "launches": counts}
 
 
 if __name__ == "__main__":

@@ -18,9 +18,10 @@ The pooled stage-1 kernel (``pooled_stage1_scores``): bf16, f16 and int8
 stores (int8 with its row scales) against its plain version at batches of
 1 to 1030, doc counts that are not a multiple of its 32-doc tile, P 1 to 76
 with holes; docs with no valid row exactly 0, negative dots kept, two
-calls bit-equal; an f32 store stays on the plain matmul without a launch;
-every pooled stage-1 mode through the engine launches it and returns the
-plain loop's ids and scores, ``three_stage`` does not launch it.
+calls bit-equal; an f32 store and a dim-72 bf16 store stay on the plain
+loop without a launch; every pooled stage-1 mode through the engine
+launches it and returns the plain loop's ids and scores, ``three_stage``
+does not launch it.
 
 int8 stores: the int8 bodies (bf16 queries) of K1, K2 and K5/K6/K7 and the
 qdot bodies (int8 queries, integer dots) of K1 and K5/K6/K7 (K9) against
@@ -264,14 +265,14 @@ def test_pooled_wrappers_count_launches(dev):
 # -- the pooled stage-1 (pooled_stage1_scores) ------------------------------------------
 
 
-def _stage1_inputs(dtype, dev, p, d, b, seed=0):
+def _stage1_inputs(dtype, dev, p, d, b, seed=0, dim=DIM):
     """A P-leading store with mask holes, doc 1 whose every row points away
     from query 0 (dots near -1), docs d // 2 and d - 1 with no valid row;
     int8 stores as codes with their row scales."""
     rng = np.random.default_rng(seed)
-    vals = rng.standard_normal((p, d, DIM)).astype(np.float32)
+    vals = rng.standard_normal((p, d, dim)).astype(np.float32)
     vals /= np.linalg.norm(vals, axis=-1, keepdims=True)
-    pooled = rng.standard_normal((b, DIM)).astype(np.float32)
+    pooled = rng.standard_normal((b, dim)).astype(np.float32)
     pooled /= np.linalg.norm(pooled, axis=-1, keepdims=True)
     vals[:, 1] = -pooled[0]
     mask = rng.random((p, d)) > 0.3
@@ -316,8 +317,29 @@ def test_pooled_stage1_f32_store_keeps_the_matmul(dev):
     assert torch.equal(got, pt.pooled_stage1_scores_ref(vals, mask, pooled))
     with pytest.raises(ValueError, match="float32"):
         pt.pooled_stage1_scores(vals, mask, pooled)
-    with pytest.raises(ValueError, match="dim"):
-        pt.pooled_stage1_scores(vals[..., :72].bfloat16().contiguous(), mask, pooled[:, :72])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.int8])
+def test_pooled_stage1_dim72_store_launches_k6(dev, dtype):
+    """A store of rows other than the tensor-core kernel's 128 wide (72
+    here) runs on the card instead of raising: the wrapper launches K6 with
+    each pooled query as a one-row query of weight 1, the same function on
+    the CUDA cores, through the wrapper and through the engine's stage-1;
+    within the kernel's tolerance of the plain version, empty docs 0, two
+    calls bit-equal."""
+    vals, mask, pooled, scales = _stage1_inputs(dtype, dev, 4, 100, 8, dim=72)
+    before = (pt.pooled_stage1_scores.launches, pt.pooled_maxsim_scores_qbatch.launches)
+    got = pt.pooled_stage1_scores(vals, mask, pooled, scales)
+    again = local.local_pooled_padded({"vals_t": vals, "mask_t": mask, "scales_t": scales},
+                                      pooled)
+    want = pt.pooled_stage1_scores_ref(vals, mask, pooled, scales)
+    torch.cuda.synchronize()
+    atol = INT8_ATOL if dtype == torch.int8 else ATOL[dtype]
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    assert torch.equal(got, again)
+    assert (got[:, ~mask.any(dim=0)] == 0).all()
+    assert (pt.pooled_stage1_scores.launches, pt.pooled_maxsim_scores_qbatch.launches) == (
+        before[0], before[1] + 2)
 
 
 @pytest.mark.parametrize("storage_dtype", ["bfloat16", "float16", "int8"])

@@ -46,6 +46,7 @@ from visual_rag_tpu_torch.retrieval.engine import (
     RetrievalEngine,
 )
 from visual_rag_tpu_torch.retrieval.filters import PayloadFilter, build_filter
+from visual_rag_tpu_torch.retrieval.local import rerank_route
 from visual_rag_tpu_torch.retrieval.oracle import run_strict_oracle, strict_rank_equal
 from visual_rag_tpu_torch.serving.server import SearchServer
 
@@ -334,9 +335,10 @@ def test_policies(indexes):
     pe = RetrievalEngine(p)
     assert not pe._use_packed(256)  # the CPU keeps the padded wire
     assert RetrievalEngine(p, query_wire="packed")._use_packed(1)
-    assert pe._rerank_impl(64, 10, packed=True) == "scan"  # 640 >= 4 * 100
-    assert pe._rerank_impl(32, 10, packed=True) == "plain"
-    assert pe._rerank_impl(256, 200, packed=False) == "sweep"  # coverage 256*200*96/6400
+    ragged = pe._fused_arrays("initial")
+    assert rerank_route(ragged, p.num_docs, 64, 10, True) == "scan"  # 640 >= 4 * 100
+    assert rerank_route(ragged, p.num_docs, 32, 10, True) == "plain"
+    assert rerank_route(ragged, p.num_docs, 256, 200, False) == "sweep"  # coverage 256*200*96/6400
     qs, n_real, b = RetrievalEngine._bucket_batch(list(range(33)))
     assert (n_real, b, len(qs)) == (33, 64, 64)
     assert RetrievalEngine._bucket_batch(list(range(300)))[2] == 512

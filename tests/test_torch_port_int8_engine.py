@@ -38,6 +38,7 @@ from visual_rag_tpu_torch.retrieval.engine import (
     RetrievalEngine,
 )
 from visual_rag_tpu_torch.retrieval.filters import build_filter
+from visual_rag_tpu_torch.retrieval.local import rerank_route
 from visual_rag_tpu_torch.retrieval.oracle import run_strict_oracle, strict_rank_equal
 from test_torch_port_int8 import build_jax, carried
 
@@ -180,7 +181,7 @@ def test_plain_int8_rerank_differs_from_jax_cpu_within_the_stated_tolerance(pair
     than f32 rounding and by at most TOL_BF16."""
     je, pe = _engines(pairs, "int8", "padded")
     kw = dict(mode="two_stage", top_k=10, prefetch_k=30, with_payload=False)
-    assert pe._rerank_impl(32, 30, False) == "plain"
+    assert rerank_route(pe._fused_arrays("initial"), pe.index.num_docs, 32, 30, False) == "plain"
     want = je.search_embedded_batch(queries, **kw)
     got = pe.search_embedded_batch(queries, **kw)
     diffs = []

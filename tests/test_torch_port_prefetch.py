@@ -14,7 +14,8 @@ rows in packed groups; with and without per-row scales.
 
 The pooled stage-1 (``pooled_stage1_scores``) on CPU tensors takes its plain
 version and equals the JAX package's ``_local_pooled_padded`` on bf16, f16
-and int8 stores (int8 with its row scales).
+and int8 stores (int8 with its row scales), and so does K6 with each pooled
+query as a one-row query, which the card runs at rows other than 128 wide.
 """
 
 import jax.numpy as jnp
@@ -40,10 +41,10 @@ EMPTY = (7, N_DOCS - 1)  # docs with no valid pooled row
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def _store(p, seed=0):
+def _store(p, seed=0, dim=DIM):
     """P-leading f32 pooled store [P, D, dim], a mask with holes, scales."""
     rng = np.random.default_rng(seed)
-    vals = rng.standard_normal((p, N_DOCS, DIM)).astype(np.float32)
+    vals = rng.standard_normal((p, N_DOCS, dim)).astype(np.float32)
     vals /= np.linalg.norm(vals, axis=-1, keepdims=True)
     mask = rng.random((p, N_DOCS)) > 0.3
     mask[0, :] = True  # most docs keep a valid row
@@ -154,17 +155,15 @@ def test_row_weights_fold_into_the_sum():
     np.testing.assert_allclose(got, want, **TOL)
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "int8"])
-def test_pooled_stage1_matches_jax(dtype):
-    """The pooled query against the P = 13 store with holes and two empty
-    docs: bf16 and f16 stores with queries rounded to their dtype, int8 codes
-    with bf16 queries and each similarity times its row's scale. Exact
-    products on both sides, f32 sums in another order: 1e-5."""
-    vals, mask, _ = _store(13)
+def _stage1_case(dtype, dim=DIM):
+    """(the port's store, the JAX package's, 6 pooled queries): the P = 13
+    store with holes and two empty docs in ``dtype``, int8 as codes with
+    their row scales; every dot of doc 3 for query 1 is near -1."""
+    vals, mask, _ = _store(13, dim=dim)
     rng = np.random.default_rng(5)
-    pooled = rng.standard_normal((6, DIM)).astype(np.float32)
+    pooled = rng.standard_normal((6, dim)).astype(np.float32)
     pooled /= np.linalg.norm(pooled, axis=1, keepdims=True)
-    vals[:, 3] = -pooled[1]  # every dot of doc 3 for query 1 is near -1
+    vals[:, 3] = -pooled[1]
     if dtype == "int8":
         codes, scales = quantize_rows_int8(_t(vals))
         s1 = {"vals_t": codes, "mask_t": _t(mask), "scales_t": scales}
@@ -173,10 +172,35 @@ def test_pooled_stage1_matches_jax(dtype):
     else:
         s1 = {"vals_t": _t(vals).to(getattr(torch, dtype)), "mask_t": _t(mask)}
         jax_s1 = {"vals_t": jnp.asarray(vals, dtype=dtype), "mask_t": jnp.asarray(mask)}
+    return s1, jax_s1, pooled
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "int8"])
+def test_pooled_stage1_matches_jax(dtype):
+    """The pooled query against the P = 13 store with holes and two empty
+    docs: bf16 and f16 stores with queries rounded to their dtype, int8 codes
+    with bf16 queries and each similarity times its row's scale. Exact
+    products on both sides, f32 sums in another order: 1e-5."""
+    s1, jax_s1, pooled = _stage1_case(dtype)
     before = pt.pooled_stage1_scores.launches
     got = pt.pooled_stage1_scores(s1["vals_t"], s1["mask_t"], _t(pooled), s1.get("scales_t"))
     want = np.asarray(_local_pooled_padded(jax_s1, jnp.asarray(pooled)))
     assert pt.pooled_stage1_scores.launches == before  # CPU tensors: the plain version
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert (got[:, list(EMPTY)] == 0).all() and float(got[1, 3]) < -0.5
+
+
+@pytest.mark.parametrize("dim", [72, 128])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "int8"])
+def test_k6_with_one_row_queries_is_the_pooled_stage1(dtype, dim):
+    """On the card, a store of rows other than 128 wide takes K6 for the
+    pooled stage-1, each pooled query a one-row query of weight 1. K6's
+    function (its plain version here) is then the JAX package's
+    ``_local_pooled_padded``, at 72 and at 128: 1e-5."""
+    s1, jax_s1, pooled = _stage1_case(dtype, dim)
+    got = pt.pooled_maxsim_scores_qbatch(s1["vals_t"], s1["mask_t"], _t(pooled)[:, None],
+                                         torch.ones(6, 1), s1.get("scales_t"))
+    want = np.asarray(_local_pooled_padded(jax_s1, jnp.asarray(pooled)))
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     assert (got[:, list(EMPTY)] == 0).all() and float(got[1, 3]) < -0.5
 

@@ -40,6 +40,7 @@ from visual_rag_tpu.retrieval import build_filter as jax_build_filter
 from visual_rag_tpu_torch.index.convert import sealed_from_numpy
 from visual_rag_tpu_torch.ops.kernels import maxsim_rerank as mr
 from visual_rag_tpu_torch.ops.kernels import maxsim_sweep as ms
+from visual_rag_tpu_torch.ops.kernels._checks import ceil32
 from visual_rag_tpu_torch.retrieval import local
 from visual_rag_tpu_torch.retrieval.engine import RetrievalEngine
 from visual_rag_tpu_torch.retrieval.filters import build_filter
@@ -293,7 +294,8 @@ def test_wrappers_run_the_plain_versions_on_cpu():
 def test_local_rerank_routes(monkeypatch):
     """``dedup`` at B == 1 runs K2 (``sharded.py:477``); ``sweep`` outside
     the sweep kernel's envelope runs ``dedup`` (``:476``); ``dedup`` outside
-    its own runs K2."""
+    its own runs K2. ``rerank_route`` asks the envelope at the 32-token
+    hint, ``local_rerank`` at the real query's length (8 tokens here)."""
     flat, offs, lens, max_len, _ = _store(seed=13)
     ragged = dict(zip(("flat", "offsets", "lengths"), _t(flat, offs, lens)), max_len=max_len)
     calls = []
@@ -311,6 +313,9 @@ def test_local_rerank_routes(monkeypatch):
     assert route(4, "dedup") == "rerank_candidates_dedup"
     assert route(4, "sweep") == "rerank_candidates_sweep"
     assert route(4, "plain") == "rerank_candidates"
+    monkeypatch.setattr(local, "sweep_supported", lambda rows, ml, b, k, nq, *a: nq > 8)
+    assert local.rerank_route(ragged, len(lens), 64, 5, False) == "sweep"
+    assert route(4, "sweep") == "rerank_candidates_dedup"
     monkeypatch.setattr(local, "sweep_supported", lambda *a: False)
     assert route(4, "sweep") == "rerank_candidates_dedup"
     monkeypatch.setattr(local, "pair_kernels_fit", lambda *a: False)
@@ -361,6 +366,13 @@ def test_three_stage_and_filters_match_jax(built, queries, impl, run):  # noqa: 
         assert all(h["payload"]["year"] in (2020, 2023) for hits in got for h in hits)
 
 
+def _route(engine, b, k, packed):
+    """The rerank ``engine`` asks for at a bucketed batch ``b``, as its
+    ``_dispatch_batch`` asks ``local.rerank_route``."""
+    return local.rerank_route(engine._fused_arrays(engine.full_vector_name),
+                              engine.index.num_docs, b, k, packed, engine.rerank_impl)
+
+
 @pytest.mark.parametrize("pk,route", [(5, "dedup"), (30, "sweep")])
 def test_auto_routes_a_batch_of_64_as_jax_and_matches_it(indexes, queries, pk, route):  # noqa: F811
     """64 queries on the padded wire over the 100-doc index: coverage 4.8
@@ -369,7 +381,7 @@ def test_auto_routes_a_batch_of_64_as_jax_and_matches_it(indexes, queries, pk, r
     j, p = indexes
     pe = RetrievalEngine(p, query_wire="padded")
     je = JaxEngine(j, stage1_cut="exact", query_wire="padded")
-    assert pe._rerank_impl(64, pk, packed=False) == route == je._rerank_impl(64, pk)
+    assert _route(pe, 64, pk, False) == route == je._rerank_impl(64, pk)
     qs = (queries * 3)[:64]
     kw = dict(mode="two_stage", top_k=5, prefetch_k=pk, with_payload=False)
     _same(je.search_embedded_batch(qs, **kw), pe.search_embedded_batch(qs, **kw))
@@ -387,6 +399,14 @@ def wide():
     return j, sealed_from_numpy(stores, j.manifest.ids, j.manifest.payloads, "float32", "cpu")
 
 
+def _geom(ragged):
+    """(rows, max_len, query tokens, dim, itemsize) of a token store as the
+    JAX engine's ``_ragged_geom`` gives them: its 32-token query hint."""
+    flat = ragged["flat"]
+    return (int(flat.shape[0]), int(ragged["max_len"]), 32, int(flat.shape[1]),
+            flat.element_size())
+
+
 def _jax_policy(je, b, k, packed, n_docs):
     return je._rerank_impl(b, k, **({"n_docs": n_docs, "m_packed": 32 * b} if packed else {}))
 
@@ -395,7 +415,7 @@ def _declared(geom, b, k, port, jax):
     """The declared difference: JAX's TPU budgets refuse the sweep that
     the coverage asks for, so JAX runs K3 where the port runs K4."""
     rows, max_len, nq, dim, itemsize = geom
-    cov = b * k * ms._ceil32(max_len) / rows
+    cov = b * k * ceil32(max_len) / rows
     return (port, jax) == ("sweep", "dedup") and cov >= 6 and not jax_sweep_supported(
         rows, max_len, min(b, 256), k, nq, dim, itemsize, r_step=512, n_bufs=2)
 
@@ -403,33 +423,27 @@ def _declared(geom, b, k, port, jax):
 @pytest.mark.parametrize("b", [1, 32, 64, 256, 1024])
 @pytest.mark.parametrize("which", ["indexes", "wide"])
 def test_policy_grid_matches_jax(request, which, b):
-    """The port's ``_rerank_impl`` equals the JAX engine's on the same
-    index for K in {10, 200, 1000} on both wires, but for the declared
-    difference. Below ``DEDUP_MIN_BATCH`` both say ``plain``, whatever the
-    scan ratio."""
+    """The port's ``rerank_route`` equals the JAX engine's ``_rerank_impl``
+    on the same index for K in {10, 200, 1000} on both wires, but for the
+    declared difference. Below ``DEDUP_MIN_BATCH`` both say ``plain``,
+    whatever the scan ratio."""
     j, p = request.getfixturevalue(which)
     je, pe = JaxEngine(j), RetrievalEngine(p)
-    assert je._ragged_geom() == pe._ragged_geom()
+    geom = _geom(pe._fused_arrays("initial"))
+    assert je._ragged_geom() == geom
     seen, declared = set(), []
     for k in (10, 200, 1000):
         for packed in (False, True):
-            port = pe._rerank_impl(b, k, packed=packed)
+            port = _route(pe, b, k, packed)
             jax = _jax_policy(je, b, k, packed, p.num_docs)
             if port != jax:
-                assert _declared(pe._ragged_geom(), b, k, port, jax), (k, packed, port, jax)
+                assert _declared(geom, b, k, port, jax), (k, packed, port, jax)
                 declared.append((k, packed))
             seen.add(port)
     if b < 64:
         assert seen == {"plain"}
     # JAX's SMEM budget refuses 256 x 1000 pairs on the padded wire
     assert declared == ([(1000, False)] if b >= 256 else [])
-
-
-class _Geom:
-    """A stand-in index of a given size for the policy (no store built)."""
-
-    def __init__(self, n_docs):
-        self.num_docs = n_docs
 
 
 # chip_smoke.py's corpora: 100k docs of 128-256 tokens, 3k docs of 320-832 (bf16)
@@ -447,19 +461,23 @@ GEOM_3K = ((1776640, 832, 32, 128, 2), 3000)
 ])
 def test_routes_at_the_serving_geometries(indexes, geom, n_docs, b, k, packed, route):  # noqa: F811
     """The auto route at chip_smoke.py's 100k and 3k geometries, the port's
-    and the JAX engine's, on engines whose store geometry is replaced (the
-    policy only: no large index on the CPU)."""
-    j, p = indexes
-    pe, je = RetrievalEngine(p), JaxEngine(j)
-    pe.index = _Geom(n_docs)
-    pe._ragged_geom = je._ragged_geom = lambda: geom
-    assert pe._rerank_impl(b, k, packed=packed) == route
+    over a store of that geometry on the meta device and the JAX engine's
+    with its store geometry replaced (the policy only: no large index on
+    the CPU)."""
+    j, _ = indexes
+    rows, max_len, _, dim, _ = geom
+    ragged = {"flat": torch.empty((rows, dim), dtype=torch.bfloat16, device="meta"),
+              "max_len": max_len}
+    assert _geom(ragged) == geom
+    assert local.rerank_route(ragged, n_docs, b, k, packed) == route
+    je = JaxEngine(j)
+    je._ragged_geom = lambda: geom
     assert _jax_policy(je, b, k, packed, n_docs) == route
 
 
 def test_explicit_impls_pass_through(indexes):  # noqa: F811
     _, p = indexes
     for impl in ("plain", "dedup", "sweep"):
-        assert RetrievalEngine(p, rerank_impl=impl)._rerank_impl(1024, 200, packed=True) == impl
+        assert _route(RetrievalEngine(p, rerank_impl=impl), 1024, 200, True) == impl
     with pytest.raises(ValueError, match="auto\\|plain\\|dedup\\|sweep\\|scan"):
         RetrievalEngine(p, rerank_impl="nope")

@@ -32,6 +32,7 @@ import torch
 
 from visual_rag_tpu_torch.device import resolve_device
 from visual_rag_tpu_torch.index.manifest import Manifest
+from visual_rag_tpu_torch.ops.kernels._checks import ceil32
 
 DEFAULT_DIM = 128
 FLOAT_STORAGE = ("float32", "bfloat16", "float16")
@@ -48,10 +49,6 @@ def _nbytes(t: Optional[torch.Tensor]) -> int:
 def _normalize_rows(x: np.ndarray, eps: float = 1e-12) -> np.ndarray:
     norms = np.linalg.norm(x, axis=-1, keepdims=True)
     return (x / np.maximum(norms, eps)).astype(np.float32)
-
-
-def _ceil32(n: int) -> int:
-    return (int(n) + 31) // 32 * 32
 
 
 def pack_aligned(src: np.ndarray, lengths: np.ndarray, tail_pad_rows: int):
@@ -200,7 +197,7 @@ class RaggedMultiVectors:
         lengths = np.array([m.shape[0] for m in mats], dtype=np.int32)
         max_len = int(lengths.max()) if len(mats) else 1
         src = np.concatenate(mats, axis=0) if mats else np.zeros((0, dim), dtype=np.float32)
-        flat, offsets = pack_aligned(src, lengths, tail_pad_rows=_ceil32(max_len))
+        flat, offsets = pack_aligned(src, lengths, tail_pad_rows=ceil32(max_len))
         dev = resolve_device(device)
         return cls(flat=_to_storage(flat, storage_dtype, dev),
                    offsets=torch.from_numpy(offsets.astype(np.int32)).to(dev),

@@ -1,4 +1,4 @@
-"""Argument checks and ctypes helpers shared by the kernel wrappers.
+"""Argument checks, ctypes helpers and constants shared by the kernel wrappers.
 
 New in the port. A wrapper runs its plain PyTorch version for a CPU
 tensor and launches its CUDA kernel for a CUDA tensor; these checks stand
@@ -14,6 +14,14 @@ import torch
 
 # dtype codes of the kernels' C interface (csrc/*.cu)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3}
+# the score of padding candidates, empty docs and masked rows (csrc/maxsim_common.cuh)
+NEG_INF = -1e30
+
+
+def ceil32(n: int) -> int:
+    """``n`` rounded up to a multiple of 32: a doc's rows in a store's
+    32-row-aligned blocks."""
+    return ((int(n) + 31) // 32) * 32
 
 
 def compute_dtype(store_dtype: torch.dtype) -> torch.dtype:

@@ -30,6 +30,7 @@ import torch
 from visual_rag_tpu_torch.ops.kernels import _build
 from visual_rag_tpu_torch.ops.kernels._checks import (
     DTYPE_CODES,
+    NEG_INF,
     check_scales,
     check_store,
     compute_dtype,
@@ -38,7 +39,6 @@ from visual_rag_tpu_torch.ops.kernels._checks import (
     stream_ptr,
 )
 
-NEG_INF = -1e30
 _MAX_SMEM_BYTES = 200 * 1024  # K2's f32 query tile; a block may hold 227 KB
 _PAIR_SMEM_BYTES = 227 * 1024  # all of K3's and K4's block (csrc/maxsim_pairs.cuh)
 _GATHER_BUDGET_BYTES = 256 * 1024 * 1024  # f32 doc windows per chunk

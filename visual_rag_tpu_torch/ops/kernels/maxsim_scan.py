@@ -33,6 +33,7 @@ import torch
 from visual_rag_tpu_torch.ops.kernels import _build
 from visual_rag_tpu_torch.ops.kernels._checks import (
     DTYPE_CODES,
+    NEG_INF,
     check_scales,
     check_store,
     compute_dtype,
@@ -41,7 +42,6 @@ from visual_rag_tpu_torch.ops.kernels._checks import (
     stream_ptr,
 )
 
-NEG_INF = -1e30
 _SIMS_BUDGET_BYTES = 256 * 1024 * 1024  # f32 similarity tile per doc chunk
 
 

@@ -1,10 +1,11 @@
 """Stage-2 rerank by a sweep over row ranges of the store (K4).
 
-Port of ``visual_rag_tpu/ops/kernels/maxsim_sweep.py``: ``_ceil32`` and
-:func:`sweep_params` (``:59-60``, ``:148-160``) as they are, the pair
-bookkeeping of ``rerank_candidates_sweep`` (``:206-320``) as
-:func:`sweep_layout`, and the kernel as ``csrc/maxsim_sweep.cu``. The
-store is cut into ranges of ``r_step`` rows; the flattened (query,
+Port of ``visual_rag_tpu/ops/kernels/maxsim_sweep.py``: ``_ceil32``
+(``:59-60``, as ``_checks.ceil32``) and :func:`sweep_params` (``:148-160``)
+as they are, the pair bookkeeping of ``rerank_candidates_sweep``
+(``:206-320``) as :func:`sweep_layout`, and the kernel as
+``csrc/maxsim_sweep.cu``. The store is cut into ranges of ``r_step`` rows;
+the flattened (query,
 candidate) pairs sort by (range of the doc's first row, query), -1,
 out-of-range and 0-token pairs past every range (``:241``); each pair gets
 its window counted from its range's first row, and the scores land back
@@ -28,19 +29,21 @@ from typing import Optional
 import torch
 
 from visual_rag_tpu_torch.ops.kernels import _build
-from visual_rag_tpu_torch.ops.kernels._checks import DTYPE_CODES, on_cpu, ptr, stream_ptr
-from visual_rag_tpu_torch.ops.kernels.maxsim_rerank import (
+from visual_rag_tpu_torch.ops.kernels._checks import (
+    DTYPE_CODES,
     NEG_INF,
+    ceil32,
+    on_cpu,
+    ptr,
+    stream_ptr,
+)
+from visual_rag_tpu_torch.ops.kernels.maxsim_rerank import (
     check_rerank_args,
     pair_kernels_fit,
     pair_scores,
 )
 
 SWEEP_R_STEP = 512  # the engine's range step (parallel/sharded.py:421)
-
-
-def _ceil32(n: int) -> int:
-    return ((int(n) + 31) // 32) * 32
 
 
 def sweep_params(rows: int, max_len: int, r_step: int = 2048):
@@ -50,7 +53,7 @@ def sweep_params(rows: int, max_len: int, r_step: int = 2048):
     step by ``r_step`` (raised to the doc span if docs are longer) with a
     one-span overlap so every doc starting inside a step fits its window.
     """
-    span = _ceil32(max_len)
+    span = ceil32(max_len)
     r_step = max(int(r_step), span)
     if rows <= r_step + span:
         return rows, rows, 1  # single range covers the whole store

@@ -44,10 +44,12 @@ device memory in plain PyTorch. The kernel is that fusion on the tensor
 cores; at the benchmark's shape (1024 queries, 200k docs, P 32, dim 128) a
 call is 1.68 TFLOP against a 1.64 GB store, so operations bound it, and it
 keeps each tile's scores in registers, masks them and takes the max over P
-before anything reaches memory (the source says how). On a CPU tensor it
-runs :func:`pooled_stage1_scores_ref`, the plain loop; f32 stores take that
-loop on the card too (``retrieval/local.py``), since the tensor cores would
-need TF32 for them.
+before anything reaches memory (the source says how). It is built for rows
+of 128; at any other width the wrapper launches K6 with each pooled query as
+a one-row query, which is the same function on the CUDA cores. On a CPU
+tensor it runs :func:`pooled_stage1_scores_ref`, the plain loop; f32 stores
+take that loop on the card too (``retrieval/local.py``), since the tensor
+cores would need TF32 for them.
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ import torch
 from visual_rag_tpu_torch.ops.kernels import _build
 from visual_rag_tpu_torch.ops.kernels._checks import (
     DTYPE_CODES,
+    NEG_INF,
     compute_dtype,
     on_cpu,
     ptr,
@@ -66,7 +69,6 @@ from visual_rag_tpu_torch.ops.kernels._checks import (
 )
 from visual_rag_tpu_torch.ops.kernels.maxsim_scan import quantize_queries_int8
 
-NEG_INF = -1e30
 _SIMS_BUDGET_BYTES = 256 * 1024 * 1024  # f32 [M, P, chunk] similarity tile per doc chunk
 _MAX_SMEM_BYTES = 227 * 1024  # shared memory one block may use on the H100
 _DOCS_PER_BLOCK = 64  # csrc PM_BD
@@ -229,9 +231,17 @@ def pooled_stage1_scores(
 ) -> torch.Tensor:
     """[B, D] f32: the max over each doc's valid pooled rows of the pooled
     query's dot, times the row's scale; 0 for a doc with no valid row. The
-    plain version on a CPU store, else the kernel, counted on ``.launches``."""
+    plain version on a CPU store; on the card the kernel, counted on
+    ``.launches``, or K6 at rows other than 128 wide, counted on K6's."""
     if on_cpu(vals_t):
         return pooled_stage1_scores_ref(vals_t, mask_t, pooled, scales_t)
+    if vals_t.dtype not in (torch.bfloat16, torch.float16, torch.int8):
+        raise ValueError(f"store dtype {vals_t.dtype} not supported by the pooled stage-1 "
+                         "kernel (bfloat16, float16, int8); float32 stores take "
+                         "pooled_stage1_scores_ref")
+    if vals_t.shape[-1] != _STAGE1_DIM:
+        ones = torch.ones((pooled.shape[0], 1), dtype=torch.float32, device=pooled.device)
+        return pooled_maxsim_scores_qbatch(vals_t, mask_t, pooled[:, None], ones, scales_t)
     out = _launch_stage1(vals_t, mask_t, pooled, scales_t)
     pooled_stage1_scores.launches += 1
     return out
@@ -243,16 +253,9 @@ pooled_stage1_scores.launches = 0
 def _launch_stage1(vals_t, mask_t, pooled, scales_t) -> torch.Tensor:
     """Check what the pooled stage-1 kernel takes, then launch it; raises on
     anything else."""
-    if vals_t.dtype not in (torch.bfloat16, torch.float16, torch.int8):
-        raise ValueError(f"store dtype {vals_t.dtype} not supported by the pooled stage-1 "
-                         "kernel (bfloat16, float16, int8); float32 stores take "
-                         "pooled_stage1_scores_ref")
     if vals_t.dim() != 3 or not vals_t.is_contiguous() or vals_t.data_ptr() % 16:
         raise ValueError("vals_t must be a contiguous, 16-byte aligned [P, D, dim] tensor")
     p, d, dim = vals_t.shape
-    if dim != _STAGE1_DIM:
-        raise ValueError(f"dim {dim} not supported by the pooled stage-1 kernel "
-                         f"({_STAGE1_DIM} only)")
     if p == 0 or tuple(mask_t.shape) != (p, d):
         raise ValueError(f"mask_t must be [{p}, {d}] with P > 0, got {tuple(mask_t.shape)}")
     if pooled.dim() != 2 or pooled.shape[1] != dim:

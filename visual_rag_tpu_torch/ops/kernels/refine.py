@@ -22,8 +22,8 @@ from typing import Optional
 import torch
 
 from visual_rag_tpu_torch.index.store import unpack_int4
+from visual_rag_tpu_torch.ops.kernels._checks import NEG_INF
 
-NEG_INF = -1e30
 # device-memory cap of one step's f32 candidate windows (sharded.py:707-709)
 REFINE_BUDGET_BYTES = 128 * 1024 * 1024
 

@@ -20,6 +20,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from visual_rag_tpu_torch.ops.kernels._checks import NEG_INF
+
 __all__ = [
     "l2_normalize",
     "compute_maxsim_score",
@@ -30,7 +32,6 @@ __all__ = [
 ]
 
 _EPS = 1e-8  # the reference's additive normalization epsilon
-NEG_INF = -1e30
 
 
 def _f32(x) -> torch.Tensor:

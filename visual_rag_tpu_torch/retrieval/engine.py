@@ -23,16 +23,11 @@ Policies, as the JAX engine's except where noted:
 - wire: ``query_wire="auto"`` is the packed wire at B >= 32 on CUDA and the
   padded wire on the CPU (``engine.py:637-639``). The wire is always f32;
   the JAX engine's automatic f16 wire is not inherited (ROADMAP C6).
-- rerank (``EngineCommon._rerank_impl``, ``engine.py:149-193``): ``plain``
-  (K2) below a batch of ``DEDUP_MIN_BATCH``; else ``scan`` (K1) when the
-  wire is packed and B*K >= 4*D; else ``sweep`` (K4) when the candidates'
-  coverage B*K*ceil32(max_len)/rows reaches ``SWEEP_MIN_COV`` and the
-  sweep kernel takes the shape; else ``dedup`` (K3). K = ``prefetch_k``
-  for ``two_stage`` and ``stage2_k`` for ``three_stage`` (``engine.py:685,
-  705``). Where JAX asks its TPU kernels' VMEM and SMEM budgets
-  (``sweep_supported``, ``scan_kernel_fits``), the port asks its CUDA
-  kernels' envelope (ROADMAP, declared differences). ``scan`` on the padded
-  wire raises (the JAX engine falls back there with a warning).
+- rerank (``EngineCommon._rerank_impl``, ``engine.py:149-193``):
+  ``retrieval/local.py::rerank_route`` picks it from the bucketed batch
+  and K = ``prefetch_k`` for ``two_stage``, ``stage2_k`` for
+  ``three_stage``. ``scan`` on the padded wire raises (the JAX engine falls
+  back there with a warning).
 - stage-1 cut: always exact (the JAX engine's ``approx_max_k`` at >= 65536
   docs is a declared difference, ROADMAP).
 - filters: one device mask per (filter signature, manifest version),
@@ -55,9 +50,8 @@ from visual_rag_tpu_torch.index.store import (
     SealedIndex,
     SingleVectors,
 )
-from visual_rag_tpu_torch.ops.kernels.maxsim_sweep import _ceil32, sweep_supported
 from visual_rag_tpu_torch.retrieval import plans, wire
-from visual_rag_tpu_torch.retrieval.local import NEG_INF
+from visual_rag_tpu_torch.retrieval.local import NEG_INF, rerank_route
 from visual_rag_tpu_torch.tracing import span
 
 STAGE1_MODES = (
@@ -117,9 +111,6 @@ class BatchResultArrays:
 class RetrievalEngine:
     """Batched query planner over one sealed collection, on its device."""
 
-    DEDUP_MIN_BATCH = 64  # the JAX engine's thresholds (engine.py:126-132)
-    SWEEP_MIN_COV = 6.0
-    SCAN_MIN_CAND_RATIO = 4.0  # scan when B*K >= this * D
     PACKED_MIN_BATCH = 32  # auto wire: packed from this batch bucket (CUDA)
     BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
@@ -200,32 +191,6 @@ class RetrievalEngine:
         if self.query_wire == "auto":
             return self.device.type == "cuda" and b >= self.PACKED_MIN_BATCH
         return self.query_wire == "packed"
-
-    def _rerank_impl(self, b: int, k: int, packed: bool) -> str:
-        if self.rerank_impl == "scan" and not packed:
-            raise ValueError(
-                "rerank_impl='scan' needs the packed query wire (query_wire='packed', "
-                f"or 'auto' on CUDA at B >= {self.PACKED_MIN_BATCH}); this batch "
-                "goes on the padded wire")
-        if self.rerank_impl != "auto":
-            return self.rerank_impl
-        if b < self.DEDUP_MIN_BATCH:
-            return "plain"
-        rows, max_len, nq, dim, itemsize = self._ragged_geom()
-        if packed and b * k >= self.SCAN_MIN_CAND_RATIO * self.index.num_docs:
-            return "scan"
-        cov = b * k * _ceil32(max_len) / max(1, rows)
-        if cov >= self.SWEEP_MIN_COV and sweep_supported(rows, max_len, b, k, nq, dim,
-                                                         itemsize):
-            return "sweep"
-        return "dedup"
-
-    def _ragged_geom(self):
-        """(rows, max_len, nq_hint, dim, itemsize) of the full token store
-        (JAX ``engine.py:446-450``; 32 query tokens as its hint)."""
-        st = self.index.store(self.full_vector_name)
-        return (int(st.flat.shape[0]), int(st.max_len), 32, int(st.dim),
-                st.flat.element_size())
 
     def _fused_stage1(self, stage1_mode: str):
         m = _STAGE1_ALIASES.get(stage1_mode, stage1_mode)
@@ -401,8 +366,8 @@ class RetrievalEngine:
                 pk = max(1, min(int(prefetch_k), d))
                 vals, idx = plans.two_stage_plan(
                     self._fused_arrays(name), ragged, doc_mask, q1, q2, q3, kind=kind, pk=pk,
-                    k=max(1, min(int(top_k), pk)), impl=self._rerank_impl(b, pk, packed),
-                    **common)
+                    k=max(1, min(int(top_k), pk)),
+                    impl=rerank_route(ragged, d, b, pk, packed, self.rerank_impl), **common)
                 return ("done", n_real, with_payload, return_arrays,
                         {"idx": idx, "score_stage2": vals, "score_final": vals})
 
@@ -412,7 +377,7 @@ class RetrievalEngine:
                 self._fused_arrays(self.global_vector_name),
                 self._fused_arrays(self.experimental_vector_name), ragged, doc_mask, q1, q2, q3,
                 s1k=s1k, s2k=s2k, k=max(1, min(int(top_k), s2k)),
-                impl=self._rerank_impl(b, s2k, packed), **common)
+                impl=rerank_route(ragged, d, b, s2k, packed, self.rerank_impl), **common)
             return ("done", n_real, with_payload, return_arrays,
                     {"idx": idx, "score_stage3": vals, "score_final": vals,
                      "score_stage1": s1_at, "score_stage2": s2_at})

@@ -10,8 +10,11 @@ Port of the shard-local bodies in ``visual_rag_tpu/parallel/sharded.py``
   bf16, f16 and int8 stores. An f32 store keeps the plain loop of f32
   ``torch.matmul``s, one per pooled row with a running max: the tensor
   cores would need TF32 for it.
-- :func:`local_rerank` <- ``_local_rerank`` (``:425-530``), every branch:
-  ``plain`` (K2), ``dedup`` (K3), ``sweep`` (K4) and ``scan`` (K1). The
+- :func:`rerank_route` <- the JAX engine's ``EngineCommon._rerank_impl``
+  (``retrieval/engine.py:149-193``): which rerank a batch asks for. Then
+  :func:`local_rerank` <- ``_local_rerank`` (``:425-530``), every branch:
+  ``plain`` (K2), ``dedup`` (K3), ``sweep`` (K4) and ``scan`` (K1), each
+  falling back where its kernel does not take the real query. The
   ``lax.map`` query chunking of all three reranks and the 56k-entry and
   4 MB guards of ``dedup`` (``:458-524``) worked around the TPU's scalar
   and vector memories; one CUDA launch takes any B*K, so they are gone.
@@ -50,7 +53,7 @@ from typing import Dict, Optional
 
 import torch
 
-from visual_rag_tpu_torch.ops.kernels._checks import compute_dtype
+from visual_rag_tpu_torch.ops.kernels._checks import NEG_INF, ceil32, compute_dtype
 from visual_rag_tpu_torch.ops.kernels.maxsim_rerank import (
     pair_kernels_fit,
     rerank_candidates,
@@ -71,11 +74,14 @@ from visual_rag_tpu_torch.ops.kernels.prefetch_topk import (
 )
 from visual_rag_tpu_torch.ops.kernels.refine import refine_rerank, refine_window
 
-NEG_INF = -1e30
 # device-memory cap of the stage-2 candidate gather (sharded.py:417-419)
 GATHER_BUDGET_BYTES = 320 * 1024 * 1024
 # the qdot prefetch stage-1 opt-out, read once at import (sharded.py:76-78)
 TOKENS_QDOT = os.environ.get("VISUALRAG_TOKENS_QDOT", "1") != "0"
+# the JAX engine's rerank thresholds (engine.py:126-132)
+DEDUP_MIN_BATCH = 64
+SWEEP_MIN_COV = 6.0
+SCAN_MIN_CAND_RATIO = 4.0  # scan when B*K >= this * D
 
 
 def local_tokens_padded(s1: Dict, tokens: torch.Tensor, qmask: torch.Tensor,
@@ -172,10 +178,40 @@ def local_tokens_ragged(ragged: Dict, tokens: torch.Tensor, qmask: torch.Tensor,
                                     qdot_int8=ragged.get("res4") is not None)
 
 
+def rerank_route(ragged: Dict, n_docs: int, b: int, k: int, packed: bool,
+                 requested: str = "auto") -> str:
+    """The rerank a batch of ``b`` (bucketed) queries asks for, ``k``
+    candidates each, as the JAX engine's ``_rerank_impl`` on its K
+    (``prefetch_k``, or ``stage2_k`` before the stage-1 cut) and a 32-token
+    query. Where JAX asks its TPU kernels' budgets, the port asks its CUDA
+    kernels' envelope (ROADMAP, declared differences); :func:`local_rerank`
+    then holds the route to the real query. ``scan`` needs the packed wire
+    (the JAX engine falls back with a warning).
+    """
+    if requested == "scan" and not packed:
+        raise ValueError(
+            "rerank_impl='scan' needs the packed query wire (query_wire='packed', or "
+            "'auto' on CUDA from the packed wire's smallest batch); this batch goes on the "
+            "padded wire")
+    if requested != "auto":
+        return requested
+    if b < DEDUP_MIN_BATCH:
+        return "plain"
+    if packed and b * k >= SCAN_MIN_CAND_RATIO * n_docs:
+        return "scan"
+    flat, max_len = ragged["flat"], int(ragged["max_len"])
+    rows, dim = flat.shape
+    cov = b * k * ceil32(max_len) / max(1, rows)
+    if cov >= SWEEP_MIN_COV and sweep_supported(rows, max_len, b, k, 32, dim,
+                                                flat.element_size()):
+        return "sweep"
+    return "dedup"
+
+
 def local_rerank(ragged: Dict, tokens: torch.Tensor, qmask: torch.Tensor,
                  cand: torch.Tensor, impl: str, packed: Optional[Dict], b: int):
     """[B, K] exact MaxSim of each query's candidates; every impl gives K2's
-    scores (``sharded.py:425-530``).
+    scores, K3's tensor-core body within about 1e-6 (``sharded.py:425-530``).
 
     ``plain``: K2 reads each candidate's rows. ``dedup``: K3, pairs sorted
     by doc, each doc read once a run; a batch of one goes to K2 (``:477``).

@@ -30,9 +30,6 @@ from __future__ import annotations
 
 import sys
 
-PEAK = {"bf16": 989e12, "f32": 67e12}  # chip_smoke.PEAK_OPS
-HBM_BYTES_PER_S = 3.35e12
-
 
 def shapes(dev):
     """{name: (b, t, hq, hkv, dh, seg, causal)} (module docstring)."""
@@ -73,6 +70,10 @@ def shapes(dev):
 
 
 def main(root: str, tag: str, sdpa: bool) -> None:
+    # run as a file, this directory leads sys.path: the peaks come from this
+    # tree without importing the package before <tree root> is put first
+    from peaks import HBM_BYTES_PER_S, PEAK_OPS
+
     sys.path.insert(0, root)
     import torch
     import torch.nn.functional as F
@@ -117,7 +118,7 @@ def main(root: str, tag: str, sdpa: bool) -> None:
                 grad = ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask))
                 pairs = int(mask.sum())  # allowed pairs of one head, over the batch
                 nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q, seg))
-                t_ops = 4 * dh * pairs * hq / PEAK[dt]
+                t_ops = 4 * dh * pairs * hq / PEAK_OPS[dt]
                 bound = max(t_ops, nbytes / HBM_BYTES_PER_S) * 1e3
                 lse_bound = max(t_ops, (nbytes + 4 * b * hq * t) / HBM_BYTES_PER_S) * 1e3
                 print(f"{tag} {name} {dt}: SDPA forward {plain:.4f} ms, on inputs that need grad "
