@@ -67,6 +67,14 @@ that saves lse gives the serving output bit for bit; the autograd Function launc
 dim; one train step of small ColSmol-, ColPali- and ColQwen2.5-shaped
 models on the card against the CPU.
 
+The engine's transfers: ``_dispatch_batch`` of ``two_stage`` batches of 64
+and 1024 queries, on the padded and the packed wire, calls no stream
+synchronisation (``torch.cuda.set_sync_debug_mode("error")``), and
+``transfer_stats`` counts every batch pinned; 8 distinct batches through
+``search_embedded_batches(depth=2)`` (``two_stage``, ``three_stage``)
+return what each batch alone returns, bit for bit, and batch 0's arrays
+are not written by any later batch.
+
 Spans (``tracing.py``): under a CUDA-only profiler they record; a span
 given the card sets ``device_ms`` (no more than the host span of one that
 ends in a synchronise), one given none leaves it None; and they add no
@@ -408,6 +416,60 @@ def test_engine_on_card_matches_cpu(dev, query_wire):
         for a, c in zip(card.search_embedded_batch(qs, **kw),
                         cpu.search_embedded_batch(qs, **kw)):
             assert strict_rank_equal([dict(h, score=h[key]) for h in c], a, score_tol=1e-4)
+
+
+# -- the engine's transfers -------------------------------------------------------
+
+RESULT_ARRAYS = ("ids", "scores", "valid", "indices")
+
+
+def _bf16_engine(dev, query_wire="auto"):
+    idx = synthetic_index(300, min_tokens=20, max_tokens=300, pooled_rows=6,
+                          storage_dtype="bfloat16", seed=9, device=dev)
+    return RetrievalEngine(idx, query_wire=query_wire)
+
+
+@pytest.mark.parametrize("query_wire", ["padded", "packed"])
+def test_dispatch_never_synchronises(dev, query_wire):
+    eng = _bf16_engine(dev, query_wire)
+    rng = np.random.default_rng(10)
+    batches = [_queries(rng, b, 12, 32) for b in (64, 1024)]
+    kw = dict(mode="two_stage", top_k=10, prefetch_k=200, with_payload=False,
+              return_arrays=True)
+    for qb in batches:  # builds the kernels
+        eng.search_embedded_batch(qb, **kw)
+    pend = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for qb in batches + batches:
+            pend.append(eng._dispatch_batch(qb, **kw))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for p, qb in zip(pend, batches + batches):
+        res = eng._finish_batch(p)
+        assert len(res) == len(qb) and res.valid.all()
+    assert eng.transfer_stats == {"batches": 6, "pinned": 6}
+
+
+@pytest.mark.parametrize("mode", ["two_stage", "three_stage"])
+def test_pipeline_on_card_matches_single_batches(dev, mode):
+    eng = _bf16_engine(dev)
+    rng = np.random.default_rng(11)
+    batches = [_queries(rng, b, 8, 32) for b in (64, 1024) * 4]  # 8 distinct batches
+    kw = dict(mode=mode, top_k=10, prefetch_k=100, stage1_k=200, stage2_k=100,
+              with_payload=False, return_arrays=True)
+    kept, piped = None, []
+    for res in eng.search_embedded_batches(batches, depth=2, **kw):
+        if not piped:  # batch 0 as it was yielded
+            kept = {k: getattr(res, k).copy() for k in ("ids", "scores", "indices")}
+        piped.append(res)
+    for got, qb in zip(piped, batches):
+        want = eng.search_embedded_batch(qb, **kw)
+        for k in RESULT_ARRAYS:
+            assert np.array_equal(getattr(got, k), getattr(want, k)), (k, len(qb))
+    for k, v in kept.items():  # nothing later wrote into batch 0's arrays
+        assert np.array_equal(v, getattr(piped[0], k)), k
+    assert eng.transfer_stats == {"batches": 16, "pinned": 16}
 
 
 # -- int8 stores -------------------------------------------------------------------

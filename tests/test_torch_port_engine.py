@@ -8,7 +8,9 @@ wire with the ``plain`` and ``scan`` reranks; and an index built with the
 JAX ``IndexBuilder`` as the verify recipe builds one (all four stores, the
 pooled stores padded with invalid rows, ``year``/``source`` payloads) for
 every search mode, every stage-1 mode and alias, payload filters and the
-per-query ``search_embedded``. The JAX engine runs with
+per-query ``search_embedded``. The CPU engine's transfer path: pipelined
+batches equal single ones, a yielded result is never overwritten, and no
+batch is counted as pinned, also from many threads. The JAX engine runs with
 ``stage1_cut="exact"``, its Pallas kernels replaced by their XLA fallbacks
 as on any CPU. Ids must agree under ``strict_rank_equal`` and scores within
 1e-5 (f32 on both sides, summation order differs). Serving: both the JAX
@@ -18,6 +20,7 @@ port's engine.
 
 import copy
 import json
+import sys
 import threading
 import urllib.request
 
@@ -342,6 +345,59 @@ def test_policies(indexes):
     qs, n_real, b = RetrievalEngine._bucket_batch(list(range(33)))
     assert (n_real, b, len(qs)) == (33, 64, 64)
     assert RetrievalEngine._bucket_batch(list(range(300)))[2] == 512
+
+
+def _arrays_equal(a, b):
+    return all(np.array_equal(getattr(a, k), getattr(b, k))
+               for k in ("ids", "scores", "valid", "indices"))
+
+
+@pytest.mark.parametrize("query_wire", ["padded", "packed"])
+@pytest.mark.parametrize("mode", ["two_stage", "three_stage"])
+def test_cpu_pipeline_takes_the_plain_path(built, queries, mode, query_wire):
+    _, p = built
+    pe = RetrievalEngine(p, query_wire=query_wire)
+    kw = dict(mode=mode, with_payload=False, return_arrays=True, **CUTS)
+    batches = [queries[i:i + 3] for i in range(0, 24, 3)]  # 8 distinct batches
+    kept, piped = None, []
+    for res in pe.search_embedded_batches(batches, depth=2, **kw):
+        if not piped:  # batch 0 as it was yielded
+            kept = {k: getattr(res, k).copy() for k in ("ids", "scores", "indices")}
+        piped.append(res)
+    assert pe.transfer_stats == {"batches": 8, "pinned": 0}
+    for got, qb in zip(piped, batches):
+        assert _arrays_equal(got, pe.search_embedded_batch(qb, **kw))
+    assert all(np.array_equal(kept[k], getattr(piped[0], k)) for k in kept)
+    assert pe.transfer_stats == {"batches": 16, "pinned": 0}
+
+
+def test_transfer_stats_count_every_batch_across_threads(indexes, queries):
+    _, p = indexes
+    pe = RetrievalEngine(p)
+    kw = dict(top_k=5, prefetch_k=20, with_payload=False)
+    want = [pe.search_embedded(q, **kw) for q in queries[:4]]
+    got, errors = {}, []
+
+    def worker(t):
+        try:
+            for i in range(6):
+                got[(t, i)] = pe.search_embedded(queries[(t + i) % 4], **kw)
+        except Exception as ex:  # reported below
+            errors.append(ex)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(t,)) for t in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads) and not errors
+    assert pe.transfer_stats == {"batches": 4 + 48, "pinned": 0}
+    assert all(hits == want[(t + i) % 4] for (t, i), hits in got.items()) and len(got) == 48
 
 
 @pytest.mark.parametrize("server_cls", [JaxSearchServer, SearchServer])

@@ -2,7 +2,8 @@
 
 - Importing every port module (the embedding path's included) loads no jax
   (checked in a fresh process).
-- The port's numpy query wire is byte-identical to retrieval/batch.py's.
+- The port's numpy query wire is byte-identical to retrieval/batch.py's,
+  also when packed into arrays the caller allocates.
 - ``sealed_from_numpy`` of a sealed JAX index holds the same bytes, in f32
   and bf16; the port's ``synthetic_index`` has the JAX one's layout.
 - ``chip_smoke.py`` refuses to run without a CUDA device.
@@ -92,6 +93,27 @@ def test_pack_queries_grouped_bytes_match(b):
     for g, w in zip(got, want):
         w = np.asarray(w)
         assert g.dtype == w.dtype and g.shape == w.shape
+        assert g.tobytes() == w.tobytes()
+
+
+def _dirty_alloc(shape, dtype):
+    """Arrays full of a byte pattern: a packer must overwrite every byte."""
+    out = np.empty(shape, dtype)
+    out.view(np.uint8).fill(0xA5)
+    return out
+
+
+@pytest.mark.parametrize("pack", ["pad", "grouped"])
+@pytest.mark.parametrize("b", [0, 1, 5, 31, 32, 64, 96])
+def test_wire_into_given_arrays_is_byte_identical(pack, b):
+    qs = _queries(b, seed=200 + b)
+    fn = wire.pad_queries_raw if pack == "pad" else wire.pack_queries_grouped
+    want, got = fn(qs, DIM), fn(qs, DIM, alloc=_dirty_alloc)
+    if pack == "grouped":
+        assert want[1:] == got[1:]  # nq, rg
+        want, got = want[0], got[0]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and g.flags.c_contiguous
         assert g.tobytes() == w.tobytes()
 
 

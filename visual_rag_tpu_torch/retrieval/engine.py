@@ -32,11 +32,20 @@ Policies, as the JAX engine's except where noted:
   docs is a declared difference, ROADMAP).
 - filters: one device mask per (filter signature, manifest version),
   memoised up to 64 masks (``engine.py:367-387``).
+- transfers: on a CUDA device a batch never waits for the stream. Its
+  query wire is packed into pinned host memory and copied up without
+  blocking (``wire.PinnedArrays``); once its last kernel is queued, its
+  results are copied into pinned host tensors behind one CUDA event, and
+  ``_finish_batch`` waits on that event alone. So
+  ``search_embedded_batches(depth=2)`` packs batch n+1 while the card runs
+  batch n. On the CPU both are plain numpy. ``transfer_stats`` counts the
+  batches dispatched and those that took the pinned path.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence
@@ -171,6 +180,8 @@ class RetrievalEngine:
         self._arrays: Dict[str, Dict] = {}
         self._ids: Optional[np.ndarray] = None
         self._mask_cache: Dict[Any, torch.Tensor] = {}
+        self.transfer_stats = {"batches": 0, "pinned": 0}
+        self._stats_lock = threading.Lock()  # search_embedded runs on many threads
 
     # -- policies --------------------------------------------------------------
 
@@ -312,7 +323,9 @@ class RetrievalEngine:
 
     def search_embedded_batches(self, query_batches, depth: int = 2, **search_kwargs):
         """Pipelined batches: dispatch up to ``depth`` batches ahead before
-        fetching batch i's results. Yields one result per batch, in order."""
+        fetching batch i's results, which waits for batch i's own copies
+        only (on CUDA; see the module docstring). Yields one result per
+        batch, in order."""
         depth = max(1, int(depth))
         pend = deque()
         for qb in query_batches:
@@ -328,8 +341,9 @@ class RetrievalEngine:
                         stage1_k: Optional[int] = None, stage2_k: Optional[int] = None,
                         filter_obj=None, with_payload: bool = True,
                         return_arrays: bool = False):
-        """Queue one batch's device work; returns a pending record for
-        :meth:`_finish_batch` (device results not yet fetched)."""
+        """Queue one batch's device work and, on CUDA, the copies of its
+        results to pinned host memory; returns a pending record for
+        :meth:`_finish_batch`. Nothing here waits for the device."""
         if mode not in SEARCH_MODES:
             raise ValueError(f"Unknown mode: {mode}. Choose one of {SEARCH_MODES}")
         if return_arrays and with_payload:
@@ -337,18 +351,23 @@ class RetrievalEngine:
         with span("search.dispatch"):
             d = self.index.num_docs
             if d == 0 or not len(query_embeddings):
-                return ("empty", len(query_embeddings), with_payload, return_arrays, {})
+                return ("empty", len(query_embeddings), with_payload, return_arrays, {}, None)
             queries, n_real, b = self._bucket_batch(query_embeddings)
             ragged = self._fused_arrays(self.full_vector_name)
             dim = ragged["flat"].shape[1]
             packed = self._use_packed(b)
+            pinned = wire.PinnedArrays() if self.device.type == "cuda" else None
+            alloc = pinned or np.empty
             if packed:
-                arrays, nq, _ = wire.pack_queries_grouped(queries, dim)
-                q1, q2, q3 = wire.to_device(arrays, self.device)
+                arrays, nq, _ = wire.pack_queries_grouped(queries, dim, alloc=alloc)
+                q1, q2, q3 = wire.to_device(arrays, self.device, pinned)
             else:
-                arrays = wire.pad_queries_raw(queries, dim)
-                q1, q2 = wire.to_device(arrays, self.device)
+                arrays = wire.pad_queries_raw(queries, dim, alloc=alloc)
+                q1, q2 = wire.to_device(arrays, self.device, pinned)
                 q3, nq = None, arrays[0].shape[1]
+            with self._stats_lock:
+                self.transfer_stats["batches"] += 1
+                self.transfer_stats["pinned"] += pinned is not None
             doc_mask = self._doc_mask(filter_obj)
             common = dict(wire="packed" if packed else "padded", b=b, nq=nq)
 
@@ -357,7 +376,8 @@ class RetrievalEngine:
                 vals, idx = plans.single_plan(
                     self._fused_arrays(name), ragged, doc_mask, q1, q2, q3, kind=kind,
                     k=max(1, min(int(top_k), d)), **common)
-                return ("done", n_real, with_payload, return_arrays, {"idx": idx, "score": vals})
+                return self._pending(n_real, with_payload, return_arrays,
+                                     {"idx": idx, "score": vals})
 
             if mode == "two_stage":
                 if prefetch_k is None:
@@ -368,8 +388,8 @@ class RetrievalEngine:
                     self._fused_arrays(name), ragged, doc_mask, q1, q2, q3, kind=kind, pk=pk,
                     k=max(1, min(int(top_k), pk)),
                     impl=rerank_route(ragged, d, b, pk, packed, self.rerank_impl), **common)
-                return ("done", n_real, with_payload, return_arrays,
-                        {"idx": idx, "score_stage2": vals, "score_final": vals})
+                return self._pending(n_real, with_payload, return_arrays,
+                                     {"idx": idx, "score_stage2": vals, "score_final": vals})
 
             s1k = max(1, min(int(stage1_k or 1000), d))
             s2k = max(1, min(int(stage2_k or 300), d))
@@ -378,12 +398,26 @@ class RetrievalEngine:
                 self._fused_arrays(self.experimental_vector_name), ragged, doc_mask, q1, q2, q3,
                 s1k=s1k, s2k=s2k, k=max(1, min(int(top_k), s2k)),
                 impl=rerank_route(ragged, d, b, s2k, packed, self.rerank_impl), **common)
-            return ("done", n_real, with_payload, return_arrays,
-                    {"idx": idx, "score_stage3": vals, "score_final": vals,
-                     "score_stage1": s1_at, "score_stage2": s2_at})
+            return self._pending(n_real, with_payload, return_arrays,
+                                 {"idx": idx, "score_stage3": vals, "score_final": vals,
+                                  "score_stage1": s1_at, "score_stage2": s2_at})
+
+    def _pending(self, n_real, with_payload, return_arrays, results):
+        """The pending record of a queued batch. On CUDA, its results' copies
+        into pinned host tensors are queued on the current stream behind the
+        batch's kernels, and one event marks them done."""
+        if self.device.type != "cuda":
+            return ("done", n_real, with_payload, return_arrays, results, None)
+        host = {}
+        for k, v in results.items():
+            host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            host[k].copy_(v, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        return ("done", n_real, with_payload, return_arrays, host, ready)
 
     def _finish_batch(self, pending):
-        tag, n_real, with_payload, return_arrays, arrays = pending
+        tag, n_real, with_payload, return_arrays, arrays, ready = pending
         with span("search.finish"):
             if tag == "empty":
                 if return_arrays:
@@ -391,7 +425,11 @@ class RetrievalEngine:
                     return BatchResultArrays(ids=z.astype(object), scores=z.astype(np.float32),
                                              valid=z.astype(bool), indices=z.astype(np.int32))
                 return [[] for _ in range(n_real)]
-            arrays = {k: v.cpu().numpy() for k, v in arrays.items()}
+            if ready is None:
+                arrays = {k: v.cpu().numpy() for k, v in arrays.items()}
+            else:  # this batch's copies only; own the memory: the pinned blocks are reused
+                ready.synchronize()
+                arrays = {k: v.numpy().copy() for k, v in arrays.items()}
             if return_arrays:
                 return self._finish_arrays(n_real, arrays)
             idx = arrays.pop("idx")

@@ -51,7 +51,7 @@ def _prep_queries_packed(packed, pos, qid, b: int, nq: int):
     flat_t = torch.zeros((b * nq + 1, dim), dtype=torch.float32, device=t.device)
     flat_t[p] = t
     flat_m = torch.zeros((b * nq + 1,), dtype=torch.float32, device=t.device)
-    flat_m[p] = 1.0
+    flat_m.index_fill_(0, p, 1.0)  # flat_m[p] = 1.0 would copy the scalar up and wait
     qmask = flat_m[:b * nq].reshape(b, nq)
     tokens, pooled = _prep_queries(flat_t[:b * nq].reshape(b, nq, dim), qmask)
     tn = t * (qid.reshape(-1) >= 0).float()[:, None]
