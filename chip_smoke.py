@@ -241,6 +241,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    448 pages (1024 patches), as 14c. The patch positions stay out of the
    batch, as the trainer drops them (the JAX ``Trainer`` never passes them).
 
+17. K11, the routed experts of Kimi-VL-A3B (``moe_experts_phase``): at its
+   widths on the ingest cell's batch, a uniform and a skewed layout against
+   the plain version, two calls bit-equal, launches counted, then timed
+   beside the plain version and its bound.
+
 The build's log gives each kernel's registers and spills (``-Xptxas=-v``).
 Every kernel entry carries ``bound_ms`` (the larger of its bytes over 3.35
 TB/s and its operations over the peak rate of their type: 989 TFLOP/s bf16,
@@ -751,6 +756,10 @@ def main() -> None:
     colqwen_train = colqwen_training_phase(dev, card)
     kernels += merge_training_entries(training, {"colpali": colpali_train,
                                                  "colqwen2.5": colqwen_train})
+    torch.cuda.empty_cache()
+
+    # -- 17. K11, the routed experts, at Kimi-VL-A3B's widths ------------------------------
+    kernels.append(moe_experts_phase(dev, card))
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "visual_rag_tpu"))
     if leaked:
         raise AssertionError(f"the JAX package or jax was imported: {leaked[:5]}")
@@ -2686,6 +2695,62 @@ def colqwen_training_phase(dev, card):
     card_vs_cpu_step(dev, small, small_batch, "2 pairs of 448 x 448 pages (1024 patches)")
     log(f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
     return {"fwd": fwd, "b4": b4, "b5": b5, "ptxas": ptxas, "launches": counts}
+
+
+# K11 against its plain version: h, y and the output are each rounded to bf16 from f32 sums
+# taken in another order, so the output stays within two bf16 roundings of its largest value
+MOE_TOL = 2.0 ** -7
+KIMI_MOE = dict(hidden=2048, width=1408, experts=64, top_k=6)
+KIMI_BATCH_ROWS = 8 * 1088  # the ingest cell's batch: 8 pages of 1088 text rows (padded)
+
+
+def moe_experts_phase(dev, card):
+    """Phase 17: K11 (``csrc/moe_experts.cu``) at Kimi-VL-A3B's widths on one
+    routed layer of the ingest cell's batch (8 x 1088 rows, 6 experts each of
+    64; ``tools/emulate_kernels.py::moe_inputs``): a uniform and a skewed
+    layout (expert 0 in every row, experts 60-63 empty) against its plain
+    version (the same layout through f32 matmuls on the card) within
+    ``MOE_TOL`` of the largest output, two calls bit-equal,
+    launches counted; then its time on the uniform layout beside the plain
+    version's and its bound (the routed experts' 2 x 3 x 2048 x 1408 flops a
+    pair at the bf16 peak, against every expert's bf16 weights, x, the
+    shared output and the output once, and the f32 weights)."""
+    import torch
+
+    from visual_rag_tpu_torch.ops.kernels import moe_experts as me
+    from visual_rag_tpu_torch.tools.emulate_kernels import moe_inputs
+
+    t_phase = time.perf_counter()
+    t = KIMI_BATCH_ROWS
+    h, w, e, k = (KIMI_MOE[n] for n in ("hidden", "width", "experts", "top_k"))
+    entry = {"name": "moe_experts", "route": "cuda", "shape": [t, k, e, h, w], "max_abs_err": 0.0}
+    for spread, seed in (("skewed", 17), ("uniform", 18)):
+        args = moe_inputs(t, k, e, h, w, spread, seed=seed, device=dev)
+        before = me.moe_experts.launches
+        got, again = me.moe_experts(*args), me.moe_experts(*args)
+        want = me.moe_experts_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        top = float(want.float().abs().max())
+        empty = int((args[4].counts == 0).sum())
+        log(f"moe_experts {spread} [{t} rows x {k} of {e} experts, {empty} empty]: max_abs_err "
+            f"{err:.3g} of {top:.3g} (limit {MOE_TOL * top:.3g}) [{card}]")
+        if err > MOE_TOL * top or not torch.equal(got, again):
+            raise AssertionError(f"moe_experts {spread}: error {err} or two calls differ")
+        if me.moe_experts.launches != before + 2:
+            raise AssertionError("moe_experts did not count its launches")
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    ms = cuda_ms(lambda: me.moe_experts(*args), iters=20)
+    plain_ms = cuda_ms(lambda: me.moe_experts_plain(*args), iters=3)
+    flops = 2.0 * t * k * 3 * h * w
+    nbytes = e * 3 * h * w * 2 + 3 * t * h * 2 + t * k * 4
+    bound_ms, by = bound(nbytes, flops, "bf16")
+    log(f"moe_experts uniform [{t} x {k} of {e}]: kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+        f"bound {bound_ms:.4f} ms ({by}), {100 * bound_ms / ms:.1f}% of it [{card}]")
+    entry.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=by,
+                 launches=me.moe_experts.launches)
+    log(f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return entry
 
 
 if __name__ == "__main__":

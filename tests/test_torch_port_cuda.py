@@ -75,6 +75,18 @@ synchronisation (``torch.cuda.set_sync_debug_mode("error")``), and
 return what each batch alone returns, bit for bit, and batch 0's arrays
 are not written by any later batch.
 
+K11 (the routed experts, ``csrc/moe_experts.cu``) at Kimi-VL-A3B's widths
+(hidden 2048, expert width 1408, 64 experts, top 6) on a uniform and on a
+skewed layout (half the pairs on one expert, four experts with no token):
+within two bf16 roundings (2**-7 of the largest output) of its plain version
+(the same sorted layout through f32 matmuls on the card), two calls
+bit-equal, launches counted; the inputs it refuses. Latent attention through
+K10 at head dim 256 (``mha_padded``: q and k of 192, v of 128 zero-padded)
+against plain f32 attention at 192 / 128, in K10's bf16 tolerance. A
+Kimi-VL model at full widths cut to 1 vision and 2 text layers (a dense and
+a routed one) embeds a page batch with no stream synchronisation
+(``set_sync_debug_mode("error")``) and no copy from the card in its trace.
+
 Spans (``tracing.py``): under a CUDA-only profiler they record; a span
 given the card sets ``device_ms`` (no more than the host span of one that
 ends in a synchronise), one given none leaves it None; and they add no
@@ -82,6 +94,7 @@ device operation to the trace.
 """
 
 import contextlib
+import time
 
 import numpy as np
 import pytest
@@ -1320,3 +1333,109 @@ def test_spans_time_the_device_and_add_no_device_operation(dev):
     assert enqueue.device_ms is not None and enqueue.device_ms > 0
     assert host.name == "host" and host.device_ms is None
     tracing.clear()
+
+
+# K11 against its plain version: h, y and the output are each rounded to bf16 from f32
+# sums taken in another order, so they may land an ulp apart; the output's error stays
+# within two bf16 roundings of the largest output
+MOE_TOL = 2.0 ** -7
+KIMI_MOE = (6, 64, 2048, 1408)  # top k, experts, hidden, expert width
+
+
+@pytest.mark.parametrize("spread", ["uniform", "skewed"])
+def test_moe_experts_at_kimi_widths(dev, spread):
+    from visual_rag_tpu_torch.ops.kernels import moe_experts as me
+    from visual_rag_tpu_torch.tools.emulate_kernels import moe_inputs
+
+    args = moe_inputs(1000, *KIMI_MOE, spread, device=dev)
+    if spread == "skewed":
+        assert args[4].counts[60:].tolist() == [0] * 4 and int(args[4].counts[0]) == 1000
+    before = me.moe_experts.launches
+    got, again = me.moe_experts(*args), me.moe_experts(*args)
+    want = me.moe_experts_plain(*args)
+    torch.cuda.synchronize()
+    assert me.moe_experts.launches == before + 2
+    assert torch.equal(got, again)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= MOE_TOL * float(want.float().abs().max())
+
+
+def test_moe_experts_refuses_what_it_does_not_take(dev):
+    from visual_rag_tpu_torch.ops.kernels import moe_experts as me
+    from visual_rag_tpu_torch.tools.emulate_kernels import moe_inputs
+
+    x, gate, up, down, lay, w, base = moe_inputs(10, 2, 4, 256, 128, "uniform", device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        me.moe_experts(x.float(), gate, up, down, lay, w, base)
+    with pytest.raises(ValueError, match="f32"):
+        me.moe_experts(x, gate, up, down, lay, w.double(), base)
+    narrow = [a[:, :96].contiguous() for a in (gate, up)]  # an expert width of 96
+    with pytest.raises(ValueError, match="multiple"):
+        me.moe_experts(x, *narrow, down[..., :96].contiguous(), lay, w, base)
+    launches = me.moe_experts.launches
+    me.moe_experts(x, gate, up, down, lay, w, base)
+    assert me.moe_experts.launches == launches + 1
+
+
+def test_latent_attention_through_k10_at_dh256(dev):
+    from visual_rag_tpu_torch.models.attention import mha_padded
+    from visual_rag_tpu_torch.ops.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    b, t, h = 2, 300, 16
+    q, k = (torch.randn(b, t, h, 192, generator=gen, device=dev).bfloat16() for _ in range(2))
+    v = torch.randn(b, t, h, 128, generator=gen, device=dev).bfloat16()
+    mask = torch.arange(t, device=dev)[None] < torch.tensor([[300], [211]], device=dev)
+    before = flash_attention.launches
+    got = mha_padded(q, k, v, mask, causal=True, dtype=torch.bfloat16, to=256)
+    assert flash_attention.launches == before + 1 and got.shape == (b, t, h, 128)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * 192 ** -0.5
+    ok = torch.ones(t, t, dtype=torch.bool, device=dev).tril() & mask[:, None, None, :]
+    want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits.masked_fill(~ok, -1e30), -1),
+                        v.float())
+    rows = mask[..., None, None].expand_as(got)
+    _assert_fa_close(got.float()[rows], want[rows], torch.bfloat16)
+
+
+def test_kimi_forward_never_synchronises(dev):
+    """A page batch through a full-width Kimi-VL cut to 1 vision and 2 text
+    layers: no synchronising call (the sync debug mode raises on one) and
+    no copy from the card or stream synchronise in the profiler's trace."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from visual_rag_tpu_torch.models.colvlm import ColVLMConfig, RoutedMoE
+    from visual_rag_tpu_torch.models.embedder import VisualEmbedder
+
+    base = ColVLMConfig.kimi_vl_a3b()
+    cfg = dataclasses.replace(base, vision=dataclasses.replace(base.vision, layers=1),
+                              text=dataclasses.replace(base.text, layers=2))
+    emb = VisualEmbedder("moonshotai/Kimi-VL-A3B-Instruct", config=cfg, device=dev)
+    rng = np.random.default_rng(3)
+    proc = emb.processor.process_images(
+        [rng.integers(0, 256, (877, 620, 3), dtype=np.uint8) for _ in range(2)])
+    host = [proc.input_ids, proc.attn_mask, proc.patches.astype(np.float16), proc.patch_mask,
+            proc.patch_positions]
+    ids, am, patches, pm, pos = (torch.from_numpy(a).to(dev) for a in host)
+    grids = [(i["grid_h"], i["grid_w"]) for i in proc.token_infos]
+    model = emb.model
+    with torch.inference_mode():
+        model.embed_pages(ids, am, patches, pm, None, pos, grids)  # warm: cuBLAS, the library
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.time_ns()  # the profiler's clock
+                out = model.embed_pages(ids, am, patches, pm, None, pos, grids)
+                t1 = time.time_ns()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    assert not [e.name() for e in events if "DtoH" in e.name()]
+    assert not [e.name() for e in events
+                if "Synchronize" in e.name() and t0 <= e.start_ns() <= t1]
+    assert torch.isfinite(out).all() and out.shape[:2] == ids.shape
+    moe = [m for m in model.modules() if isinstance(m, RoutedMoE)]
+    assert len(moe) == 1 and int(moe[0].stats["tokens"].sum()) == 2 * ids.numel() * 6

@@ -29,6 +29,7 @@ import pytest
 
 from visual_rag_tpu_torch.tools.emulate_kernels import (
     DEDUP_CASES,
+    MOE_CASES,
     STAGE1_CASES,
     emulated_source,
     write_sources,
@@ -355,15 +356,16 @@ def emulated_library(tmp_path_factory):
 
 def _use_emulated(emulated_library, monkeypatch):
     """``use_library`` on the emulated build: the wrappers of K10, the pooled
-    stage-1 and K3 take CPU tensors to it until the test ends."""
+    stage-1, K3 and K11 take CPU tensors to it until the test ends."""
     from visual_rag_tpu_torch.ops.kernels import _build
     from visual_rag_tpu_torch.ops.kernels import flash_attention as fa
     from visual_rag_tpu_torch.ops.kernels import maxsim_rerank as mr
+    from visual_rag_tpu_torch.ops.kernels import moe_experts as me
     from visual_rag_tpu_torch.ops.kernels import prefetch_topk as pt
     from visual_rag_tpu_torch.tools.emulate_kernels import use_library
 
     monkeypatch.setattr(_build, "load_library", _build.load_library)  # undone after the test
-    for module in (fa, pt, mr):
+    for module in (fa, pt, mr, me):
         monkeypatch.setattr(module, "on_cpu", module.on_cpu)
         monkeypatch.setattr(module, "stream_ptr", module.stream_ptr)
     use_library(emulated_library)
@@ -499,3 +501,19 @@ def test_chip_smoke_strict_oracle_runs_once_at_the_wide_sides_tolerance(monkeypa
     queries = [rng.standard_normal((int(n), 128)).astype(np.float32) for n in (5, 9, 12)]
     assert strict_oracle(engine, queries, index.num_docs) == (mma, 1e-4 if mma else 0.0)
     assert calls == ["single_full", "two_stage"]
+
+
+@pytest.mark.parametrize("case", MOE_CASES, ids=["-".join(map(str, c)) for c in MOE_CASES])
+def test_emulated_moe_experts_matches_plain(emulated_library, monkeypatch, case):
+    """K11 from its CUDA source (the gate and up ``mma`` tiles sharing one
+    pass and the SiLU x up epilogue, the down tiles, the three-stage
+    ``cp.async`` ring with its zero-filled rows past an expert's last row,
+    the binary search of the tile starts, the fixed-order combine) through
+    ``moe_experts``: a skewed layout (one expert in every token's choice,
+    several experts with no token, part-full tiles), a uniform one over two
+    column blocks, and one token; within two bf16 roundings of the plain
+    version, two calls bit-equal, one launch counted a call."""
+    from visual_rag_tpu_torch.tools.emulate_kernels import check_moe
+
+    _use_emulated(emulated_library, monkeypatch)
+    assert check_moe(*case)

@@ -5,7 +5,7 @@ a span records nothing; on, spans close in order with their counts, lie on
 the profiler's clock (a span around a torch op contains the op's kineto
 interval), and the buffer drops what passes its bound. Then the names and
 counts each layer records: the processor and the patches' copy in the
-embedder, the engine's dispatch and finish around the plans' stage-1, the
+embedder, the model's vision tower and decoder, the engine's dispatch and finish around the plans' stage-1, the
 trainer's step and optimizer. The CUDA case (``device_ms``) is in
 ``test_torch_port_cuda.py``.
 """
@@ -111,12 +111,16 @@ def test_embed_batches_record_processor_and_copy():
     with recording():
         emb.embed_images(pages)
     recs = tracing.spans()
-    assert [s.name for s in recs] == ["processor.images", "embed.to_device"] * 2
+    assert [s.name for s in recs] == ["processor.images", "embed.to_device", "vision.tower",
+                                      "text.decoder"] * 2
     proc, copy = _named(recs, "processor.images"), _named(recs, "embed.to_device")
     assert [s.counts for s in proc] == [{"pages": 2}, {"pages": 1}]
     assert [s.counts for s in copy] == [{"pages": 2}, {"pages": 1}]
     for p, c in zip(proc, copy):
         assert p.end_ns <= c.start_ns and c.device_ms is None
+    for tower, decoder in zip(_named(recs, "vision.tower"), _named(recs, "text.decoder")):
+        assert tower.end_ns <= decoder.start_ns  # the tower's output goes into the decoder
+        assert tower.counts["patches"] > 0 and decoder.counts["tokens"] > 0
 
 
 def _engine_and_batches():
@@ -182,7 +186,10 @@ def test_train_step_spans():
     with recording():
         step(state.params, state.opt_state, batch)
     recs = tracing.spans()
-    assert [s.name for s in recs] == ["train.optimizer", "train.step"]
-    opt, root = recs
+    # the queries' decoder, then the pages' tower and decoder, then the update
+    assert [s.name for s in recs] == ["text.decoder", "vision.tower", "text.decoder",
+                                      "train.optimizer", "train.step"]
+    assert [s.counts for s in recs[:3]] == [{"tokens": 12}, {"patches": 128}, {"tokens": 136}]
+    opt, root = recs[-2:]
     assert _inside(opt, root) and opt.end_ns - opt.start_ns < root.end_ns - root.start_ns
     assert opt.counts == {} and root.counts == {}

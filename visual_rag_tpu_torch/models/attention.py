@@ -36,22 +36,38 @@ def segment_ids(mask: torch.Tensor, segments=None) -> torch.Tensor:
 
 
 def mha(q, k, v, mask, *, causal: bool, dtype, use_flash: bool = True, segments=None,
-        ring_axis=None):
+        ring_axis=None, sm_scale=None):
     """Multi-head attention with padding mask and optional segment restriction.
 
     q: [B, T, Hq, Dh]; k, v: [B, T, Hkv, Dh] with Hq a multiple of Hkv; mask:
-    [B, T] bool; segments: optional [B, T] int (tiles or windows). Returns
-    [B, T, Hq, Dh] in ``dtype``.
+    [B, T] bool; segments: optional [B, T] int (tiles or windows); sm_scale:
+    the logits' scale, ``Dh ** -0.5`` by default (latent attention gives its
+    own: its q and k are zero-padded). Returns [B, T, Hq, Dh] in ``dtype``.
     """
     if ring_axis is not None:
         raise NotImplementedError("ring attention (ring_axis) comes with the sharded slice")
     seg = segment_ids(mask, segments)
     if use_flash:
-        return flash_attention(q.to(dtype), k.to(dtype), v.to(dtype), seg, causal=causal)
-    return dense_attention(q, k, v, mask, seg, causal=causal, dtype=dtype)
+        return flash_attention(q.to(dtype), k.to(dtype), v.to(dtype), seg, causal=causal,
+                               sm_scale=sm_scale)
+    return dense_attention(q, k, v, mask, seg, causal=causal, dtype=dtype, sm_scale=sm_scale)
 
 
-def dense_attention(q, k, v, mask, seg, *, causal: bool, dtype) -> torch.Tensor:
+def mha_padded(q, k, v, mask, *, causal: bool, dtype, to: int, use_flash: bool = True):
+    """:func:`mha` of q, k [B, T, H, dk] and v [B, T, H, dv] at the kernel's
+    head dim ``to``: q and k zero-padded from dk, v from dv, the scale
+    ``dk ** -0.5``, the output cut back to dv. The pad columns add exactly 0
+    to every logit and give only outputs that are cut off, so this is the
+    (dk, dv) attention (latent attention's 192 / 128 through K10's 256)."""
+    dk, dv = q.shape[-1], v.shape[-1]
+    q, k = (torch.nn.functional.pad(a, (0, to - dk)) for a in (q, k))
+    v = torch.nn.functional.pad(v, (0, to - dv))
+    out = mha(q, k, v, mask, causal=causal, dtype=dtype, use_flash=use_flash,
+              sm_scale=dk ** -0.5)
+    return out[..., :dv]
+
+
+def dense_attention(q, k, v, mask, seg, *, causal: bool, dtype, sm_scale=None) -> torch.Tensor:
     """The JAX dense fallback (``attention.py:76-86``): f32 logits, masked to
     the f32 minimum (a row with no allowed key averages every key), softmax
     weights cast to ``dtype`` before the product with v."""
@@ -59,7 +75,8 @@ def dense_attention(q, k, v, mask, seg, *, causal: bool, dtype) -> torch.Tensor:
     rep = hq // k.shape[2]
     if rep > 1:
         k, v = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / float(dh) ** 0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    logits = logits / float(dh) ** 0.5 if sm_scale is None else logits * float(sm_scale)
     ok = mask[:, None, None, :] & (seg[:, None, :, None] == seg[:, None, None, :])
     if causal:
         ok = ok & torch.ones((t, t), dtype=torch.bool, device=q.device).tril()

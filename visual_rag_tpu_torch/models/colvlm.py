@@ -1,5 +1,5 @@
-"""ColVLM in PyTorch, for the configurations ColSmol-500M, ColPali-v1.3 and
-ColQwen2.5-v0.2 run.
+"""ColVLM in PyTorch, for the configurations ColSmol-500M, ColPali-v1.3,
+ColQwen2.5-v0.2 and Kimi-VL-A3B-Instruct run.
 
 Counterpart of ``visual_rag_tpu/models/colvlm.py``. The four config
 dataclasses and their classmethods (``:31-177``) are copied as they are, so
@@ -18,8 +18,19 @@ connector or the merger, the M-RoPE positions (``:620-652``), ``_lm``,
 (``:654-709``). With ``cfg.remat`` each decoder and vision block is
 rematerialized in training (``nn.remat``, ``:572-576``): ``torch.utils.
 checkpoint`` without reentrance, whenever grad is enabled. A config that
-needs more (MoE, scanned layers, ring attention) is refused with a
-``NotImplementedError`` naming the field.
+needs more (the softmax MoE, scanned layers, ring attention) is refused with
+a ``NotImplementedError`` naming the field.
+
+New in the port, with no JAX counterpart (Kimi-VL, ``kimi_vl_a3b``; its
+oracle is ``bench_port/reference/kimivl.py``): MoonViT's pieces in the
+vision tower (``VisionConfig.moonvit_pos_grid``: the learned position table
+interpolated to each page's grid, ``_rope_2d_pairs``, LayerNorms of
+``norm_eps``, the projector as a ``PatchMerger`` with a LayerNorm and the
+exact GELU); DeepSeek-V3's blocks in the decoder (``TextConfig.mla``:
+``MLAttention``; ``TextConfig.routed_moe``: ``RoutedMoE``, whose experts run
+on K11, ``ops/kernels/moe_experts.py``). Spans: ``vision.tower`` (count
+``patches``) and ``text.decoder`` (``tokens``) around the two towers, and
+``moe.experts`` (``tokens``, with the card's time) around each routed layer.
 
 Numerics follow flax's: a ``Dense`` with ``dtype`` bf16 casts its input, its
 kernel and its bias to bf16; ``LayerNorm`` takes its statistics in f32 with
@@ -54,7 +65,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from visual_rag_tpu_torch.models.attention import mha
+from visual_rag_tpu_torch.models.attention import mha, mha_padded
+from visual_rag_tpu_torch.ops.kernels.moe_experts import expert_layout, moe_experts
+from visual_rag_tpu_torch.tracing import span
 
 DEFAULT_EMBED_DIM = 128
 # the decoder MLP's activations: SwiGLU's SiLU, Gemma's GeGLU (tanh GELU)
@@ -89,6 +102,12 @@ class VisionConfig:
     post_ln: bool = True  # Qwen2.5-VL has no final vision LayerNorm
     rope_2d: bool = False  # Qwen2.5-VL 2D rotary over (row, col) positions
     rope_theta: float = 10000.0
+    # MoonViT (Kimi-VL): the side of its learned [G, G, hidden] position table,
+    # interpolated bicubically to each image's patch grid (0 = none). > 0 also
+    # selects its 2-D rotary on interleaved pairs (``_rope_2d_pairs``) and its
+    # projector: a LayerNorm before the 2 x 2 merge and the exact GELU.
+    moonvit_pos_grid: int = 0
+    norm_eps: float = 1e-6  # the LayerNorms' epsilon (MoonViT's: 1e-5)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +142,45 @@ class TextConfig:
     # Qwen2.5-VL M-RoPE: half-dim frequency bands partitioned into
     # (temporal, height, width) sections. None = standard 1D RoPE.
     mrope_section: Optional[tuple] = None
+    rms_eps: float = 1e-6  # the RMSNorms' epsilon (DeepSeek-V3's: 1e-5)
+    # DeepSeek-V3 blocks (Kimi-VL's text model): latent attention in every
+    # layer, the sigmoid-routed experts after ``routed_moe.first_dense`` dense
+    # layers. None = grouped-query attention, dense MLPs.
+    mla: Optional["MLAConfig"] = None
+    routed_moe: Optional["RoutedMoEConfig"] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V3's multi-head latent attention without a q LoRA: q from
+    the hidden state ([heads, nope + rope]); one down-projection to the
+    latent (``kv_lora_rank``) and a rope key shared by the heads; the
+    latent RMS-normed (``kv_norm_eps``: its norm is built without the
+    config's epsilon) and up-projected to each head's nope key and value."""
+
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_dim: int = 128
+    kv_norm_eps: float = 1e-6
+
+
+@dataclasses.dataclass(frozen=True)
+class RoutedMoEConfig:
+    """DeepSeek-V3's routed experts (``noaux_tc``, one group): sigmoid
+    scores in f32, the ``top_k`` of score + ``e_score_correction_bias``,
+    weights the chosen raw scores normalised (``norm_topk``) times
+    ``scaling``; every token reaches its experts (no capacity). Beside them
+    the shared experts as one SwiGLU ``shared_hidden`` wide. Layers below
+    ``first_dense`` keep the dense MLP."""
+
+    experts: int = 64
+    top_k: int = 6
+    expert_hidden: int = 1408
+    shared_hidden: int = 2816
+    first_dense: int = 1
+    scaling: float = 2.446
+    norm_topk: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,6 +246,25 @@ class ColVLMConfig:
         )
 
     @classmethod
+    def kimi_vl_a3b(cls) -> "ColVLMConfig":
+        """Kimi-VL-A3B-Instruct shape (MoonViT + a DeepSeek-V3-style MoE
+        decoder with latent attention), under ColQwen's 128-wide retrieval
+        head (no ColVLM checkpoint of it exists). ``vision.max_patches`` is
+        the processor's ``in_token_limit`` before the pad to the 2 x 2
+        merge; the image token is ``<|media_pad|>``."""
+        return cls(
+            vision=VisionConfig(hidden=1152, layers=27, heads=16, mlp_ratio=4304 / 1152,
+                                patch_pixels=3 * 14 * 14, max_patches=4096, attn_bias=True,
+                                rope_2d=True, moonvit_pos_grid=64, norm_eps=1e-5),
+            text=TextConfig(hidden=2048, layers=27, heads=16, kv_heads=16,
+                            mlp_hidden=11264, vocab=163840, rope_theta=800000.0,
+                            rms_eps=1e-5, mla=MLAConfig(), routed_moe=RoutedMoEConfig()),
+            spatial_merge=2,
+            image_token_id=163605,
+            proj_bias=True, hf_layout="kimi_vl",
+        )
+
+    @classmethod
     def tiny(cls) -> "ColVLMConfig":
         """Test/dry-run scale."""
         return cls(
@@ -210,13 +287,16 @@ _UNSUPPORTED = (
 
 def check_supported(cfg: ColVLMConfig) -> None:
     """Raise ``NotImplementedError`` naming the first field the port's
-    ColVLM does not run (MoE, scanned layers and ring attention come with
-    the sharded slice, ROADMAP A8; an MLP activation outside ``MLP_ACTS``)."""
+    ColVLM does not run (the JAX package's softmax MoE with its capacity,
+    scanned layers and ring attention come with the sharded slice, ROADMAP
+    A8; an MLP activation outside ``MLP_ACTS``). The sigmoid-routed experts
+    (``text.routed_moe``) run on one card."""
     for name, needs in _UNSUPPORTED:
         if needs(cfg):
             value = functools.reduce(getattr, name.split("."), cfg)
             raise NotImplementedError(f"the port's ColVLM does not run {name} = {value!r} "
-                                      "yet (ColSmol-, ColPali- and ColQwen2.5-shaped configs)")
+                                      "yet (ColSmol-, ColPali-, ColQwen2.5- and "
+                                      "Kimi-VL-shaped configs)")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -330,6 +410,35 @@ def _rope_2d(x: torch.Tensor, pos2d: torch.Tensor, theta: float) -> torch.Tensor
     return (x32 * torch.cos(emb) + rotated * torch.sin(emb)).to(x.dtype)
 
 
+def _rope_2d_pairs(x: torch.Tensor, pos2d: torch.Tensor, theta: float) -> torch.Tensor:
+    """MoonViT's vision rotary over [B, T, H, Dh]: Dh / 2 interleaved pairs
+    (2i, 2i + 1), each a complex number; pair 2m turns by ``col * inv[m]``
+    and pair 2m + 1 by ``row * inv[m]``, ``inv[m] = theta ** (-4m / Dh)``
+    (Dh / 4 frequencies an axis), on an f32 copy of x, the result cast back.
+    pos2d: [B, T, 2] (row, col)."""
+    b, t, h, dh = x.shape
+    inv = 1.0 / (theta ** (torch.arange(0, dh, 4, dtype=torch.float32, device=x.device)
+                           [: dh // 4] / dh))
+    ang = torch.stack([pos2d[..., 1:2].float() * inv, pos2d[..., 0:1].float() * inv], dim=-1)
+    ang = ang.reshape(b, t, 1, dh // 2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x32 = x.float().reshape(b, t, h, dh // 2, 2)
+    re, im = x32[..., 0], x32[..., 1]
+    return torch.stack([re * cos - im * sin, re * sin + im * cos], dim=-1).reshape(
+        b, t, h, dh).to(x.dtype)
+
+
+def _rope_deepseek(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """DeepSeek-V3's rotary over [B, T, H, d]: the pairs (2i, 2i + 1) turned
+    by ``position * theta ** (-2i / d)``, written de-interleaved (the even
+    elements, then the odd ones), as its ``apply_rotary_pos_emb`` leaves
+    them: :func:`_rope` of the de-interleaved x. q and k share the layout,
+    so their dot products are those of the pair rotation."""
+    b, t, h, d = x.shape
+    x = x.reshape(b, t, h, d // 2, 2).transpose(-1, -2).reshape(b, t, h, d)
+    return _rope(x, positions, theta)
+
+
 class GQAttention(nn.Module):
     """Grouped-query attention with optional RoPE (1-D, M-RoPE or the vision
     tower's 2-D rotary) and causal masking. The kv heads go to :func:`mha`
@@ -338,11 +447,13 @@ class GQAttention(nn.Module):
     def __init__(self, hidden: int, heads: int, kv_heads: int, dtype, *,
                  rope_theta: Optional[float] = None, causal: bool = True,
                  qkv_bias: bool = False, out_bias: bool = False,
-                 rope_2d_theta: Optional[float] = None, mrope_section=None, device=None):
+                 rope_2d_theta: Optional[float] = None, mrope_section=None,
+                 rope_2d_pairs: bool = False, device=None):
         super().__init__()
         self.heads, self.kv_heads, self.dh = heads, kv_heads, hidden // heads
         self.rope_theta, self.causal, self.dtype = rope_theta, causal, dtype
         self.rope_2d_theta, self.mrope_section = rope_2d_theta, mrope_section
+        self.rope_2d = _rope_2d_pairs if rope_2d_pairs else _rope_2d
         self.use_flash = True
         kw = dict(dtype=dtype, device=device)
         self.q = Dense(hidden, heads * self.dh, bias=qkv_bias, **kw)
@@ -359,8 +470,8 @@ class GQAttention(nn.Module):
         k = self.k(x).view(b, t, self.kv_heads, self.dh)
         v = self.v(x).view(b, t, self.kv_heads, self.dh)
         if self.rope_2d_theta is not None and positions_2d is not None:
-            q = _rope_2d(q, positions_2d, self.rope_2d_theta)
-            k = _rope_2d(k, positions_2d, self.rope_2d_theta)
+            q = self.rope_2d(q, positions_2d, self.rope_2d_theta)
+            k = self.rope_2d(k, positions_2d, self.rope_2d_theta)
         elif self.rope_theta is not None:
             if positions is None:
                 positions = torch.arange(t, device=x.device).expand(b, t)
@@ -369,6 +480,48 @@ class GQAttention(nn.Module):
         out = mha(q, k, v, mask, causal=self.causal, dtype=self.dtype,
                   use_flash=self.use_flash, segments=segments)
         return self.o(out.reshape(b, t, self.heads * self.dh))
+
+
+class MLAttention(nn.Module):
+    """DeepSeek-V3's latent attention (:class:`MLAConfig`), causal, with its
+    rotary on the rope parts of q and of the shared key, in its un-absorbed
+    form (the latent up-projected to every head's key and value). The
+    attention goes to K10 at head dim 256 (``mha_padded``: q and k of
+    ``nope + rope`` = 192 and v of 128 zero-padded, the scale 192 ** -0.5,
+    the output cut back), exactly the 192 / 128 attention; at Kimi-VL's
+    widths its FLOPs are ~1.5% of a page's."""
+
+    KERNEL_DH = 256
+
+    def __init__(self, hidden: int, heads: int, mla: MLAConfig, rope_theta: float, dtype,
+                 device=None):
+        super().__init__()
+        self.heads, self.mla, self.rope_theta, self.dtype = heads, mla, rope_theta, dtype
+        self.qk_dim = mla.qk_nope_dim + mla.qk_rope_dim
+        self.use_flash = True
+        kw = dict(bias=False, dtype=dtype, device=device)
+        self.q = Dense(hidden, heads * self.qk_dim, **kw)
+        self.kv_a = Dense(hidden, mla.kv_lora_rank + mla.qk_rope_dim, **kw)
+        self.kv_norm = RMSNorm(mla.kv_lora_rank, eps=mla.kv_norm_eps, device=device)
+        self.kv_b = Dense(mla.kv_lora_rank, heads * (mla.qk_nope_dim + mla.v_dim), **kw)
+        self.o = Dense(heads * mla.v_dim, hidden, **kw)
+
+    def forward(self, x, mask, positions=None):
+        b, t, _ = x.shape
+        m, h = self.mla, self.heads
+        if positions is None:
+            positions = torch.arange(t, device=x.device).expand(b, t)
+        q = self.q(x).view(b, t, h, self.qk_dim)
+        kv_a = self.kv_a(x)
+        kv = self.kv_b(self.kv_norm(kv_a[..., :m.kv_lora_rank])).view(
+            b, t, h, m.qk_nope_dim + m.v_dim)
+        q_pe = _rope_deepseek(q[..., m.qk_nope_dim:], positions, self.rope_theta)
+        k_pe = _rope_deepseek(kv_a[..., None, m.kv_lora_rank:], positions, self.rope_theta)
+        q = torch.cat([q[..., :m.qk_nope_dim], q_pe], dim=-1)
+        k = torch.cat([kv[..., :m.qk_nope_dim], k_pe.expand(b, t, h, m.qk_rope_dim)], dim=-1)
+        out = mha_padded(q, k, kv[..., m.qk_nope_dim:], mask, causal=True, dtype=self.dtype,
+                         to=self.KERNEL_DH, use_flash=self.use_flash)
+        return self.o(out.reshape(b, t, h * m.v_dim))
 
 
 class SwiGLU(nn.Module):
@@ -389,16 +542,106 @@ class SwiGLU(nn.Module):
         return self.down(self.act(self.gate(x)) * self.up(x))
 
 
-class DecoderBlock(nn.Module):
-    def __init__(self, cfg: TextConfig, dtype, device=None):
+class Stacked(nn.Module):
+    """``count`` Dense kernels of one shape: ``weight`` [count, out, in]."""
+
+    def __init__(self, count: int, n_in: int, n_out: int, dtype, device=None):
         super().__init__()
-        self.ln1 = RMSNorm(cfg.hidden, offset=cfg.rms_offset, device=device)
-        self.attn = GQAttention(cfg.hidden, cfg.heads, cfg.kv_heads, dtype,
-                                rope_theta=cfg.rope_theta, causal=cfg.causal,
-                                qkv_bias=cfg.attn_qkv_bias, mrope_section=cfg.mrope_section,
-                                device=device)
-        self.ln2 = RMSNorm(cfg.hidden, offset=cfg.rms_offset, device=device)
-        self.mlp = SwiGLU(cfg.hidden, cfg.mlp_hidden, dtype, act=cfg.mlp_act, device=device)
+        self.weight = nn.Parameter(torch.empty(count, n_out, n_in, dtype=dtype, device=device))
+
+
+class Router(nn.Module):
+    """DeepSeek-V3's gate: ``weight`` [experts, hidden] and
+    ``e_score_correction_bias`` (``bias``) [experts], both f32, as the gate
+    casts them."""
+
+    def __init__(self, hidden: int, experts: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(experts, hidden, device=device))
+        self.bias = nn.Parameter(torch.empty(experts, device=device))
+
+
+class RoutedMoE(nn.Module):
+    """The sigmoid-routed experts (:class:`RoutedMoEConfig`) beside the
+    shared experts, on one card.
+
+    Routing runs in f32 (logits, sigmoid scores, the bias). Tokens go to
+    their experts on the device with no host synchronise:
+    ``ops/kernels/moe_experts.py::expert_layout`` sorts the (token, expert)
+    pairs by expert with per-expert offsets computed on the device, and
+    ``moe_experts`` runs every expert's SwiGLU over its rows (K11 on the
+    card) and adds each token's weighted rows to the shared experts'
+    output. ``stats`` reads the per-expert token counts, summed over every
+    forward since the model was built, on demand (the forward only adds
+    them up on the device)."""
+
+    def __init__(self, hidden: int, cfg: RoutedMoEConfig, dtype, device=None):
+        super().__init__()
+        self.cfg, self.dtype = cfg, dtype
+        self.router = Router(hidden, cfg.experts, device=device)
+        self.experts = nn.Module()
+        self.experts.gate = Stacked(cfg.experts, hidden, cfg.expert_hidden, dtype, device)
+        self.experts.up = Stacked(cfg.experts, hidden, cfg.expert_hidden, dtype, device)
+        self.experts.down = Stacked(cfg.experts, cfg.expert_hidden, hidden, dtype, device)
+        self.shared = SwiGLU(hidden, cfg.shared_hidden, dtype, device=device)
+        self._tokens: Optional[torch.Tensor] = None
+
+    def route(self, x: torch.Tensor):
+        """(experts [N, top_k] int64, weights [N, top_k] f32) of rows x [N, hidden]."""
+        scores = torch.sigmoid(F.linear(x.float(), self.router.weight.float()))
+        idx = torch.topk(scores + self.router.bias.float(), self.cfg.top_k, dim=-1).indices
+        w = scores.gather(1, idx)
+        if self.cfg.norm_topk:
+            w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
+        return idx, w * self.cfg.scaling
+
+    def forward(self, x):
+        b, t, h = x.shape
+        flat = x.reshape(b * t, h)
+        with span("moe.experts", device=x.device, tokens=b * t):
+            idx, w = self.route(flat)
+            layout = expert_layout(idx, self.cfg.experts)
+            e = self.experts
+            out = moe_experts(flat.to(self.dtype), e.gate.weight.to(self.dtype),
+                              e.up.weight.to(self.dtype), e.down.weight.to(self.dtype),
+                              layout, w, base=self.shared(flat))
+            if self._tokens is None or self._tokens.device != x.device:
+                self._tokens = torch.zeros(self.cfg.experts, dtype=torch.int64, device=x.device)
+            self._tokens += layout.counts
+        return out.view(b, t, h)
+
+    @property
+    def stats(self) -> dict:
+        """{"tokens": the rows each expert took, summed over every forward
+        so far, a batch's padded rows among them} (a copy to the host: a
+        synchronise, so only on demand)."""
+        tokens = (torch.zeros(self.cfg.experts, dtype=torch.int64) if self._tokens is None
+                  else self._tokens.cpu())
+        return {"tokens": tokens}
+
+
+class DecoderBlock(nn.Module):
+    """A decoder layer: grouped-query attention, or latent attention with
+    ``cfg.mla``; a dense gated MLP, or with ``cfg.routed_moe`` the routed
+    experts from layer ``first_dense`` on (``index``: the layer's)."""
+
+    def __init__(self, cfg: TextConfig, dtype, device=None, index: int = 0):
+        super().__init__()
+        self.ln1 = RMSNorm(cfg.hidden, eps=cfg.rms_eps, offset=cfg.rms_offset, device=device)
+        if cfg.mla is not None:
+            self.attn = MLAttention(cfg.hidden, cfg.heads, cfg.mla, cfg.rope_theta, dtype,
+                                    device=device)
+        else:
+            self.attn = GQAttention(cfg.hidden, cfg.heads, cfg.kv_heads, dtype,
+                                    rope_theta=cfg.rope_theta, causal=cfg.causal,
+                                    qkv_bias=cfg.attn_qkv_bias,
+                                    mrope_section=cfg.mrope_section, device=device)
+        self.ln2 = RMSNorm(cfg.hidden, eps=cfg.rms_eps, offset=cfg.rms_offset, device=device)
+        moe = cfg.routed_moe
+        if moe is not None and index >= moe.first_dense:
+            self.mlp = RoutedMoE(cfg.hidden, moe, dtype, device=device)
+        else:
+            self.mlp = SwiGLU(cfg.hidden, cfg.mlp_hidden, dtype, act=cfg.mlp_act, device=device)
 
     def forward(self, x, mask, positions):
         h = x + self.attn(self.ln1(x), mask, positions)
@@ -418,13 +661,13 @@ class ViTBlock(nn.Module):
         def norm():
             if cfg.rms_norm:
                 return RMSNorm(cfg.hidden, device=device)
-            return LayerNorm(cfg.hidden, dtype, device=device)
+            return LayerNorm(cfg.hidden, dtype, eps=cfg.norm_eps, device=device)
 
         self.ln1 = norm()
         self.attn = GQAttention(cfg.hidden, cfg.heads, cfg.heads, dtype, causal=False,
                                 qkv_bias=cfg.attn_bias, out_bias=cfg.attn_bias,
                                 rope_2d_theta=cfg.rope_theta if cfg.rope_2d else None,
-                                device=device)
+                                rope_2d_pairs=cfg.moonvit_pos_grid > 0, device=device)
         self.ln2 = norm()
         self.gated = cfg.mlp_gated
         if cfg.mlp_gated:
@@ -467,22 +710,46 @@ class VisionTower(nn.Module):
         self.cfg, self.dtype, self.remat = cfg, dtype, remat
         self.patch_embed = Dense(cfg.patch_pixels, cfg.hidden, bias=cfg.patch_bias,
                                  dtype=dtype, device=device)
+        g = cfg.moonvit_pos_grid
         if cfg.learned_pos:
             s = cfg.pixel_shuffle
             rows = (8 * s) ** 2 if s > 1 else cfg.max_patches
-            self.pos_embed = nn.Parameter(torch.empty(rows, cfg.hidden, dtype=dtype,
-                                                      device=device))
+            shape = (g, g, cfg.hidden) if g else (rows, cfg.hidden)
+            self.pos_embed = nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
         self.blocks = nn.ModuleList(ViTBlock(cfg, dtype, device=device)
                                     for _ in range(cfg.layers))
-        self.post_ln = LayerNorm(cfg.hidden, dtype, device=device) if cfg.post_ln else None
+        self.post_ln = (LayerNorm(cfg.hidden, dtype, eps=cfg.norm_eps, device=device)
+                        if cfg.post_ln else None)
 
-    def forward(self, patches, patch_mask, window_ids=None, patch_positions=None):
+    def grid_positions(self, patch_positions, grids) -> torch.Tensor:
+        """MoonViT's learned positions [B, N, hidden]: the [G, G, hidden]
+        table interpolated bicubically (``align_corners=False``, in f32) to
+        each image's (rows, cols) grid, read at each patch's (row, col) and
+        cast to the model dtype; pads read row 0 (nothing reads their
+        outputs). ``grids``: each image's (rows, cols), host ints."""
+        if patch_positions is None or grids is None:
+            raise ValueError("MoonViT's positions need patch_positions and grids")
+        table = self.pos_embed.float().permute(2, 0, 1)[None]
+        tables, out = {}, []
+        for b, (gh, gw) in enumerate(grids):
+            gh, gw = int(gh), int(gw)
+            if (gh, gw) not in tables:
+                grid = F.interpolate(table, size=(gh, gw), mode="bicubic", align_corners=False)
+                tables[gh, gw] = grid[0].permute(1, 2, 0).reshape(gh * gw, -1).to(self.dtype)
+            pos = patch_positions[b].long()
+            out.append(tables[gh, gw][(pos[:, 0] * gw + pos[:, 1]).clamp(0, gh * gw - 1)])
+        return torch.stack(out)
+
+    def forward(self, patches, patch_mask, window_ids=None, patch_positions=None, grids=None):
         b, n, _ = patches.shape
-        if n > self.cfg.max_patches:
+        # MoonViT's grid is padded to the 2 x 2 merge after its token limit is met
+        if n > self.cfg.max_patches and not self.cfg.moonvit_pos_grid:
             raise ValueError(f"{n} patches exceeds vision.max_patches={self.cfg.max_patches}")
         x = self.patch_embed(patches.to(self.dtype))
         if self.cfg.learned_pos:
-            if self.cfg.pixel_shuffle > 1:
+            if self.cfg.moonvit_pos_grid:
+                x = x + self.grid_positions(patch_positions, grids)
+            elif self.cfg.pixel_shuffle > 1:
                 ids = tile_position_ids(n, self.cfg.pixel_shuffle, device=x.device)
                 x = x + self.pos_embed[ids][None].to(self.dtype)
             else:
@@ -512,20 +779,27 @@ def pixel_shuffle(feats: torch.Tensor, sps: int) -> torch.Tensor:
 class PatchMerger(nn.Module):
     """Qwen2.5-VL's 2 x 2 merge (``colvlm.py:537-553``): RMSNorm ``ln_q``,
     each ``merge ** 2`` consecutive patches (the processor's merge-block
-    order) folded into one row, then ``fc1``, tanh GELU, ``fc2``."""
+    order) folded into one row, then ``fc1``, tanh GELU, ``fc2``. With
+    ``moonvit_eps`` it is Kimi-VL's projector: ``ln_q`` a LayerNorm of that
+    epsilon and the exact GELU."""
 
-    def __init__(self, hidden: int, out_hidden: int, merge: int, dtype, device=None):
+    def __init__(self, hidden: int, out_hidden: int, merge: int, dtype, device=None,
+                 moonvit_eps: Optional[float] = None):
         super().__init__()
         m2 = merge * merge
         self.m2 = m2
-        self.ln_q = RMSNorm(hidden, device=device)
+        if moonvit_eps is None:
+            self.ln_q = RMSNorm(hidden, device=device)
+        else:
+            self.ln_q = LayerNorm(hidden, dtype, eps=moonvit_eps, device=device)
+        self.approximate = "tanh" if moonvit_eps is None else "none"
         self.fc1 = Dense(m2 * hidden, m2 * hidden, dtype=dtype, device=device)
         self.fc2 = Dense(m2 * hidden, out_hidden, dtype=dtype, device=device)
 
     def forward(self, x):
         b, n, h = x.shape
         x = self.ln_q(x).reshape(b, n // self.m2, self.m2 * h)
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
 
 
 class ColVLM(nn.Module):
@@ -539,16 +813,18 @@ class ColVLM(nn.Module):
         self.dtype = dtype
         self.vision = VisionTower(cfg.vision, dtype, device=device, remat=cfg.remat)
         if cfg.spatial_merge > 1:
+            moonvit = cfg.vision.norm_eps if cfg.vision.moonvit_pos_grid else None
             self.merger = PatchMerger(cfg.vision.hidden, cfg.text.hidden, cfg.spatial_merge,
-                                      dtype, device=device)
+                                      dtype, device=device, moonvit_eps=moonvit)
         else:
             sps = cfg.vision.pixel_shuffle
             self.connector = Dense(cfg.vision.hidden * sps * sps, cfg.text.hidden,
                                    bias=cfg.connector_bias, dtype=dtype, device=device)
         self.tok_embed = Embed(cfg.text.vocab, cfg.text.hidden, dtype, device=device)
-        self.layers = nn.ModuleList(DecoderBlock(cfg.text, dtype, device=device)
-                                    for _ in range(cfg.text.layers))
-        self.final_norm = RMSNorm(cfg.text.hidden, offset=cfg.text.rms_offset, device=device)
+        self.layers = nn.ModuleList(DecoderBlock(cfg.text, dtype, device=device, index=i)
+                                    for i in range(cfg.text.layers))
+        self.final_norm = RMSNorm(cfg.text.hidden, eps=cfg.text.rms_eps,
+                                  offset=cfg.text.rms_offset, device=device)
         self.proj = Dense(cfg.text.hidden, cfg.embed_dim, bias=cfg.proj_bias, dtype=dtype,
                           device=device)
         if param_dtype is not None:  # every parameter, as flax's param_dtype
@@ -564,12 +840,17 @@ class ColVLM(nn.Module):
         """Route every attention to K10 (True) or to the dense fallback."""
         self._use_flash = bool(flag)
         for m in self.modules():
-            if isinstance(m, GQAttention):
+            if isinstance(m, (GQAttention, MLAttention)):
                 m.use_flash = self._use_flash
 
-    def encode_images(self, patches, patch_mask, window_ids=None, patch_positions=None):
-        """[B, N, patch_pixels] -> [B, N', text_hidden] image token embeddings."""
-        feats = self.vision(patches, patch_mask, window_ids, patch_positions)
+    def encode_images(self, patches, patch_mask, window_ids=None, patch_positions=None,
+                      grids=None):
+        """[B, N, patch_pixels] -> [B, N', text_hidden] image token embeddings.
+        ``grids``: each image's (rows, cols) patch grid, host ints (MoonViT's
+        interpolated positions; unread by the other towers)."""
+        b, n = patches.shape[:2]
+        with span("vision.tower", patches=b * n):
+            feats = self.vision(patches, patch_mask, window_ids, patch_positions, grids)
         if self.cfg.spatial_merge > 1:
             return self.merger(feats)
         if self.cfg.vision.pixel_shuffle > 1:
@@ -605,9 +886,10 @@ class ColVLM(nn.Module):
         if positions is None:
             positions = (torch.cumsum(mask.to(torch.int32), dim=1) - 1).clamp(min=0)
         h = embeds
-        for blk in self.layers:
-            h = run_block(blk, self.cfg.remat, h, mask, positions)
-        return self.final_norm(h)
+        with span("text.decoder", tokens=h.shape[0] * h.shape[1]):
+            for blk in self.layers:
+                h = run_block(blk, self.cfg.remat, h, mask, positions)
+            return self.final_norm(h)
 
     def _project(self, h, mask):
         e = self.proj(h).float()
@@ -621,7 +903,7 @@ class ColVLM(nn.Module):
         return x * float(torch.tensor(self.cfg.text.hidden ** power, dtype=x.dtype))
 
     def forward(self, input_ids, attn_mask, patches=None, patch_mask=None, window_ids=None,
-                patch_positions=None):
+                patch_positions=None, grids=None):
         """Pages (ids holding image placeholders, filled with the image
         embeddings in order, as HF's masked_scatter does) or plain queries.
         With ``text.embed_scale`` (PaliGemma) the image features are divided
@@ -632,7 +914,7 @@ class ColVLM(nn.Module):
         x = self.tok_embed(input_ids)
         if patches is not None:
             img = self.encode_images(patches, patch_mask, window_ids,
-                                     patch_positions)  # [B, Ni, H]
+                                     patch_positions, grids)  # [B, Ni, H]
             if self.cfg.text.embed_scale:
                 img = self._scaled(img, -0.5)
             is_img = input_ids == self.cfg.image_token_id
@@ -651,5 +933,6 @@ class ColVLM(nn.Module):
         return self(input_ids, attn_mask)
 
     def embed_pages(self, input_ids, attn_mask, patches, patch_mask, window_ids=None,
-                    patch_positions=None):
-        return self(input_ids, attn_mask, patches, patch_mask, window_ids, patch_positions)
+                    patch_positions=None, grids=None):
+        return self(input_ids, attn_mask, patches, patch_mask, window_ids, patch_positions,
+                    grids)

@@ -113,8 +113,8 @@ def init_params(cfg: ColVLMConfig, seed: int = 0, device="cuda",
         leaf = name.rsplit(".", 1)[-1]
         if name in ("tok_embed.weight", "vision.pos_embed"):
             t.normal_(0.0, 0.02, generator=gen)
-        elif leaf == "weight":  # Dense kernels, [out, in]
-            std = (1.0 / ref.shape[1]) ** 0.5 / _TRUNC_STD
+        elif leaf == "weight":  # Dense kernels, [out, in] (stacked experts: [E, out, in])
+            std = (1.0 / ref.shape[-1]) ** 0.5 / _TRUNC_STD
             torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
         elif leaf == "bias" or name in offset:
             t.zero_()

@@ -2,7 +2,10 @@
 
 Counterpart of ``visual_rag_tpu/models/embedder.py`` for every backend of
 its ``_CONFIG_BY_BACKEND`` (``:49-54``): ColSmol-500M, ColPali-v1.3 and
-ColQwen2.5-v0.2 (the ``colqwen2.5`` and ``colqwen2`` names both):
+ColQwen2.5-v0.2 (the ``colqwen2.5`` and ``colqwen2`` names both), and one
+the JAX package lacks, ``kimivl`` (Kimi-VL-A3B-Instruct under ColQwen's
+retrieval head: its merged grid pools as ColQwen2.5's does, and its pages
+carry their patch grids to the model for MoonViT's positions):
 
 - ``embed_query`` / ``embed_queries`` with the optional length sort, the
   NaN/Inf guard that logs the query and recomputes it alone, and the
@@ -55,6 +58,8 @@ MODEL_BACKENDS = {
     "colqwen2_5": "colqwen2.5",
     "colqwen2": "colqwen2",
     "colpali": "colpali",
+    "kimi-vl": "kimivl",
+    "kimivl": "kimivl",
 }
 
 
@@ -64,7 +69,10 @@ _CONFIG_BY_BACKEND = {
     "colpali": ColVLMConfig.colpali_v13,
     "colqwen2.5": ColVLMConfig.colqwen25_v02,
     "colqwen2": ColVLMConfig.colqwen25_v02,
+    "kimivl": ColVLMConfig.kimi_vl_a3b,
 }
+# the backends whose image tokens form one 2-D merged grid, pooled by its rows
+GRID_BACKENDS = ("colqwen2.5", "kimivl")
 
 
 def detect_backend(model_name: str) -> str:
@@ -243,8 +251,10 @@ class VisualEmbedder:
                 dev = self._to_device(host + [a for a in extra if a is not None])
             it = iter(dev[4:])
             wids, ppos = (None if a is None else next(it) for a in extra)
+            grids = ([(info["grid_h"], info["grid_w"]) for info in proc.token_infos]
+                     if self.cfg.vision.moonvit_pos_grid else None)
             with torch.inference_mode():
-                out = self.model.embed_pages(dev[0], dev[1], dev[2], dev[3], wids, ppos)
+                out = self.model.embed_pages(dev[0], dev[1], dev[2], dev[3], wids, ppos, grids)
             if pending is not None:
                 drain(*pending)
             pending = (out, proc)
@@ -264,13 +274,13 @@ class VisualEmbedder:
     def mean_pool_visual_embedding(self, visual_embedding,
                                    token_info: Optional[Dict[str, Any]] = None, *,
                                    target_vectors: Optional[int] = 32) -> np.ndarray:
-        """ColSmol: per-tile means. ColQwen2.5: adaptive row means of its
-        effective grid under the ``target_vectors`` cap. Otherwise (ColPali):
+        """ColSmol: per-tile means. ColQwen2.5 and Kimi-VL: adaptive row means
+        of the effective grid under the ``target_vectors`` cap. Otherwise (ColPali):
         row means of a square grid (adaptive bins where the grid is not the
         cap), else sequence chunks."""
-        is_colqwen25 = self.backend == "colqwen2.5"
+        on_grid = self.backend in GRID_BACKENDS
         cap = None if target_vectors is None or int(target_vectors) <= 0 else int(target_vectors)
-        if not is_colqwen25 and cap is None:
+        if not on_grid and cap is None:
             cap = 32
         visual_np = np.asarray(visual_embedding, dtype=np.float32)
         num_tokens = int(visual_np.shape[0])
@@ -283,7 +293,7 @@ class VisualEmbedder:
                 visual_np, num_tiles=num_tiles, patches_per_tile=64,
                 output_dtype=self.output_dtype))
 
-        if is_colqwen25:
+        if on_grid:
             gh, gw = info.get("grid_h_eff"), info.get("grid_w_eff")
             if gh and gw and int(gh) * int(gw) == num_tokens:
                 target_rows = int(gh) if cap is None else min(cap, int(gh))
@@ -293,7 +303,7 @@ class VisualEmbedder:
 
         grid = int(round(num_tokens ** 0.5))
         if grid * grid == num_tokens:
-            target = grid if (is_colqwen25 and cap is None) else int(cap)
+            target = grid if (on_grid and cap is None) else int(cap)
             if grid == target:
                 return np.asarray(pool_ops.colpali_row_mean_pooling(
                     visual_np, grid_size=target, output_dtype=self.output_dtype))
@@ -320,7 +330,7 @@ class VisualEmbedder:
         the legacy clipped-window conv (ColPali's default, window 3; N rows
         -> N + 2) or a same-length gaussian, triangular or uniform kernel
         (ColQwen2.5's default: gaussian)."""
-        is_colqwen25 = self.backend == "colqwen2.5"
+        on_grid = self.backend in GRID_BACKENDS
         visual_np = np.asarray(visual_embedding, dtype=np.float32)
 
         if self.backend == "colsmol":
@@ -338,9 +348,9 @@ class VisualEmbedder:
 
         rows = mean_pool if mean_pool is not None else self.mean_pool_visual_embedding(
             visual_np, token_info, target_vectors=target_vectors)
-        k = (kernel or ("gaussian" if is_colqwen25 else "legacy")).lower().strip()
+        k = (kernel or ("gaussian" if on_grid else "legacy")).lower().strip()
         if k in ("legacy", "legacy_conv", "conv"):
-            window = int(window_size) if window_size is not None else (5 if is_colqwen25 else 3)
+            window = int(window_size) if window_size is not None else (5 if on_grid else 3)
             return np.asarray(pool_ops.colpali_experimental_pooling_from_rows(
                 rows, window_size=window, output_dtype=self.output_dtype))
         window = int(window_size) if window_size is not None else 3

@@ -15,6 +15,13 @@ geometry contracts:
 - ColPali: fixed 32x32 = 1024 patch grid
 - ColQwen2.5: dynamic-resolution grid with 2x2 spatial merge; emits the
   pre-merge grid (grid_h/grid_w) and effective grid (grid_h_eff/grid_w_eff)
+- Kimi-VL (``kimivl``, new in the port): its image processor's rule, the
+  page scaled by one factor so that (W // 14) * (H // 14) <= its
+  ``in_token_limit`` of patches (4096), then padded at the bottom and right
+  to multiples of 28 px (the 2 x 2 merge); patches in merge-block order
+  with their (row, col), the grid as ColQwen's; the image's placeholder run
+  between its media markers. The port resizes nearest-neighbour where
+  Kimi-VL's processor resizes bicubically.
 
 The tokenizer is a deterministic byte-hash tokenizer (ids >= 4, so the
 reference's special-token filter heuristic `input_ids >= 4` keeps real text
@@ -24,6 +31,7 @@ tokens); swap in an HF tokenizer for checkpoint-faithful inference.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,7 +54,12 @@ HF_IMAGE_STATS = {
     "colpali": ((0.5, 0.5, 0.5), (0.5, 0.5, 0.5)),
     "colqwen2.5": (_CLIP_MEAN, _CLIP_STD),
     "colqwen2": (_CLIP_MEAN, _CLIP_STD),
+    "kimivl": ((0.5, 0.5, 0.5), (0.5, 0.5, 0.5)),
 }
+# Kimi-VL's media markers around an image's run of placeholders (its tokenizer's
+# <|media_start|> and <|media_content|> before, <|media_end|> after; the
+# placeholder <|media_pad|> is the config's image token): (before, after)
+MEDIA_TOKENS = {"kimivl": ((163602, 163603), (163604,))}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -104,6 +117,19 @@ def _resize_nn(img: np.ndarray, h: int, w: int) -> np.ndarray:
     ys = np.clip((np.arange(h) * img.shape[0] / h).astype(int), 0, img.shape[0] - 1)
     xs = np.clip((np.arange(w) * img.shape[1] / w).astype(int), 0, img.shape[1] - 1)
     return img.take(ys, axis=0).take(xs, axis=1)
+
+
+def _merge_block_order(gh: int, gw: int, m: int = 2):
+    """(rows, cols) of a gh x gw patch grid in merge-block order: each m x m
+    block of the grid consecutive, row-major inside, the blocks row-major
+    (Qwen2.5-VL's ``rot_pos_emb`` permute (h/m, m, w/m, m))."""
+    hpos = np.repeat(np.arange(gh), gw).reshape(gh, gw)
+    wpos = np.tile(np.arange(gw), (gh, 1))
+
+    def merge_order(a):
+        return a.reshape(gh // m, m, gw // m, m).transpose(0, 2, 1, 3).reshape(-1)
+
+    return merge_order(hpos), merge_order(wpos)
 
 
 @dataclasses.dataclass
@@ -206,14 +232,7 @@ class ImageProcessor:
         # (h/m, m, w/m, m) permute). The PatchMerger's [N/m2, m2*H] grouping
         # and the 2D rotary positions both depend on this order, so real
         # checkpoints require it exactly.
-        m = 2
-        hpos = np.repeat(np.arange(gh), gw).reshape(gh, gw)
-        wpos = np.tile(np.arange(gw), (gh, 1))
-
-        def merge_order(a):
-            return a.reshape(gh // m, m, gw // m, m).transpose(0, 2, 1, 3).reshape(-1)
-
-        hp, wp = merge_order(hpos), merge_order(wpos)
+        hp, wp = _merge_block_order(gh, gw)
         perm = hp * gw + wp  # row-major index of each output slot
         patches = patches[perm]
         positions = np.stack([hp, wp], axis=-1).astype(np.int32)  # [N, 2]
@@ -229,6 +248,33 @@ class ImageProcessor:
             "grid_h_eff": h_eff, "grid_w_eff": w_eff,
             "_window_ids": self._last_window_ids,
             "_patch_positions": positions,
+        }
+        return patches, info
+
+    def _image_tokens_kimivl(self, image: np.ndarray):
+        """Kimi-VL's ``rescale`` with ``pad_input`` (module docstring):
+        ``in_token_limit`` = ``max_visual_tokens`` x 4 patches; pad pixels
+        black (``-mean / std`` once normalised)."""
+        limit = self.max_visual_tokens * 4
+        ps = self.patch_side
+        h_px, w_px = image.shape[0], image.shape[1]
+        if (w_px // ps) * (h_px // ps) > limit:
+            scale = math.sqrt(limit / ((w_px // ps) * (h_px // ps)))
+            image = _resize_nn(image, int(h_px * scale), int(w_px * scale))
+        m = 2
+        gh = -(-image.shape[0] // (m * ps)) * m
+        gw = -(-image.shape[1] // (m * ps)) * m
+        canvas = np.empty((gh * ps, gw * ps, 3), np.float32)
+        canvas[...] = -self.image_mean / self.image_std
+        canvas[: image.shape[0], : image.shape[1]] = image
+        hp, wp = _merge_block_order(gh, gw, m)
+        patches = self._patchify(canvas, gh, gw)[hp * gw + wp]
+        info = {
+            "n_rows": None, "n_cols": None, "num_tiles": None,
+            "num_visual_tokens": (gh // m) * (gw // m),
+            "grid_t": 1, "grid_h": gh, "grid_w": gw,
+            "grid_h_eff": gh // m, "grid_w_eff": gw // m,
+            "_patch_positions": np.stack([hp, wp], axis=-1).astype(np.int32),
         }
         return patches, info
 
@@ -256,6 +302,8 @@ class ImageProcessor:
                     per_image.append(self._image_tokens_colsmol(arr))
                 elif self.backend in ("colqwen2.5", "colqwen2"):
                     per_image.append(self._image_tokens_colqwen(arr))
+                elif self.backend == "kimivl":
+                    per_image.append(self._image_tokens_kimivl(arr))
                 else:
                     per_image.append(self._image_tokens_colpali(arr))
             # Bucket the padded batch shapes to multiples of 128/64 so the jitted
@@ -263,7 +311,7 @@ class ImageProcessor:
             # (per-shape recompiles dominated ingest time on TPU otherwise).
             # The bucket is capped at the vision tower's patch capacity.
             n_act = max(p.shape[0] for p, _ in per_image)
-            if self.backend in ("colqwen2.5", "colqwen2"):
+            if self.backend in ("colqwen2.5", "colqwen2", "kimivl"):
                 ratio = 4  # 2x2 spatial merge: patches per visual token
             else:
                 ratio = self.pixel_shuffle * self.pixel_shuffle
@@ -271,10 +319,11 @@ class ImageProcessor:
             bucket = 128 if self.pixel_shuffle <= 1 else (8 * self.pixel_shuffle) ** 2
             n_patches = max(n_act, min(_round_up(n_act, bucket), patch_capacity))
             prompt_ids = self.tokenizer.encode(prompt)
+            before, after = MEDIA_TOKENS.get(self.backend, ((), ()))
             b = len(images)
             # image tokens after merge (colqwen merges 4 patches -> 1 token)
             n_img_tokens = [info["num_visual_tokens"] for _, info in per_image]
-            seq = _round_up(max(n_img_tokens) + len(prompt_ids), 64)
+            seq = _round_up(max(n_img_tokens) + len(before) + len(after) + len(prompt_ids), 64)
             del pooled  # the JAX host-buffer pool is not ported: plain allocations
 
             def buf(shape, dtype, fill=None):
@@ -300,13 +349,13 @@ class ImageProcessor:
                 if patch_positions is not None and info.get("_patch_positions") is not None:
                     patch_positions[i, : p.shape[0]] = info.pop("_patch_positions")
                 nv = info["num_visual_tokens"]
-                input_ids[i, :nv] = self.image_token_id
-                input_ids[i, nv : nv + len(prompt_ids)] = prompt_ids
-                attn_mask[i, : nv + len(prompt_ids)] = True
+                text = [*before, *[self.image_token_id] * nv, *after, *prompt_ids]
+                input_ids[i, : len(text)] = text
+                attn_mask[i, : len(text)] = True
                 info = dict(info)
                 info.pop("_window_ids", None)
                 info.pop("_patch_positions", None)
-                info["visual_token_indices"] = list(range(nv))
+                info["visual_token_indices"] = list(range(len(before), len(before) + nv))
                 infos.append(info)
             return ProcessedImages(patches, patch_mask, input_ids, attn_mask, infos,
                                    window_ids=window_ids,

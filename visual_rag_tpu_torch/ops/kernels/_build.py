@@ -76,6 +76,7 @@ def _declare(lib):
     lib.vrt_pooled_maxsim_scores_packed.restype = i32
     _declare_stage1(lib)
     _declare_flash(lib)
+    _declare_moe(lib)
     lib.vrt_error_string.argtypes = [i32]
     lib.vrt_error_string.restype = ctypes.c_char_p
     return lib
@@ -95,6 +96,13 @@ def _declare_stage1(lib):
     lib.vrt_pooled_stage1_scores.argtypes = [
         i32, vp, i32, vp, vp, i32, i32, i32, vp, i32, vp, vp]
     lib.vrt_pooled_stage1_scores.restype = i32
+
+
+def _declare_moe(lib):
+    """The C interface of K11, the routed experts (``moe_experts.cu``)."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.vrt_moe_experts.argtypes = [i32] + [vp] * 10 + [i32] * 6 + [vp] * 4
+    lib.vrt_moe_experts.restype = i32
 
 
 def _declare_flash(lib):

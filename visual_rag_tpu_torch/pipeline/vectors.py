@@ -35,13 +35,13 @@ def experimental_vector_plan(
     """Centralized experimental-vector naming + production plan.
 
     Returns {"names": [...], "canonical": str, "producers": {name: spec}}:
-    - ColQwen2.5: gaussian + triangular k=3 always; canonical = gaussian
-      (alias 'experimental_pooling')
+    - ColQwen2.5 (and Kimi-VL, whose merged grid is ColQwen's): gaussian +
+      triangular k=3 always; canonical = gaussian (alias 'experimental_pooling')
     - ColPali: one vector per window k (legacy conv); canonical = first k
     - ColSmol: tile-structured pooling; optional 2d 4-neighborhood variant
     """
     producers: Dict[str, Dict[str, Any]] = {}
-    if backend == "colqwen2.5" or backend == "colqwen2":
+    if backend in ("colqwen2.5", "colqwen2", "kimivl"):
         for tech in ("gaussian", "triangular"):
             producers[f"experimental_pooling_{tech}"] = {"kind": "smooth", "kernel": tech, "window": 3}
         canonical = "experimental_pooling_gaussian"

@@ -3,9 +3,11 @@
     python visual_rag_tpu_torch/tools/emulate_kernels.py [--asan] [DH,T,HQ,HKV,CAUSAL,TILE ...]
     python visual_rag_tpu_torch/tools/emulate_kernels.py --stage1 [--asan] [B,D,P,DTYPE,SCALED,SMS ...]
     python visual_rag_tpu_torch/tools/emulate_kernels.py --dedup [--asan] [B,K,D,NQ,DTYPE,...]
+    python visual_rag_tpu_torch/tools/emulate_kernels.py --moe [--asan] [T,TOPK,E,HIDDEN,...]
 
 compiles ``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``,
-``csrc/pooled_stage1.cu`` and ``csrc/maxsim_dedup_mma.cu`` with g++ against
+``csrc/pooled_stage1.cu``, ``csrc/maxsim_dedup_mma.cu`` and ``csrc/moe_experts.cu``
+with g++ against
 ``tools/cuda_emu.h`` (a CPU model
 of the CUDA launch: threads, barriers, shuffles, NaN-filled shared memory of
 the launch's exact size, the SM count the grid is sized by, and the
@@ -27,7 +29,9 @@ the 8-head groups of ColPali's and ColQwen2.5's text).
 ``STAGE1_CASES``: queries, docs, pooled rows, store dtype, scales, SMs), and
 ``--dedup`` K3's tensor-core body (``check_dedup``, the cases of
 ``DEDUP_CASES``: queries, candidates each, docs, query rows, store dtype,
-per-doc scales, SMs, how the candidates spread).
+per-doc scales, SMs, how the candidates spread), and ``--moe`` K11, the
+routed experts (``check_moe``, the cases of ``MOE_CASES``: tokens, experts a
+token, experts, hidden, expert width, how the tokens spread).
 ``--asan`` builds with AddressSanitizer, which must be preloaded:
 ``LD_PRELOAD=$(gcc -print-file-name=libasan.so) ASAN_OPTIONS=detect_leaks=0``.
 
@@ -50,7 +54,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 SOURCES = ("flash_common.cuh", "flash_mma.cuh", "flash_attention.cu", "flash_attention_bwd.cu",
-           "pooled_stage1.cu", "maxsim_dedup_mma.cu")
+           "pooled_stage1.cu", "maxsim_dedup_mma.cu", "moe_experts.cu")
 CASES = ((64, 130, 3, 1, True, None), (72, 150, 4, 4, False, None), (72, 200, 2, 2, True, 64),
          (80, 100, 2, 2, False, None), (80, 200, 2, 2, False, 64), (128, 90, 4, 2, True, None),
          (256, 100, 8, 1, False, None), (256, 150, 2, 1, True, 40),
@@ -73,6 +77,11 @@ DEDUP_CASES = ((6, 7, 40, 3, "bf16", False, 132, "uniform"),
                (24, 4, 5, 16, "f16", False, 4, "heavy"),
                (4, 5, 7, 130, "int8", True, 2, "uniform"),
                (12, 8, 13, 24, "int8", False, 132, "heavy"))
+# K11: (tokens, experts a token, experts, hidden, expert width, spread). "skewed" sends
+# most pairs to expert 0 (many tiles, a part-full last one) and leaves some experts
+# empty; "uniform" spreads them; one token; widths of one and of several column blocks
+MOE_CASES = ((37, 2, 5, 128, 64, "skewed"), (70, 3, 4, 256, 128, "uniform"),
+             (1, 2, 6, 128, 64, "uniform"))
 
 
 def emulated_source(text: str) -> str:
@@ -112,33 +121,37 @@ def build(asan: bool, out: Path = ROOT / "build" / "kernels" / "emu") -> Path:
            "-I", str(Path(__file__).resolve().parent), "-o", str(lib), "-x", "c++",
            str(out / "src" / "flash_attention.cu"), str(out / "src" / "flash_attention_bwd.cu"),
            str(out / "src" / "pooled_stage1.cu"), str(out / "src" / "maxsim_dedup_mma.cu"),
-           str(out / "src" / "errors.cpp")]
+           str(out / "src" / "moe_experts.cu"), str(out / "src" / "errors.cpp")]
     subprocess.run(cmd, check=True)
     return lib
 
 
 def use_library(lib_path: Path):
     """Point the wrappers' kernel path at the emulated library for CPU tensors:
-    the flash-attention wrappers', the pooled stage-1's (``prefetch_topk``)
-    and K3's (``maxsim_rerank``; its tensor-core body, the only one built)."""
+    the flash-attention wrappers', the pooled stage-1's (``prefetch_topk``),
+    K3's (``maxsim_rerank``; its tensor-core body, the only one built) and
+    K11's (``moe_experts``)."""
     from visual_rag_tpu_torch.ops.kernels import _build
     from visual_rag_tpu_torch.ops.kernels import flash_attention as fa
     from visual_rag_tpu_torch.ops.kernels import maxsim_rerank as mr
+    from visual_rag_tpu_torch.ops.kernels import moe_experts as me
     from visual_rag_tpu_torch.ops.kernels import prefetch_topk as pt
 
     lib = ctypes.CDLL(str(lib_path))
     _build._declare_flash(lib)
     _build._declare_stage1(lib)
     _build._declare_dedup_mma(lib)
+    _build._declare_moe(lib)
     for fn in (lib.vrt_flash_attention, lib.vrt_flash_attention_bwd_dkv,
                lib.vrt_flash_attention_bwd_dq, lib.vrt_flash_attention_bwd_dkv_scratch,
-               lib.vrt_pooled_stage1_scores, lib.vrt_rerank_candidates_dedup_mma):
+               lib.vrt_pooled_stage1_scores, lib.vrt_rerank_candidates_dedup_mma,
+               lib.vrt_moe_experts):
         fn.argtypes = [ctypes.c_void_p, *fn.argtypes[1:]]  # a CPU tensor's device index: None
     lib.vrt_error_string.argtypes = [ctypes.c_int]
     lib.vrt_error_string.restype = ctypes.c_char_p
     lib.vrt_emu_set_sms.argtypes = [ctypes.c_int]
     _build.load_library = lambda: lib
-    for mod in (fa, pt, mr):
+    for mod in (fa, pt, mr, me):
         mod.on_cpu = lambda t: False
         mod.stream_ptr = lambda device: ctypes.c_void_p(None)
     return fa
@@ -340,14 +353,75 @@ def dedup_case(text: str):
     return int(b), int(k), int(d), int(nq), dtype, scaled == "True", int(sms), spread
 
 
+def moe_inputs(t, topk, e, hidden, inter, spread, seed=0, device="cpu"):
+    """x, gate, up, down, the layout, the weights and the shared output of
+    one K11 case in bf16, drawn on ``device`` (the card's tests and
+    ``chip_smoke.py`` draw Kimi-VL's widths there). ``skewed``: expert 0 in
+    every token's choice and the last ``max(2, e // 16)`` experts in none."""
+    import torch
+
+    from visual_rag_tpu_torch.ops.kernels.moe_experts import expert_layout
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=device).mul_(scale).bfloat16()
+
+    x = normal(t, hidden)
+    gate, up = normal(e, inter, hidden, scale=hidden ** -0.5), normal(e, inter, hidden,
+                                                                        scale=hidden ** -0.5)
+    down = normal(e, hidden, inter, scale=inter ** -0.5)
+    scores = torch.rand(t, e, generator=gen, device=device)
+    if spread == "skewed":
+        scores[:, 0] = 2.0
+        scores[:, e - max(2, e // 16):] = -1.0
+    idx = torch.topk(scores, topk, dim=-1).indices
+    w = torch.rand(t, topk, generator=gen, device=device)
+    return x, gate, up, down, expert_layout(idx, e), w, normal(t, hidden)
+
+
+def check_moe(t, topk, e, hidden, inter, spread) -> bool:
+    """K11 through ``moe_experts`` against its plain version: within 2**-7
+    of the output's largest value (two bf16 roundings: h, y and the output
+    are rounded on both sides from f32 sums taken in another order), two
+    calls bit-equal, one launch counted a call."""
+    import torch
+
+    from visual_rag_tpu_torch.ops.kernels import moe_experts as me
+
+    args = moe_inputs(t, topk, e, hidden, inter, spread)
+    t0 = time.perf_counter()
+    before = me.moe_experts.launches
+    got, again = (me.moe_experts(*args) for _ in range(2))
+    want = me.moe_experts_plain(*args)
+    err = float((got.float() - want.float()).abs().max())
+    top = float(want.float().abs().max())
+    good = (err <= 2.0 ** -7 * top and torch.equal(got, again)
+            and me.moe_experts.launches == before + 2)
+    empty = int((args[4].counts == 0).sum())
+    print(f"moe T {t} top {topk} E {e} hidden {hidden} width {inter} {spread} ({empty} experts "
+          f"empty): max abs err {err:.3g} of {top:.3g} ({time.perf_counter() - t0:.1f} s) "
+          f"{'ok' if good else 'FAIL'}", flush=True)
+    return good
+
+
+def moe_case(text: str):
+    """``T,TOPK,E,HIDDEN,WIDTH,SPREAD`` as a case of ``MOE_CASES``."""
+    t, k, e, h, n, spread = text.split(",")
+    return int(t), int(k), int(e), int(h), int(n), spread
+
+
 def main(argv) -> int:
     sys.path.insert(0, str(ROOT))
     asan = "--asan" in argv
     stage1 = "--stage1" in argv
     dedup = "--dedup" in argv
-    args = [c for c in argv if c not in ("--asan", "--stage1", "--dedup")]
+    moe = "--moe" in argv
+    args = [c for c in argv if c not in ("--asan", "--stage1", "--dedup", "--moe")]
     fa = use_library(build(asan))
-    if stage1:
+    if moe:
+        ok = all([check_moe(*case) for case in ([moe_case(c) for c in args] or MOE_CASES)])
+    elif stage1:
         cases = [stage1_case(c) for c in args] or STAGE1_CASES
         ok = all([check_stage1(*case) for case in cases])
     elif dedup:
